@@ -1,0 +1,110 @@
+# flow_tpu_torch.solvers.krylov (cg, bicgstab) against the JAX package on
+# small numpy systems in float64: equal iteration counts and solutions.
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from flow_tpu.solvers import krylov as jk
+from flow_tpu_torch.solvers import krylov as tk
+
+torch.set_num_threads(1)
+
+N = 60
+
+
+def _spd(rng):
+    Q, _ = np.linalg.qr(rng.standard_normal((N, N)))
+    return Q @ np.diag(np.geomspace(1.0, 10.0, N)) @ Q.T
+
+
+def _laplacian_1d():
+    """Singular path-graph Laplacian; its nullspace is the constant vector."""
+    A = 2.0 * np.eye(N) - np.eye(N, k=1) - np.eye(N, k=-1)
+    A[0, 0] = A[-1, -1] = 1.0
+    return A
+
+
+def _nonsymmetric(rng):
+    return np.eye(N) * 4.0 + rng.standard_normal((N, N)) / np.sqrt(N)
+
+
+def _run(solver, A, b, x0=None, precond=False, **kw):
+    """Solve with the JAX and the port version; return both (x, iters)."""
+    diag = np.diag(A).copy()
+    out = []
+    for xp, mod in ((jnp, jk), (torch, tk)):
+        At = xp.asarray(A) if xp is jnp else torch.as_tensor(A)
+        bt = xp.asarray(b) if xp is jnp else torch.as_tensor(b)
+        dt = xp.asarray(diag) if xp is jnp else torch.as_tensor(diag)
+        x0t = None if x0 is None else (
+            xp.asarray(x0) if xp is jnp else torch.as_tensor(x0)
+        )
+        extra = dict(kw)
+        if "nullspace" in extra:
+            ones = np.ones(N)
+            extra["nullspace"] = [
+                xp.asarray(ones) if xp is jnp else torch.as_tensor(ones)
+            ]
+        x, info = getattr(mod, solver)(
+            lambda v, At=At: At @ v, bt, x0=x0t,
+            M=(lambda r, dt=dt: r / dt) if precond else None, **extra,
+        )
+        out.append((np.asarray(x), int(info.iters), bool(info.converged)))
+    return out
+
+
+@pytest.mark.parametrize("precond", [False, True])
+@pytest.mark.parametrize("with_x0", [False, True])
+def test_cg_spd_matches_jax(precond, with_x0):
+    rng = np.random.default_rng(0)
+    A = _spd(rng)
+    b = rng.standard_normal(N)
+    x0 = rng.standard_normal(N) if with_x0 else None
+    (xj, kj, cj), (xt, kt, ct) = _run("cg", A, b, x0, precond, rtol=1e-12)
+    assert kt == kj and ct == cj
+    np.testing.assert_allclose(xt, xj, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("precond", [False, True])
+def test_cg_nullspace_matches_jax(precond):
+    rng = np.random.default_rng(1)
+    A = _laplacian_1d()
+    b = rng.standard_normal(N)
+    b -= b.mean()  # consistent right-hand side
+    (xj, kj, cj), (xt, kt, ct) = _run(
+        "cg", A, b, None, precond, rtol=1e-12, nullspace=True
+    )
+    assert kt == kj and ct and cj
+    np.testing.assert_allclose(xt, xj, rtol=0, atol=1e-12)
+
+
+def test_cg_stops_at_maxiter_like_jax():
+    rng = np.random.default_rng(2)
+    A = _spd(rng)
+    b = rng.standard_normal(N)
+    (xj, kj, cj), (xt, kt, ct) = _run("cg", A, b, rtol=1e-14, maxiter=7)
+    assert kt == kj == 7 and not ct and not cj
+    np.testing.assert_allclose(xt, xj, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("precond", [False, True])
+@pytest.mark.parametrize("with_x0", [False, True])
+def test_bicgstab_matches_jax(precond, with_x0):
+    rng = np.random.default_rng(3)
+    A = _nonsymmetric(rng)
+    b = rng.standard_normal(N)
+    x0 = rng.standard_normal(N) if with_x0 else None
+    (xj, kj, cj), (xt, kt, ct) = _run(
+        "bicgstab", A, b, x0, precond, rtol=1e-11
+    )
+    assert kt == kj and ct == cj
+    np.testing.assert_allclose(xt, xj, rtol=0, atol=1e-12)
+
+
+def test_bicgstab_atol_and_zero_rhs_match_jax():
+    # b = 0: the stall guard ends the loop after one iteration in both
+    A = _nonsymmetric(np.random.default_rng(4))
+    (xj, kj, _), (xt, kt, _) = _run("bicgstab", A, np.zeros(N), atol=-1.0)
+    assert kt == kj
+    np.testing.assert_array_equal(xt, xj)
