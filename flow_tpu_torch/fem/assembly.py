@@ -1,16 +1,24 @@
 # Assembly primitives. Port of flow_tpu/fem/assembly.py, cut to what the
-# 3-D box path calls. Every caller is setup code (diagonal preconditioners,
-# the stencil probe, boundary rows, the coarse dense matrix), so everything
-# here is host numpy in float64; callers cast and move the results to their
-# device once.
+# 3-D box path and the 2-D Karman window route call.
+#
+# Setup (geometry, reference tensors, diagonals, element matrices) is host
+# numpy in float64; callers cast and move the results to their device once.
+# The per-step quadrature evaluations (values_at_qp, grads_at_qp,
+# integrate_rhs, BoundaryTab) are torch on the state's device, over device
+# copies of the geometry (geometry_on) and of the tabulations (Tab.on) made
+# once per (dtype, device).
 #
 # Per-element geometry is two tiny tensors: detJ [nc] and G = J^{-T}
-# [nc,3,3]; constant-coefficient forms use exact factored reference tensors.
+# [nc,dim,dim]; constant-coefficient forms use exact factored reference
+# tensors.
 from __future__ import annotations
 
+import copy
 from functools import lru_cache
+from types import SimpleNamespace
 
 import numpy as np
+import torch
 
 from . import elements, quadrature
 from .spaces import FunctionSpace
@@ -22,6 +30,13 @@ __all__ = [
     "CONV_RULE",
     "Geometry",
     "geometry",
+    "geometry_on",
+    "Tab",
+    "tabulation",
+    "values_at_qp",
+    "grads_at_qp",
+    "integrate_rhs",
+    "BoundaryTab",
     "ref_mass",
     "ref_stiffness",
     "ref_mixed",
@@ -33,24 +48,37 @@ __all__ = [
 
 
 class Geometry:
-    """Per-element affine geometry of a tet mesh: detJ [nc], G = J^{-T}
-    [nc,3,3] (grad_phys[d] = G[d,k] grad_ref[k]) and the exact stiffness
-    factor C = detJ * G^T G."""
+    """Per-element affine geometry of a triangle or tet mesh: detJ [nc],
+    G = J^{-T} [nc,dim,dim] (grad_phys[d] = G[d,k] grad_ref[k]) and the
+    exact stiffness factor C = detJ * G^T G. Host float64."""
 
     def __init__(self, mesh):
         p = mesh.points_np
         c = mesh.cells_np
+        dim = getattr(mesh, "dim", 2)
         # edge vectors J columns: dvec[:, :, k] = p_{k+1} - p_0
         dvecs = np.stack(
-            [p[c[:, k + 1]] - p[c[:, 0]] for k in range(3)], axis=-1
+            [p[c[:, k + 1]] - p[c[:, 0]] for k in range(dim)], axis=-1
         )  # [nc, dim(space), dim(ref)]
-        d0, d1, d2 = dvecs[:, :, 0], dvecs[:, :, 1], dvecs[:, :, 2]
-        c0 = np.cross(d1, d2)
-        c1 = np.cross(d2, d0)
-        c2 = np.cross(d0, d1)
-        detJ = np.einsum("ed,ed->e", d0, c0)
-        # J^{-T} columns are the cross products / det
-        inv = np.stack([c0, c1, c2], axis=-1) / detJ[:, None, None]
+        if dim == 2:
+            d0, d1 = dvecs[:, :, 0], dvecs[:, :, 1]
+            detJ = d0[:, 0] * d1[:, 1] - d0[:, 1] * d1[:, 0]  # > 0 (CCW)
+            inv = np.stack(
+                [
+                    np.stack([d1[:, 1], -d0[:, 1]], axis=-1),
+                    np.stack([-d1[:, 0], d0[:, 0]], axis=-1),
+                ],
+                axis=-2,
+            ) / detJ[:, None, None]
+        else:
+            d0, d1, d2 = dvecs[:, :, 0], dvecs[:, :, 1], dvecs[:, :, 2]
+            c0 = np.cross(d1, d2)
+            c1 = np.cross(d2, d0)
+            c2 = np.cross(d0, d1)
+            detJ = np.einsum("ed,ed->e", d0, c0)
+            # J^{-T} columns are the cross products / det
+            inv = np.stack([c0, c1, c2], axis=-1) / detJ[:, None, None]
+        self.dim = dim
         self.detJ = detJ
         self.G = inv
         self.C = np.einsum("edk,edl->ekl", inv, inv) * detJ[:, None, None]
@@ -61,6 +89,62 @@ def geometry(mesh) -> Geometry:
     if not hasattr(mesh, "_geom_cache"):
         mesh._geom_cache = Geometry(mesh)
     return mesh._geom_cache
+
+
+def geometry_on(mesh, dtype, device):
+    """Device copy (detJ, G, C as tensors) of the mesh geometry, cached on
+    the mesh per (dtype, device)."""
+    cache = mesh.__dict__.setdefault("_geom_dev", {})
+    key = (dtype, torch.device(device))
+    g = cache.get(key)
+    if g is None:
+        host = geometry(mesh)
+        g = SimpleNamespace(
+            **{
+                k: torch.as_tensor(getattr(host, k), dtype=dtype, device=device)
+                for k in ("detJ", "G", "C")
+            }
+        )
+        cache[key] = g
+    return g
+
+
+class Tab:
+    """Tabulation of a basis at a quadrature rule: host float64 arrays
+    (w, phi, dphi), and their device copies through on()."""
+
+    def __init__(self, degree, rule_degree, dim=2):
+        pts, w = quadrature.simplex_rule(rule_degree, dim)
+        phi, dphi = elements.tabulate(degree, pts, dim=dim)
+        self.w = np.asarray(w, dtype=np.float64)
+        self.phi = np.asarray(phi, dtype=np.float64)
+        self.dphi = np.asarray(dphi, dtype=np.float64)
+        self.nq = len(w)
+        self.nl = phi.shape[1]
+        self._dev = {}
+
+    def on(self, dtype, device):
+        key = (dtype, torch.device(device))
+        t = self._dev.get(key)
+        if t is None:
+            t = SimpleNamespace(
+                **{
+                    k: torch.as_tensor(getattr(self, k), dtype=dtype,
+                                       device=device)
+                    for k in ("w", "phi", "dphi")
+                }
+            )
+            self._dev[key] = t
+        return t
+
+
+@lru_cache(maxsize=None)
+def _tab_cached(degree, rule_degree, dim):
+    return Tab(degree, rule_degree, dim=dim)
+
+
+def tabulation(space, rule_degree) -> Tab:
+    return _tab_cached(space.degree, rule_degree, _dim(space))
 
 
 def _dim(space):
@@ -121,7 +205,127 @@ def stiffness_diag(space, geom):
     return space.dof_sum(np.einsum("ekl,kli->ei", geom.C, Kd))
 
 
+# ---------------------------------------------------------------------------
+# Quadrature-point evaluation (torch, on the state's device); `tab` is a
+# Tab.on(...) view and `geom` a geometry_on(...) view
+# ---------------------------------------------------------------------------
+def values_at_qp(tab, Uloc):
+    """Uloc [nc,nl(,m)] -> values at qp [nc,nq(,m)]."""
+    if Uloc.dim() == 2:
+        return torch.einsum("ql,el->eq", tab.phi, Uloc)
+    return torch.einsum("ql,elm->eqm", tab.phi, Uloc)
+
+
+def grads_at_qp(tab, geom, Uloc):
+    """Uloc [nc,nl(,m)] -> physical gradients [nc,nq(,m),dim]."""
+    if Uloc.dim() == 2:
+        return torch.einsum("qlk,edk,el->eqd", tab.dphi, geom.G, Uloc)
+    return torch.einsum("qlk,edk,elm->eqmd", tab.dphi, geom.G, Uloc)
+
+
+def integrate_rhs(space, tab, geom, val=None, grad=None):
+    """Assemble sum_e int_e (val . phi_i + grad : grad(phi_i)) into
+    [n_dofs(,m)]. val: [nc,nq(,m)]; grad: [nc,nq(,m),dim]."""
+    wd = tab.w[None, :] * geom.detJ[:, None]  # [nc, nq]
+    loc = None
+    if val is not None:
+        if val.dim() == 2:
+            loc = torch.einsum("eq,qi->ei", wd * val, tab.phi)
+        else:
+            loc = torch.einsum("eqm,eq,qi->eim", val, wd, tab.phi)
+    if grad is not None:
+        if grad.dim() == 3:
+            g = torch.einsum("eqd,eq,qik,edk->ei", grad, wd, tab.dphi, geom.G)
+        else:
+            g = torch.einsum(
+                "eqmd,eq,qik,edk->eim", grad, wd, tab.dphi, geom.G
+            )
+        loc = g if loc is None else loc + g
+    return space.dof_sum(loc)
+
+
 def stiffness_local(space, geom):
     """Explicit element stiffness matrices [nc, nl, nl]."""
     Kref = ref_stiffness(space.degree, _dim(space))
     return np.einsum("ekl,klij->eij", geom.C, Kref)
+
+
+# ---------------------------------------------------------------------------
+# Boundary (facet) tabulation of a 2-D space -- for ds-integrals
+# ---------------------------------------------------------------------------
+class BoundaryTab:
+    """The basis on each boundary edge at 1-D Gauss points, as device
+    tensors in `dtype` on `device` (defaults: the mesh's):
+
+      phi  [nb, nq1, nl]      basis values at facet quadrature points
+      dphi [nb, nq1, nl, 2]   reference gradients there
+      wl   [nb, nq1]          quadrature weight * facet length
+      normals [nb, 2], Gb [nb, 2, 2] (the facet cell's G), cell_dofs [nb, nl]
+    """
+
+    def __init__(self, space: FunctionSpace, rule_degree=4, dtype=None,
+                 device=None):
+        mesh = space.mesh
+        dtype = mesh.dtype if dtype is None else dtype
+        device = mesh.device if device is None else torch.device(device)
+        s, w1 = quadrature.edge_rule(rule_degree)
+        nq1 = len(s)
+        # reference coords of edge k at parameter s: v_{k+1}(1-s) + v_{k+2}s
+        ref_v = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
+        phi_k = np.empty((3, nq1, space.n_local))
+        dphi_k = np.empty((3, nq1, space.n_local, 2))
+        for k in range(3):
+            a, b = (k + 1) % 3, (k + 2) % 3
+            pts = ref_v[a][None] * (1 - s)[:, None] + ref_v[b][None] * s[:, None]
+            phi_k[k], dphi_k[k] = elements.tabulate(space.degree, pts)
+
+        loc = mesh.boundary_local_np
+        cells = mesh.boundary_cells_np.astype(np.int64)
+
+        def dev(a, dt=dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                   device=device)
+
+        self.phi = dev(phi_k[loc])
+        self.dphi = dev(dphi_k[loc])
+        self.wl = dev(w1[None, :] * mesh.boundary_lengths_np[:, None])
+        self.normals = dev(mesh.boundary_normals_np)
+        self.Gb = dev(geometry(mesh).G[cells])
+        self.cell_dofs_np = space.cell_dofs_np[cells]
+        self.cell_dofs = dev(self.cell_dofs_np, torch.int64)
+        self.space = space
+        self.nq1 = nq1
+
+    def permuted(self, inv):
+        """A copy whose dof indices are renumbered by `inv` (old -> new), for
+        operators that live in a permuted numbering."""
+        out = copy.copy(self)
+        out.cell_dofs_np = np.asarray(inv)[self.cell_dofs_np]
+        out.cell_dofs = torch.as_tensor(out.cell_dofs_np, dtype=torch.int64,
+                                        device=self.cell_dofs.device)
+        return out
+
+    def gather(self, U):
+        return U[self.cell_dofs]  # [nb,nl(,m)]
+
+    def values(self, U):
+        Uloc = self.gather(U)
+        if Uloc.dim() == 2:
+            return torch.einsum("bql,bl->bq", self.phi, Uloc)
+        return torch.einsum("bql,blm->bqm", self.phi, Uloc)
+
+    def grads(self, U):
+        Uloc = self.gather(U)
+        if Uloc.dim() == 2:
+            return torch.einsum("bqlk,bdk,bl->bqd", self.dphi, self.Gb, Uloc)
+        return torch.einsum("bqlk,bdk,blm->bqmd", self.dphi, self.Gb, Uloc)
+
+    def integrate_rhs(self, val):
+        """sum_facets int (val . phi_i) ds -> [n_dofs(,m)]; val [nb,nq1(,m)]."""
+        if val.dim() == 2:
+            loc = torch.einsum("bq,bq,bqi->bi", val, self.wl, self.phi)
+        else:
+            loc = torch.einsum("bqm,bq,bqi->bim", val, self.wl, self.phi)
+        flat = loc.reshape((-1,) + loc.shape[2:])
+        out = flat.new_zeros((self.space.n_dofs,) + flat.shape[1:])
+        return out.index_add_(0, self.cell_dofs.reshape(-1), flat)

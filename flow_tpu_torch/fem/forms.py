@@ -1,0 +1,139 @@
+# Weak-form operators of the incompressible-flow forms. Port of
+# flow_tpu/fem/forms.py, cut to what the 2-D Karman window route calls
+# (forms.py:59-222 of the JAX package).
+#
+# Torch on the state's device: `geom` is an assembly.geometry_on view
+# (detJ, G, C tensors), tabulations come from assembly.Tab.on. Vector fields
+# are [n_dofs, dim]; scalar fields [n_dofs]. Constant-coefficient forms use
+# exact factored reference tensors; coefficient-dependent forms evaluate at
+# quadrature points.
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import assembly, elements
+from .assembly import ref_mixed, ref_stiffness
+
+__all__ = [
+    "mass_loc",
+    "sym_grad_loc",
+    "pressure_grad_loc",
+    "skew_convection_lagged_loc",
+    "div_rhs",
+    "grad_div_ustar",
+    "grad_div_ustar_rhs",
+    "grad_phi_rhs",
+]
+
+_CONST = {}
+
+
+def _const(key, make, like):
+    """Device copy of a small host reference tensor, cached per
+    (key, dtype, device)."""
+    k = (key, like.dtype, like.device)
+    t = _CONST.get(k)
+    if t is None:
+        t = torch.as_tensor(np.asarray(make()), dtype=like.dtype,
+                            device=like.device)
+        _CONST[k] = t
+    return t
+
+
+def _dim(V):
+    return assembly._dim(V)
+
+
+def _Mref(V, like):
+    return _const(("mass", V.degree, _dim(V)),
+                  lambda: assembly.ref_mass(V.degree, _dim(V)), like)
+
+
+def _Kref(V, like):
+    return _const(("stiff", V.degree, _dim(V)),
+                  lambda: ref_stiffness(V.degree, _dim(V)), like)
+
+
+def _Bref(V, Q, like):
+    return _const(("mixed", Q.degree, V.degree, _dim(V)),
+                  lambda: ref_mixed(Q.degree, V.degree, _dim(V)), like)
+
+
+def mass_loc(V, geom, Uloc):
+    return torch.einsum("ij,ejm,e->eim", _Mref(V, Uloc), Uloc, geom.detJ)
+
+
+def sym_grad_loc(V, geom, Uloc, mu):
+    """2 mu eps(u):eps(v) local contributions [nc, nl, dim]."""
+    Kref = _Kref(V, Uloc)
+    loc = torch.einsum("ekl,klij,eja->eia", geom.C, Kref, Uloc)
+    loc = loc + torch.einsum(
+        "e,eak,ebl,klji,ejb->eia", geom.detJ, geom.G, geom.G, Kref, Uloc
+    )
+    return mu * loc
+
+
+def pressure_grad_loc(V, Q, geom, Ploc):
+    """int p d_a(v_i) local contributions [nc, nl, dim] (exact)."""
+    return torch.einsum(
+        "e,eak,kmi,em->eia", geom.detJ, geom.G, _Bref(V, Q, Ploc), Ploc
+    )
+
+
+def skew_convection_lagged_loc(V, geom, Tloc, Uloc, rule_degree=5):
+    """Skew convection with a fixed transport field T (linear in U):
+    0.5 [((T.grad)u, v) - ((T.grad)v, u)] at the element level."""
+    tab = assembly.tabulation(V, rule_degree).on(Uloc.dtype, Uloc.device)
+    Tq = assembly.values_at_qp(tab, Tloc)  # [e,q,d]
+    Uq = assembly.values_at_qp(tab, Uloc)  # [e,q,a]
+    gradU = assembly.grads_at_qp(tab, geom, Uloc)  # [e,q,a,d]
+    val = 0.5 * torch.einsum("eqd,eqad->eqa", Tq, gradU)
+    grad = -0.5 * torch.einsum("eqd,eqa->eqad", Tq, Uq)
+    wd = tab.w[None, :] * geom.detJ[:, None]
+    loc = torch.einsum("eqm,eq,qi->eim", val, wd, tab.phi)
+    loc = loc + torch.einsum("eqmd,eq,qik,edk->eim", grad, wd, tab.dphi, geom.G)
+    return loc
+
+
+def div_rhs(V, Q, geom, U):
+    """b[m] = int div(u) q_m (exact; u in V=P2 vector, q in Q=P1)."""
+    Uloc = V.gather(U)
+    loc = torch.einsum(
+        "e,ebk,kmj,ejb->em", geom.detJ, geom.G, _Bref(V, Q, U), Uloc
+    )
+    return Q.dof_sum(loc)
+
+
+def grad_div_ustar(V, geom, U):
+    """Per-element constant grad(div u*) [nc, dim] for P2 u*."""
+    Href = _const(("hess", V.degree, _dim(V)),
+                  lambda: elements.hessian_ref(V.degree, _dim(V)), U)
+    Uloc = V.gather(U)
+    return torch.einsum("eak,edl,jkl,eja->ed", geom.G, geom.G, Href, Uloc)
+
+
+def grad_div_ustar_rhs(V, Q, geom, U):
+    """b[m] = int grad(div u*) . grad(q_m) (exact; q in P1)."""
+    dim = _dim(V)
+    v = grad_div_ustar(V, geom, U)  # [e,dim]
+    dref = _const(
+        ("p1grad", Q.degree, dim),
+        lambda: elements.tabulate(Q.degree, np.zeros((1, dim)), dim=dim)[1][0],
+        U,
+    )
+    # grad q_m = G[d,k] dref[m,k]; simplex volume = detJ / dim!
+    volfac = 0.5 if dim == 2 else (1.0 / 6.0)
+    loc = volfac * torch.einsum("e,ed,edk,mk->em", geom.detJ, v, geom.G, dref)
+    return Q.dof_sum(loc)
+
+
+def grad_phi_rhs(V, Q, geom, phi, div_part=None, rule_degree=3):
+    """b[(i,a)] = int grad(phi)_a v_i, phi in Q (P1), plus an optional
+    per-element-constant gradient `div_part` [nc, dim]."""
+    tab = assembly.tabulation(V, rule_degree).on(phi.dtype, phi.device)
+    qtab = assembly.tabulation(Q, rule_degree).on(phi.dtype, phi.device)
+    gphi = assembly.grads_at_qp(qtab, geom, Q.gather(phi))  # [e,q,dim]
+    if div_part is not None:
+        gphi = gphi + div_part[:, None, :]
+    return assembly.integrate_rhs(V, tab, geom, val=gphi)

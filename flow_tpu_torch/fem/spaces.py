@@ -1,9 +1,11 @@
 # Function spaces and dof maps. Port of flow_tpu/fem/spaces.py.
 #
-# A FunctionSpace is a static dof numbering built on the host in numpy. In
-# the port every caller of gather/dof_sum is setup code (diagonals, boundary
-# rows, the coarse dense matrix), so both work on numpy arrays; the JAX
-# package's gather tables for a scatter-free device dof_sum are not needed.
+# A FunctionSpace is a static dof numbering built on the host in numpy.
+# gather/dof_sum take numpy arrays (setup: diagonals, boundary rows, the
+# coarse dense matrix) or torch tensors (the per-step forms); on tensors the
+# sum is index_add_ over a device copy of the cell-dof table, made once per
+# device. The JAX package's gather tables for a scatter-free dof sum are a
+# TPU device and are not carried over.
 #
 # Dof numbering:
 #   P1: dof i == mesh vertex i.
@@ -49,9 +51,14 @@ class FunctionSpace:
         self.cell_dofs_np = cell_dofs.astype(np.int64)
         self.dof_points_np = dof_points
 
+        self._cell_dofs_dev = {}
+
         # boundary dof flags
         bnd_vertex = np.zeros(mesh.n_points, dtype=bool)
-        bnd_vertex[mesh.boundary_faces_np.ravel()] = True
+        if self.dim == 2:
+            bnd_vertex[mesh.edges_np[mesh.boundary_edges_np].ravel()] = True
+        else:
+            bnd_vertex[mesh.boundary_faces_np.ravel()] = True
         if degree == 1:
             self._on_boundary = bnd_vertex
         else:
@@ -60,12 +67,28 @@ class FunctionSpace:
             self._on_boundary = np.concatenate([bnd_vertex, bnd_edge])
 
     # -- dof gathering / summation ------------------------------------------
+    def cell_dofs_on(self, device):
+        """The cell-dof table [n_cells, n_local] as int64 on `device`."""
+        device = torch.device(device)
+        cd = self._cell_dofs_dev.get(device)
+        if cd is None:
+            cd = torch.as_tensor(self.cell_dofs_np, device=device)
+            self._cell_dofs_dev[device] = cd
+        return cd
+
     def gather(self, U):
         """U [n_dofs(,m)] -> local values [n_cells, n_local(,m)]."""
+        if isinstance(U, torch.Tensor):
+            return U[self.cell_dofs_on(U.device)]
         return U[self.cell_dofs_np]
 
     def dof_sum(self, local_vals):
         """Sum local contributions [n_cells, n_local(,m)] into [n_dofs(,m)]."""
+        if isinstance(local_vals, torch.Tensor):
+            idx = self.cell_dofs_on(local_vals.device).reshape(-1)
+            flat = local_vals.reshape((idx.shape[0],) + local_vals.shape[2:])
+            out = flat.new_zeros((self.n_dofs,) + local_vals.shape[2:])
+            return out.index_add_(0, idx, flat)
         local_vals = np.asarray(local_vals)
         flat_dofs = self.cell_dofs_np.ravel()
         flat = local_vals.reshape((len(flat_dofs), -1))

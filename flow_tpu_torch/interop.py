@@ -9,29 +9,35 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["packed_state_to_torch", "packed_state_to_numpy",
-           "load_hierarchy_lmax"]
+from .mesh3d import _device
+
+__all__ = ["state_to_torch", "state_to_numpy", "load_hierarchy_lmax"]
 
 
-def packed_state_to_torch(Uf, Pf, dtype=torch.float64, device="cpu"):
-    """Packed (Uf [3*n2], Pf [n1]) numpy arrays -> tensors on `device`.
+def state_to_torch(U, P, dtype=torch.float64, device=None):
+    """(U, P) numpy arrays -> tensors on `device` (None: the card; raises
+    where there is none).
 
-    The box layout of fem/boxpack.py is the JAX package's, so a packed state
-    of one package is a packed state of the other."""
+    The port numbers dofs as the JAX package does, so a state of one
+    package is a state of the other: the Karman state (U [n_V, 2], P [n_Q])
+    of navier_stokes/fast.py, and the packed box state (Uf [3*n2], Pf [n1])
+    of fem/boxpack.py."""
+    device = _device(device)
     return (
-        torch.tensor(np.asarray(Uf), dtype=dtype, device=device),
-        torch.tensor(np.asarray(Pf), dtype=dtype, device=device),
+        torch.tensor(np.asarray(U), dtype=dtype, device=device),
+        torch.tensor(np.asarray(P), dtype=dtype, device=device),
     )
 
 
-def packed_state_to_numpy(Uf, Pf):
-    """Packed (Uf, Pf) tensors -> float numpy arrays on the host."""
-    return Uf.detach().cpu().numpy(), Pf.detach().cpu().numpy()
+def state_to_numpy(U, P):
+    """(U, P) tensors -> float numpy arrays on the host."""
+    return U.detach().cpu().numpy(), P.detach().cpu().numpy()
 
 
 def load_hierarchy_lmax(hierarchy, lmax):
-    """Set a StructuredHierarchy's per-level lambda_max estimates (coarse to
-    fine, as floats) and recompute each level's Chebyshev theta and delta.
+    """Set the per-level lambda_max estimates (coarse to fine, as floats) of
+    a StructuredHierarchy or P1Hierarchy and recompute each level's
+    Chebyshev theta and delta.
 
     The power iteration starts from a random vector, and torch.Generator
     cannot reproduce jax.random's bits: without this the Chebyshev

@@ -3,7 +3,8 @@
 # faces/edges, n_points/n_cells/n_edges, hmax/hmin) plus the structured-grid
 # metadata of box_mesh. Every consumer is host setup code, so the JAX
 # package's device mirrors of these arrays are not kept; `dtype` and
-# `device` are the defaults of the spaces and steppers built on the mesh.
+# `device` are the defaults of the spaces and steppers built on the mesh
+# (device None: the current CUDA device, or an error where there is none).
 from __future__ import annotations
 
 import numpy as np
@@ -29,7 +30,18 @@ _TET_FACES = [(1, 2, 3), (0, 2, 3), (0, 1, 3), (0, 1, 2)]
 
 def _device(device):
     """torch.device with the index filled in ("cuda" -> "cuda:<current>"),
-    so that devices compare equal to the .device of their tensors."""
+    so that devices compare equal to the .device of their tensors.
+
+    None means the card: the port runs on the GPU unless the caller asks
+    for the CPU. Without a CUDA device, None raises instead of landing on
+    the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: flow_tpu_torch runs on the GPU by default; "
+                "pass device='cpu' to run on the CPU"
+            )
+        device = "cuda"
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -103,7 +115,7 @@ class TetMesh:
         self.hmin = float(h_cell.min())
 
         self.dtype = torch.get_default_dtype() if dtype is None else dtype
-        self.device = _device("cpu" if device is None else device)
+        self.device = _device(device)
         self.points_np = points
         self.cells_np = cells
         self.edges_np = edges

@@ -31,6 +31,7 @@ class StepStats(NamedTuple):
     correction_iters: int
     pressure_converged: torch.Tensor
     correction_converged: torch.Tensor
+    momentum_converged: torch.Tensor = None  # set by navier_stokes/fast.py
 
 
 class BoxPackedStepper:

@@ -13,33 +13,16 @@ import ctypes
 
 import torch
 
+from .._build import Kernel
+
 __all__ = ["stencil_apply_3d", "stencil_apply_3d_plain", "STENCIL_3D"]
 
 
-class _Kernel:
-    """Launch count and lazily built library of one CUDA kernel."""
-
-    def __init__(self, name):
-        self.name = name
-        self.launches = 0
-        self._lib = None
-
-    def lib(self):
-        if self._lib is None:
-            from .. import _build
-
-            lib = _build.load(self.name)
-            for fn in (lib.stencil27_f32, lib.stencil27_f64):
-                fn.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                ]
-                fn.restype = ctypes.c_int
-            self._lib = lib
-        return self._lib
-
-
-STENCIL_3D = _Kernel("stencil3d")
+_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+]
+STENCIL_3D = Kernel("stencil3d", {"stencil27_f32": _ARGS, "stencil27_f64": _ARGS})
 
 _ENTRY = {torch.float32: "stencil27_f32", torch.float64: "stencil27_f64"}
 
@@ -87,11 +70,8 @@ def stencil_apply_3d(xgrid, kernel):
     if min(X, Y, Z) < 1 or xgrid.numel() >= 2**31:
         raise ValueError(f"stencil_apply_3d: unsupported grid {tuple(xgrid.shape)}")
     y = torch.empty_like(xgrid)
-    fn = getattr(STENCIL_3D.lib(), _ENTRY[xgrid.dtype])
     with torch.cuda.device(xgrid.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xgrid.data_ptr(), kernel.data_ptr(), y.data_ptr(), X, Y, Z, stream)
-    if err != 0:
-        raise RuntimeError(f"stencil27 launch failed with CUDA error {err}")
-    STENCIL_3D.launches += 1
+        STENCIL_3D.launch(_ENTRY[xgrid.dtype], xgrid.data_ptr(), kernel.data_ptr(),
+                          y.data_ptr(), X, Y, Z, stream)
     return y

@@ -28,7 +28,9 @@ def _interior_kernel(mesh):
     from ..mesh3d import box_mesh
 
     sp = mesh.grid_spacing
-    probe = box_mesh((0, 0, 0), (6 * sp[0], 6 * sp[1], 6 * sp[2]), 6, 6, 6)
+    # host-only probe: its arrays never leave numpy
+    probe = box_mesh((0, 0, 0), (6 * sp[0], 6 * sp[1], 6 * sp[2]), 6, 6, 6,
+                     device="cpu")
     shape = (7, 7, 7)
     S = FunctionSpace(probe, 1)
     e = np.zeros(S.n_dofs)

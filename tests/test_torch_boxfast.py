@@ -18,7 +18,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def problems():
-    return JaxCavity(n=4, mu=0.01), Cavity3DProblem(n=4, mu=0.01, dtype=torch.float64)
+    return JaxCavity(n=4, mu=0.01), Cavity3DProblem(n=4, mu=0.01, dtype=torch.float64, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -52,9 +52,9 @@ def test_state_round_trip_through_interop(tight_steppers):
     U = rng.standard_normal((ts.V_real.n_dofs, 3))
     P = rng.standard_normal(ts.Q_real.n_dofs)
     Uj, Pj = js.to_packed_state(jnp.asarray(U), jnp.asarray(P))
-    Ut, Pt = interop.packed_state_to_torch(np.asarray(Uj), np.asarray(Pj))
+    Ut, Pt = interop.state_to_torch(np.asarray(Uj), np.asarray(Pj), device="cpu")
     np.testing.assert_array_equal(ts.from_packed_state(Ut, Pt)[0].numpy(), U)
     Ut2, Pt2 = ts.to_packed_state(U, P)
-    Un, Pn = interop.packed_state_to_numpy(Ut2, Pt2)
+    Un, Pn = interop.state_to_numpy(Ut2, Pt2)
     np.testing.assert_array_equal(Un, np.asarray(Uj))
     np.testing.assert_array_equal(Pn, P)

@@ -15,7 +15,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def problems():
-    return JaxCavity(n=4, mu=0.01), Cavity3DProblem(n=4, mu=0.01, dtype=torch.float64)
+    return JaxCavity(n=4, mu=0.01), Cavity3DProblem(n=4, mu=0.01, dtype=torch.float64, device="cpu")
 
 
 def test_bdf2_run_matches_jax(problems):

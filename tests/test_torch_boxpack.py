@@ -19,7 +19,7 @@ BOX = ((0, 0, 0), (1.0, 1.1, 0.9), 4, 5, 6)
 @pytest.fixture(scope="module")
 def packs():
     jbp = JaxBoxPack(jax_box_mesh(*BOX, dtype=jnp.float64))
-    tbp = BoxPack(box_mesh(*BOX, dtype=torch.float64))
+    tbp = BoxPack(box_mesh(*BOX, dtype=torch.float64, device="cpu"))
     rng = np.random.default_rng(0)
     data = {
         "U": rng.standard_normal(3 * tbp.n2),

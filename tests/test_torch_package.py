@@ -1,5 +1,6 @@
-# flow_tpu_torch as a package: it imports neither jax nor flow_tpu, switches
-# TF32 off, and chip_smoke.py refuses to run without a CUDA device.
+# flow_tpu_torch as a package: it and chip_smoke.py import neither jax nor
+# flow_tpu, it switches TF32 off, and chip_smoke.py refuses to run without a
+# CUDA device or outside the repository.
 import json
 import shutil
 import subprocess
@@ -40,14 +41,17 @@ def test_port_imports_no_jax_and_turns_tf32_off():
     proc = _python(_IMPORT_ALL, ROOT)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "flow_tpu_torch.navier_stokes.boxfast" in out["modules"]
-    assert "flow_tpu_torch.interop" in out["modules"]
+    for mod in ("navier_stokes.boxfast", "navier_stokes.fast", "interop",
+                "attic.winmom", "attic.winkernel", "attic.window",
+                "solvers.multigrid", "models.karman", "native", "mesh"):
+        assert f"flow_tpu_torch.{mod}" in out["modules"], mod
     assert out["foreign"] == []
     assert out["tf32"] == [False, False]
 
 
 def test_port_sources_name_no_jax():
-    for path in (ROOT / "flow_tpu_torch").rglob("*.py"):
+    paths = [*(ROOT / "flow_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]):

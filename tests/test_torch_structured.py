@@ -25,7 +25,7 @@ P1 = (1.0, 1.2, 0.8)
 def _meshes(n):
     return (
         jax_box_mesh((0, 0, 0), P1, *n, dtype=jnp.float64),
-        box_mesh((0, 0, 0), P1, *n, dtype=torch.float64),
+        box_mesh((0, 0, 0), P1, *n, dtype=torch.float64, device="cpu"),
     )
 
 
