@@ -17,22 +17,38 @@ Phases, in order; any failure exits non-zero and prints no result:
 4. cavity main path: Cavity3DProblem(n=64), 6,714,692 DoF, float32, the
    benchmark's box-path settings: 1 warm-up step and 5 timed steps;
 5. Karman setup: KarmanProblem(lcar=0.02, n_refine=5), 1,905,056 DoF, the
-   FastStepper window route with the benchmark's FastStepper settings and a
-   P1Hierarchy with window levels from 20,000 dofs;
-6. window kernels against plain: the window momentum kernel (K3) and the
-   window stiffness kernel (K4b) against their plain versions at the Karman
-   main path's layouts and on ragged small layouts, relative error <= 1e-5
-   (float32 in both, another
-   summation order), two calls on one input bitwise equal; times of the
-   kernel, the plain version and, as the yardstick, one torch.sparse CSR
-   matvec of the same assembled operator;
-7. Karman parity: KarmanProblem(lcar=0.2, n_refine=1) in float64 for 3 steps
-   on the card (kernels) and on the CPU (plain versions): equal per-step
-   iteration counts, U within 2e-6 and P within 1e-4 of max|P| (the window
-   kernels compute in float32 on both sides, in another summation order);
-8. Karman main path: 1 warm-up step and 5 timed steps in float32, then one
-   step with its substeps timed. Fails on a non-finite state, an unconverged
-   solve, or no launch of K3 or K4b.
+   FastStepper window route with the benchmark's lagged FastStepper
+   settings and a P1Hierarchy with window levels from 20,000 dofs;
+6. window kernels against plain: the window momentum kernel (K3, lagged)
+   and the window stiffness kernel (K4b) against their plain versions at
+   the Karman main path's layouts, and K3 lagged and Newton on ragged small
+   layouts, relative error <= 1e-5 (float32 in both, another summation
+   order), two calls on one input bitwise equal; times of the kernel, the
+   plain version and, as the yardstick, one torch.sparse CSR matvec of the
+   same assembled operator;
+7. Karman parity, lagged: KarmanProblem(lcar=0.2, n_refine=1) in float64,
+   backward Euler, for 3 steps on the card (kernels) and on the CPU (plain
+   versions): equal per-step iteration counts, U within 2e-6 and P within
+   1e-4 of max|P| (the window kernels compute in float32 on both sides, in
+   another summation order);
+8. Karman lagged path: 1 warm-up step and 5 timed steps in float32, then
+   one step with its substeps timed. Fails on a non-finite state, an
+   unconverged solve, or no launch of K3 or K4b;
+9. Karman parity, Newton: as 7 with Newton convection and BDF2 at the
+   driver's tolerances: equal per-step Newton, linear, pressure and
+   correction iterations, U within 2e-6 and P within 1e-4 of max|P|;
+10. Karman Newton main path: run_karman_fast at its defaults (Newton,
+   backward Euler, consistent force probe) on the window route,
+   KarmanProblem(lcar=0.02, n_refine=5) in float32, one step per chunk:
+   1 warm-up step and 5 timed steps, then one step with its substeps timed.
+   Fails on a non-finite state or force, a last drag <= 0, an unconverged solve,
+   or a step without its K3 Newton launches (2 per BiCGStab iteration), K3
+   lagged launches (the velocity correction) or K4b launches;
+11. K3 Newton at the main path's velocity layout, with the tables of the
+   Newton path's final state: against its plain version (<= 1e-5
+   relative), bitwise repeat, wall time (CUDA events), device time
+   (torch.profiler, last, since profiling slows later host code),
+   the plain version's time and the CSR yardstick of the assembled tangent.
 
 The line before the last holds the kernel report, the one before it the
 card; the last line is {"ok": true, "device": {...}}. Imports neither jax
@@ -65,6 +81,15 @@ KARMAN_SETTINGS = dict(
     newton_tol=0.0, newton_rtol=1e-2, pressure_rtol=3e-4,
     pressure_maxiter=600, correction_rtol=1e-4, cfl_target=1.0, dt_max=1.0,
     packed=False, winkernel=True,
+)
+# run_karman_fast's defaults (flow_tpu/models/karman.py:301-327) with BDF2,
+# for the Newton parity phase
+KARMAN_NEWTON = dict(
+    convection="newton", time_step_method="bdf2", rotational_form=True,
+    momentum_solver="bicgstab", newton_tol=0.0, newton_rtol=1e-3,
+    newton_maxiter=3, linear_rtol=1e-4, ew_forcing=False, pressure_rtol=1e-4,
+    correction_rtol=1e-5, cfl_target=1.0, dt_max=1.0, packed=False,
+    winkernel=True,
 )
 KARMAN_DT0 = 1.0e-4  # bench.py:197
 KARMAN_MAIN = dict(lcar=0.02, n_refine=5)
@@ -110,6 +135,23 @@ def cuda_time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """Device time per call from torch.profiler's kernel events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = (sum(e.device_time_total for e in cuda) if cuda
+          else sum(e.self_device_time_total for e in events))
+    return us / reps / 1e3
 
 
 def bound_ms(nbytes, ops):
@@ -267,7 +309,7 @@ def phase_cavity_main():
     return launches
 
 
-def _karman(dtype, device, lcar, n_refine, lmax=None):
+def _karman(dtype, device, lcar, n_refine, lmax=None, settings=KARMAN_SETTINGS):
     from flow_tpu_torch import interop
     from flow_tpu_torch.models.karman import KarmanProblem
     from flow_tpu_torch.navier_stokes.fast import FastStepper
@@ -275,7 +317,7 @@ def _karman(dtype, device, lcar, n_refine, lmax=None):
 
     prob = KarmanProblem(lcar=lcar, n_refine=n_refine, dtype=dtype, device=device)
     st = FastStepper(prob.V, prob.Q, prob.u_bcs, prob.p_bcs, prob.rho, prob.mu,
-                     **KARMAN_SETTINGS)
+                     **settings)
     hier = P1Hierarchy(prob.mesh_hierarchy, bc_mask=st.mask_p, smoother_degree=3,
                        winkernel=True, fine_window=st.K_Q)
     if lmax is not None:
@@ -334,10 +376,11 @@ def _stiffness_csr(op):
     return _csr(rows, cols, Ae.reshape(-1), wl.n_pad)
 
 
-def _momentum_csr(op, Tq, scal):
-    """The window momentum operator assembled on the padded permuted dofs of
-    both components (row m*n_pad + dof): element matrices from the plain
-    local apply on unit inputs."""
+def _momentum_csr(op, Tq, scal, Uq=None, Gu=None):
+    """The window momentum operator (with Uq/Gu the Newton tangent)
+    assembled on the padded permuted dofs of both components (row
+    m*n_pad + dof): element matrices from the plain local apply on unit
+    inputs."""
     import torch
     from flow_tpu_torch.attic.winmom import momentum_local_plain
 
@@ -351,7 +394,7 @@ def _momentum_csr(op, Tq, scal):
             U = torch.zeros((2, nb, NL, C), dtype=torch.float32, device=dev)
             U[n, :, j, :] = 1.0
             loc = momentum_local_plain(U, op.valid, op.detj, op.G4, op.Cg4, Tq,
-                                       op.tabs, scal)  # [m, b, i, c]
+                                       op.tabs, scal, Uq, Gu)  # [m, b, i, c]
             for m in range(2):
                 rows.append((m * wl.n_pad + g).reshape(-1))
                 cols.append((n * wl.n_pad + g[:, j:j + 1, :]).expand(nb, NL, C).reshape(-1))
@@ -375,24 +418,31 @@ def _winstiff_work(op):
     return nbytes, ops
 
 
-def _winmom_work(op):
+def _winmom_work(op, newton=False):
     """Bytes and operations of one window momentum apply: the inputs the
     function needs read once and the output windows written once, not the
     scatter lists that only this kernel's design reads; the per-cell
     arithmetic of csrc/winmom.cu (DIM=2, NL=6, NQ=7) on the real cells, plus
-    the scatter sums."""
+    the scatter sums. Newton mode adds the gradient table Gu and the
+    reaction term; its state table Uq is Tq, counted once."""
     wl = op.wl
     nb, NL, C = op.lidx.shape
     DIM, NQ = 2, op.nq
     cells = int(op.valid.sum())
     nbytes = 4 * (DIM * wl.n_pad + nb * NL * C + 2 * nb * C + 2 * DIM * DIM * nb * C
-                  + DIM * NQ * nb * C + op.tabs.numel() + 3 + DIM * nb * wl.W)
+                  + DIM * NQ * nb * C + op.tabs.numel() + 3 + DIM * nb * wl.W
+                  + (DIM * DIM * NQ * nb * C if newton else 0))
     per_comp = (NQ * NL * 2 + DIM * NQ * NL * 2 + NQ * DIM * DIM * 2
                 + NQ * (2 * DIM + 2) + NQ * DIM * 3
                 + NL * ((2 * NL + 2) + (2 * NQ + DIM * DIM * (2 * NQ + 2)) + 2
                         + DIM * DIM * (2 * NL + 2) + 2))
     coupling = DIM * DIM * DIM * NL * (2 * NL + 2 + 3 * DIM)
     per_cell = DIM * per_comp + coupling + NQ + DIM * NL
+    if newton:
+        # per quadrature point: direction values, v.grad phi_i, and per
+        # component (v.grad x)_m and the NL updates; then s_rho * re
+        per_q = DIM * NL * 2 + 1 + NL * DIM * DIM * 3 + DIM * (2 * DIM + 2 + 4 * NL)
+        per_cell += NQ * per_q + DIM * NL * 2
     return nbytes, cells * per_cell + DIM * cells * NL
 
 
@@ -443,8 +493,15 @@ def phase_window_kernels(st, hier):
             lambda: winmom.momentum_windows_plain(
                 xp, mo.lidx, mo.valid, mo.detj, mo.G4, mo.Cg4, Tq, mo.tabs,
                 mo._scal(1.0, 0.37, 0.021), mo.wl.S, mo.wl.W))
+        Tn, Un, Gn = mo.state_qp(T)
+        errn = _check_kernel(
+            "winmom newton small", lambda: mo.windows(xp, Tn, 1.0, 0.37, 0.021, Un, Gn),
+            lambda: winmom.momentum_windows_plain(
+                xp, mo.lidx, mo.valid, mo.detj, mo.G4, mo.Cg4, Tn, mo.tabs,
+                mo._scal(1.0, 0.37, 0.021), mo.wl.S, mo.wl.W, Un, Gn))
         log(f"[window] small S={S} nb={op.wl.nb}/{mo.wl.nb} "
-            f"winstiff rel_err={err[1]:.3e} winmom rel_err={errm[1]:.3e}")
+            f"winstiff rel_err={err[1]:.3e} winmom rel_err={errm[1]:.3e} "
+            f"winmom newton rel_err={errn[1]:.3e}")
 
     # the main path's layouts: K4b on the pressure operator and the two
     # window levels of the hierarchy below the finest (which is the pressure
@@ -518,31 +575,32 @@ def phase_window_kernels(st, hier):
     return report
 
 
-def phase_karman_parity():
+def phase_karman_parity(settings, tag):
     import torch
 
     runs = {}
     lmax = None
     for device in ("cpu", "cuda"):
-        prob, st, hier = _karman(torch.float64, device, lcar=0.2, n_refine=1, lmax=lmax)
+        prob, st, hier = _karman(torch.float64, device, lcar=0.2, n_refine=1, lmax=lmax,
+                                 settings=settings)
         lmax = [L.lmax for L in hier.levels]
-        U, P, dt, tel = st.run(*st.zeros(), KARMAN_DT0, n_steps=3)
+        U, P, dt, tel = st.run(*st.zeros(), KARMAN_DT0, n_steps=3)[:4]
         if device == "cuda":
             torch.cuda.synchronize()
-        _check_solves(tel, f"karman parity ({device})")
+        _check_solves(tel, f"{tag} ({device})")
         runs[device] = (U.cpu(), P.cpu(), tel)
     (U_c, P_c, tel_c), (U_g, P_g, tel_g) = runs["cpu"], runs["cuda"]
-    for key in ("linear_iters", "pressure_iters", "correction_iters"):
+    for key in ("newton_iters", "linear_iters", "pressure_iters", "correction_iters"):
         a, b = tel_g[key].tolist(), tel_c[key].tolist()
-        log(f"[karman-parity] {key}: cuda={a} cpu={b}")
-        check(a == b, f"karman parity: {key} differ (cuda {a}, cpu {b})")
+        log(f"[{tag}] {key}: cuda={a} cpu={b}")
+        check(a == b, f"{tag}: {key} differ (cuda {a}, cpu {b})")
     du = float((U_g - U_c).abs().max())
     dp = float((P_g - P_c).abs().max())
     pmax = float(P_c.abs().max())
-    log(f"[karman-parity] max|dU|={du:.3e} (max|U| {float(U_c.abs().max()):.3e}) "
+    log(f"[{tag}] max|dU|={du:.3e} (max|U| {float(U_c.abs().max()):.3e}) "
         f"max|dP|={dp:.3e} (max|P| {pmax:.3e})")
-    check(du <= 2e-6, f"karman parity: U differs by {du}")
-    check(dp <= 1e-4 * pmax, f"karman parity: P differs by {dp}")
+    check(du <= 2e-6, f"{tag}: U differs by {du}")
+    check(dp <= 1e-4 * pmax, f"{tag}: P differs by {dp}")
 
 
 def _timed_step(st, U, P, dt):
@@ -561,12 +619,12 @@ def _timed_step(st, U, P, dt):
             return out
         return wrapper
 
-    st._pressure_solve_mg = timed("pressure", st._pressure_solve_mg)
+    st._pressure_solve = timed("pressure", st._pressure_solve)
     st._correction = timed("correction", st._correction)
     try:
         timed("step", st._step_impl)(U, P, dt)
     finally:
-        del st._pressure_solve_mg, st._correction
+        del st._pressure_solve, st._correction
     times["momentum"] = times["step"] - times["pressure"] - times["correction"]
     return times
 
@@ -616,6 +674,118 @@ def phase_karman_main(prob, st, setup):
     return launches
 
 
+def phase_newton_main():
+    """run_karman_fast at its defaults on the window route at 1.9M DoF, one
+    step per chunk: the first chunk is the warm-up, the next five are
+    timed (each chunk ends in a device->host copy of its telemetry)."""
+    import torch
+    from flow_tpu_torch.attic.winkernel import WINSTIFF
+    from flow_tpu_torch.attic.winmom import WINMOM, WINMOM_NEWTON
+    from flow_tpu_torch.models.karman import run_karman_fast
+
+    torch.cuda.reset_peak_memory_stats()
+    WINMOM.launches = WINMOM_NEWTON.launches = WINSTIFF.launches = 0
+    t0 = time.perf_counter()
+    out = run_karman_fast(num_steps=6, chunk_size=1, winkernel=True,
+                          dtype=torch.float32, device="cuda", **KARMAN_MAIN)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {"winmom_newton": WINMOM_NEWTON.launches, "winmom": WINMOM.launches,
+                "winstiff": WINSTIFF.launches}
+    peak = torch.cuda.max_memory_allocated()
+    prob, st, tel = out["problem"], out["stepper"], out["telemetry"]
+    timed = sum(out["chunk_seconds"][1:])
+    setup = total - sum(out["chunk_seconds"])
+    log(f"[newton] run_karman_fast {KARMAN_MAIN} n_dofs={prob.n_dofs} float32 "
+        f"convection={'lagged' if st.lagged else 'newton'} theta={st.theta}")
+    log(f"[newton] steps/s={5 / timed:.4f} (5 steps in {timed:.3f} s, after 1 warm-up "
+        f"step of {out['chunk_seconds'][0]:.3f} s; setup {setup:.1f} s)")
+    for k in ("dt", "newton_iters", "linear_iters", "pressure_iters", "correction_iters"):
+        log(f"[newton] {k}: {tel[k].tolist()}")
+    log(f"[newton] drag: {tel['forces'][:, 0].tolist()}")
+    log(f"[newton] lift: {tel['forces'][:, 1].tolist()}")
+    log(f"[newton] peak_mem_bytes={peak} launches={launches} (per step: "
+        + ", ".join(f"{k} {v / 6:.1f}" for k, v in launches.items()) + ")")
+    check(prob.n_dofs == KARMAN_DOFS, f"newton: unexpected n_dofs {prob.n_dofs}")
+    check(not st.lagged and st.theta == (0.0, 1.0), "newton: not the driver's defaults")
+    U, P = out["u"], out["p"]
+    check(tuple(U.shape) == (prob.V.n_dofs, 2) and tuple(P.shape) == (prob.Q.n_dofs,),
+          "newton: state of the wrong shape")
+    check(bool(torch.isfinite(U).all()) and bool(torch.isfinite(P).all()),
+          "newton: non-finite state")
+    check(np.isfinite(tel["forces"]).all(), "newton: non-finite forces")
+    # the last step's drag: early in the start from rest the consistent
+    # functional's rho du/dt term turns it negative (steps 3-4 at lcar=0.02,
+    # n_refine 0-3; step 3 at n_refine 5); by step 6 it is near the
+    # traction drag
+    check(tel["forces"][-1, 0] > 0, "newton: the last step's drag is not positive")
+    for key in ("momentum_converged", "pressure_converged", "correction_converged"):
+        check(bool(tel[key].all()), f"newton: a {key.split('_')[0]} solve did not converge")
+    check(bool((tel["newton_iters"] >= 1).all() and (tel["linear_iters"] >= 1).all()),
+          "newton: a step without a Newton iteration")
+    # every BiCGStab iteration is two K3 Newton launches; the correction CG
+    # one K3 lagged launch per iteration plus one for its right-hand side
+    check(launches["winmom_newton"] == 2 * int(tel["linear_iters"].sum()),
+          "newton: K3 Newton launches do not match the BiCGStab iterations")
+    check(launches["winmom"] == int(tel["correction_iters"].sum()) + 6,
+          "newton: K3 lagged launches do not match the correction iterations")
+    check(launches["winstiff"] > 0, "newton: the window stiffness kernel was never launched")
+    umax = float(U.abs().max())
+    check(0.0099 <= umax <= 0.1, f"newton: max |u| {umax} out of range")
+    log(f"[newton] traction drag/lift at the final state: {prob.forces(U, P)}")
+    times = _timed_step(st, U, P, st._scalar(out["dt"]))
+    log("[newton] substeps ms (one synchronised step): "
+        + ", ".join(f"{k}={v:.2f}" for k, v in times.items()))
+    return out, launches
+
+
+def phase_newton_kernel(st, U):
+    """K3 Newton at the main path's velocity layout, with the tables of the
+    Newton path's final state."""
+    import torch
+    from flow_tpu_torch.attic import winmom
+
+    op = st.winmom
+    rng = np.random.default_rng(2)
+    Tq, Uq, Gu = op.state_qp(U)
+    xp = torch.zeros((2, op.wl.n_pad), device="cuda")
+    xp[:, :op.wl.n] = torch.as_tensor(rng.standard_normal((2, op.wl.n)),
+                                      dtype=torch.float32)
+    s = 1e-3 / st.rho
+    w = (1.0, s * st.rho, s * st.mu)
+    scal = op._scal(*w)
+
+    def kernel():
+        return op.windows(xp, Tq, *w, Uq, Gu)
+
+    def plain():
+        return winmom.momentum_windows_plain(xp, op.lidx, op.valid, op.detj, op.G4,
+                                             op.Cg4, Tq, op.tabs, scal, op.wl.S,
+                                             op.wl.W, Uq, Gu)
+
+    abs_err, rel_err = _check_kernel("winmom newton main", kernel, plain)
+    ms = cuda_time_ms(kernel, 100)
+    plain_ms = cuda_time_ms(plain, 5)
+    A = _momentum_csr(op, Tq, scal, Uq, Gu)
+    xf = xp.reshape(-1)
+    y_csr = (A @ xf).view(2, op.wl.n_pad)[:, :op.wl.n]
+    _, csr_err = _rel(y_csr, op.wl.overlap_add(kernel()))
+    check(csr_err <= 1e-5, f"winmom newton: the CSR yardstick differs ({csr_err})")
+    lib_ms = cuda_time_ms(lambda: A @ xf, 100)
+    nnz = A.values().numel()
+    del A
+    torch.cuda.empty_cache()
+    nbytes, nops = _winmom_work(op, newton=True)
+    b_ms, b_by = bound_ms(nbytes, nops)
+    dev_ms = device_ms(kernel, 50)
+    log(f"[window] winmom newton main: n={op.wl.n} nb={op.wl.nb} C={op.wl.C} "
+        f"max_abs_err={abs_err:.3e} rel_err={rel_err:.3e} kernel_ms={ms:.5f} "
+        f"device_ms={dev_ms:.5f} plain_ms={plain_ms:.5f} csr_ms={lib_ms:.5f} "
+        f"(nnz {nnz}) bytes={nbytes} ops={nops} bound_ms={b_ms:.6f} ({b_by})")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
 def main():
     try:
         import torch
@@ -644,25 +814,40 @@ def main():
         k1["launches"] = phase_cavity_main()
         prob, st, hier, setup = phase_karman_setup()
         kwin = phase_window_kernels(st, hier)
-        phase_karman_parity()
-        launches = phase_karman_main(prob, st, setup)
+        phase_karman_parity(KARMAN_SETTINGS, "karman-parity")
+        lagged = phase_karman_main(prob, st, setup)
+        del prob, st, hier
+        torch.cuda.empty_cache()
+        phase_karman_parity(KARMAN_NEWTON, "newton-parity")
+        out, newton = phase_newton_main()
+        knewton = phase_newton_kernel(out["stepper"], out["u"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
-    kwin["winmom"]["launches"] = launches["winmom"]
-    kwin["winstiff"]["launches"] = launches["winstiff"]
+    # launches: the Newton main path's counts (this slice's path), with the
+    # lagged path's beside them; K1's from the cavity path
+    kwin["winmom"]["launches"] = newton["winmom"]
+    kwin["winstiff"]["launches"] = newton["winstiff"]
+    knewton["launches"] = newton["winmom_newton"]
+    paths = {"winmom": {"karman_newton": newton["winmom"], "karman_lagged": lagged["winmom"]},
+             "winstiff": {"karman_newton": newton["winstiff"],
+                          "karman_lagged": lagged["winstiff"]}}
     rows = [
         dict(name="stencil_apply_3d", route="cuda",
              source="flow_tpu_torch/csrc/stencil3d.cu",
              replaces="flow_tpu/ops/pallas_stencil.py:71", **k1),
-        dict(name="momentum_windows", route="cuda",
+        dict(name="momentum_windows (lagged)", route="cuda",
              source="flow_tpu_torch/csrc/winmom.cu",
-             replaces="flow_tpu/attic/winmom.py:237", **kwin["winmom"]),
+             replaces="flow_tpu/attic/winmom.py:190", **kwin["winmom"]),
+        dict(name="momentum_windows (Newton)", route="cuda",
+             source="flow_tpu_torch/csrc/winmom.cu",
+             replaces="flow_tpu/attic/winmom.py:199", **knewton),
         dict(name="stiffness_windows", route="cuda",
              source="flow_tpu_torch/csrc/winstiff.cu",
              replaces="flow_tpu/attic/winkernel.py:259", **kwin["winstiff"]),
     ]
+    log(f"[done] launches by path: {json.dumps(paths)}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

@@ -185,8 +185,13 @@ def ref_mixed(deg_test, deg_trial, dim=2):
 # Exact constant-coefficient operators (applies + diagonals), host numpy
 # ---------------------------------------------------------------------------
 def stiffness_apply(space: FunctionSpace, geom: Geometry, U):
-    """y = K U with K_ij = int grad(phi_i).grad(phi_j)."""
+    """y = K U with K_ij = int grad(phi_i).grad(phi_j): host numpy, or
+    torch on U's device for a tensor U (geom then a geometry_on view)."""
     Kref = ref_stiffness(space.degree, _dim(space))
+    if isinstance(U, torch.Tensor):
+        Kt = torch.as_tensor(Kref, dtype=U.dtype, device=U.device)
+        eq = "ekl,klij,ej->ei" if U.dim() == 1 else "ekl,klij,ejm->eim"
+        return space.dof_sum(torch.einsum(eq, geom.C, Kt, space.gather(U)))
     Uloc = space.gather(np.asarray(U, dtype=np.float64))
     if Uloc.ndim == 2:
         loc = np.einsum("ekl,klij,ej->ei", geom.C, Kref, Uloc)
@@ -261,6 +266,9 @@ class BoundaryTab:
       dphi [nb, nq1, nl, 2]   reference gradients there
       wl   [nb, nq1]          quadrature weight * facet length
       normals [nb, 2], Gb [nb, 2, 2] (the facet cell's G), cell_dofs [nb, nl]
+
+    and, on the host, x_np [nb, nq1, 2]: the physical facet quadrature
+    points.
     """
 
     def __init__(self, space: FunctionSpace, rule_degree=4, dtype=None,
@@ -274,13 +282,18 @@ class BoundaryTab:
         ref_v = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
         phi_k = np.empty((3, nq1, space.n_local))
         dphi_k = np.empty((3, nq1, space.n_local, 2))
+        pts_k = np.empty((3, nq1, 2))
         for k in range(3):
             a, b = (k + 1) % 3, (k + 2) % 3
-            pts = ref_v[a][None] * (1 - s)[:, None] + ref_v[b][None] * s[:, None]
-            phi_k[k], dphi_k[k] = elements.tabulate(space.degree, pts)
+            pts_k[k] = ref_v[a][None] * (1 - s)[:, None] + ref_v[b][None] * s[:, None]
+            phi_k[k], dphi_k[k] = elements.tabulate(space.degree, pts_k[k])
 
         loc = mesh.boundary_local_np
         cells = mesh.boundary_cells_np.astype(np.int64)
+        ref_pts = pts_k[loc]  # [nb, nq1, 2]
+        p = mesh.points_np[mesh.cells_np[cells]]  # [nb, 3, 2]
+        self.x_np = (p[:, None, 0] + ref_pts[:, :, 0, None] * (p[:, None, 1] - p[:, None, 0])
+                     + ref_pts[:, :, 1, None] * (p[:, None, 2] - p[:, None, 0]))
 
         def dev(a, dt=dtype):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,

@@ -14,24 +14,26 @@ from .mesh3d import _device
 __all__ = ["state_to_torch", "state_to_numpy", "load_hierarchy_lmax"]
 
 
-def state_to_torch(U, P, dtype=torch.float64, device=None):
+def state_to_torch(U, P, dtype=torch.float64, device=None, Um1=None):
     """(U, P) numpy arrays -> tensors on `device` (None: the card; raises
-    where there is none).
+    where there is none); with the BDF2 state's previous velocity Um1,
+    (U, P, Um1).
 
     The port numbers dofs as the JAX package does, so a state of one
     package is a state of the other: the Karman state (U [n_V, 2], P [n_Q])
     of navier_stokes/fast.py, and the packed box state (Uf [3*n2], Pf [n1])
     of fem/boxpack.py."""
     device = _device(device)
-    return (
-        torch.tensor(np.asarray(U), dtype=dtype, device=device),
-        torch.tensor(np.asarray(P), dtype=dtype, device=device),
-    )
+    out = tuple(torch.tensor(np.asarray(a), dtype=dtype, device=device)
+                for a in (U, P) + (() if Um1 is None else (Um1,)))
+    return out
 
 
-def state_to_numpy(U, P):
-    """(U, P) tensors -> float numpy arrays on the host."""
-    return U.detach().cpu().numpy(), P.detach().cpu().numpy()
+def state_to_numpy(U, P, Um1=None):
+    """(U, P) tensors -> float numpy arrays on the host; with Um1,
+    (U, P, Um1)."""
+    return tuple(a.detach().cpu().numpy()
+                 for a in (U, P) + (() if Um1 is None else (Um1,)))
 
 
 def load_hierarchy_lmax(hierarchy, lmax):

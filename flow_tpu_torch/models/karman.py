@@ -1,19 +1,27 @@
 # Karman vortex street: flow past a cylinder in a channel, the benchmark
 # problem of the repository (Re=100 on the BASELINE metric). Port of
-# flow_tpu/models/karman.py::KarmanProblem: the geometry, the refine_uniform
-# mesh hierarchy (for multigrid), the P2/P1 spaces and the boundary
-# conditions. The Stokes bootstrap, the force probes and the run_karman
-# drivers are not ported.
+# flow_tpu/models/karman.py: KarmanProblem (the geometry, the refine_uniform
+# mesh hierarchy for multigrid, the P2/P1 spaces, the boundary conditions,
+# the drag/lift probes), schafer_turek_problem, strouhal_number and the
+# high-throughput driver run_karman_fast on FastStepper's window route. The
+# Stokes bootstrap, the host-stepped run_karman and the packed backend are
+# not ported.
 from __future__ import annotations
 
+import os
+import time
+
 import numpy as np
+import torch
 
 from .. import materials
+from ..fem.assembly import BoundaryTab
 from ..fem.bc import DirichletBC
 from ..fem.spaces import FunctionSpace, VectorFunctionSpace
 from ..mesh import rectangle_with_hole_mesh, refine_uniform
 
-__all__ = ["KarmanProblem"]
+__all__ = ["KarmanProblem", "schafer_turek_problem", "run_karman_fast",
+           "strouhal_number"]
 
 X0, X1 = 0.0, 0.6
 Y0, Y1 = -0.07, 0.07
@@ -112,10 +120,244 @@ class KarmanProblem:
             self.u_bcs.append(DirichletBC(V.sub(0), profile, right))
         # outlet pressure pin for the projection steps
         self.p_bcs = [DirichletBC(self.Q, 0.0, right)]
+
+        # probe machinery: obstacle facets of the boundary tabulations
         self.obstacle_predicate = obstacle
+        self.btabV = BoundaryTab(self.V, rule_degree=4)
+        self.btabQ = BoundaryTab(self.Q, rule_degree=4)
+        mids = self.btabV.x_np.mean(axis=1)  # [nb, 2] facet qp centroid
+        self.obstacle_facets = torch.as_tensor(
+            np.asarray(obstacle(mids), dtype=np.float64), dtype=mesh.dtype,
+            device=mesh.device,
+        )
         self.reynolds = self.u_ref * diameter * self.rho / mu
 
     @property
     def n_dofs(self):
         """Velocity and pressure unknowns: 2 n_V + n_Q."""
         return 2 * self.V.n_dofs + self.Q.n_dofs
+
+    def traction_force(self, U, P):
+        """The boundary traction integral on the cylinder,
+        F = oint [-p I + mu (grad u + grad u^T)] n ds with n the body-outward
+        normal, as a [2] tensor (drag, lift)."""
+        bt = self.btabV
+        gu = bt.grads(U)  # [nb, q, m, d]
+        pb = self.btabQ.values(P)  # [nb, q]
+        n = -bt.normals  # body-outward [nb, 2]
+        sig = self.mu * (gu + gu.transpose(2, 3))
+        tvec = torch.einsum("bqij,bj->bqi", sig, n) - pb[:, :, None] * n[:, None, :]
+        return torch.einsum("bqi,bq,b->i", tvec, bt.wl, self.obstacle_facets)
+
+    def forces(self, U, P):
+        """Drag and lift (F_x, F_y) as floats, from the traction integral."""
+        F = self.traction_force(U, P)
+        return float(F[0]), float(F[1])
+
+    def consistent_force_probe(self, rule_degree=5):
+        """The variationally consistent (residual-functional) force probe on
+        the cylinder: superconvergent and float32-robust, unlike the
+        traction integral, whose gradients cancel at this geometry's
+        velocities of ~0.01."""
+        from ..navier_stokes.forces import ConsistentForceProbe
+
+        return ConsistentForceProbe(
+            self.V, self.Q, self.obstacle_predicate, self.rho, self.mu,
+            rule_degree=rule_degree,
+        )
+
+    def drag_lift_coefficients(self, U, P):
+        fx, fy = self.forces(U, P)
+        return fx / self.force_scale, fy / self.force_scale
+
+    @property
+    def force_scale(self):
+        return 0.5 * self.rho * self.u_ref**2 * self.diameter
+
+
+def schafer_turek_problem(lcar=0.03, n_refine=2, dtype=None, snap=True,
+                          device=None):
+    """DFG 2D-2 benchmark (Schaefer & Turek 1996): channel 2.2 x 0.41,
+    cylinder d=0.1 at (0.2, 0.2), parabolic inflow Um=1.5 (mean 1.0),
+    mu=0.001, rho=1 -> Re=100, open outflow (pressure pinned at the
+    outlet). Published values: St ~ 0.300, Cd ~ 3.22-3.24, Cl amplitude
+    ~ 1.0."""
+    Um = 1.5
+    return KarmanProblem(
+        lcar=lcar, n_refine=n_refine, mu=0.001, rho=1.0, dtype=dtype,
+        device=device, x0=0.0, x1=2.2, y0=0.0, y1=0.41, center=(0.2, 0.2),
+        diameter=0.1, u_in=Um, u_ref=2.0 * Um / 3.0, outflow_velocity_bc=False,
+        snap=snap,
+    )
+
+
+def run_karman_fast(
+    num_steps=100,
+    lcar=0.02,
+    n_refine=2,
+    mu=0.002,
+    dt0=1.0e-4,
+    dt_max=1.0,
+    cfl_target=1.0,
+    use_multigrid=True,
+    newton_rtol=1.0e-3,
+    newton_maxiter=3,
+    linear_rtol=1.0e-4,
+    ew_forcing=False,
+    pressure_rtol=1.0e-4,
+    correction_rtol=1.0e-5,
+    from_rest=True,
+    chunk_size=100,
+    checkpoint_path=None,
+    resume=False,
+    progress=False,
+    problem=None,
+    initial_state=None,
+    time_step_method="backward euler",
+    force_probe="consistent",
+    convection="newton",
+    backend="fast",
+    winkernel=False,
+    winkernel_S=None,
+    device=None,
+    dtype=None,
+):
+    """The high-throughput Karman driver: FastStepper runs chunks of
+    `chunk_size` steps with the CFL controller on the device, multigrid-
+    preconditioned pressure solves and per-step drag/lift telemetry, and
+    writes (U, P, dt) (BDF2: also Um1, dtp) to `checkpoint_path` after
+    every chunk; resume=True continues from it. The checkpoint is the JAX
+    package's npz format, so a JAX-written one resumes here.
+
+    The route is FastStepper's (winkernel=True: the window-kernel route, the
+    only one ported; winkernel_S pins the window stride). `device` and
+    `dtype` are those of the problem built here (defaults: the card,
+    torch's default dtype); a given `problem` brings its own. Pass
+    problem= (e.g. schafer_turek_problem(...)) for another channel.
+    Returns the state as tensors (u [n_V, 2], p [n_Q]), the last dt, the
+    telemetry as numpy arrays (t rebuilt from the dt series) and the host
+    seconds of each chunk."""
+    from ..io import load_checkpoint, save_checkpoint
+    from ..navier_stokes.fast import FastStepper
+
+    if backend == "packed":
+        raise NotImplementedError(
+            "run_karman_fast: the packed backend (PackedPatchStepper) is not "
+            "ported (ROADMAP queue 1 item 2)"
+        )
+    if initial_state is None and not from_rest:
+        raise NotImplementedError(
+            "run_karman_fast: the Stokes bootstrap (from_rest=False) is not "
+            "ported (ROADMAP queue 1 item 5: stokes.py)"
+        )
+    if problem is None:
+        problem = KarmanProblem(lcar=lcar, n_refine=n_refine, mu=mu,
+                                dtype=dtype, device=device)
+
+    if force_probe == "consistent":
+        forces_probe = problem.consistent_force_probe()
+    elif force_probe == "traction":
+        forces_probe = problem.traction_force
+    else:
+        raise ValueError(f"run_karman_fast: unknown force_probe {force_probe!r}")
+
+    stepper = FastStepper(
+        problem.V, problem.Q, problem.u_bcs, problem.p_bcs, problem.rho,
+        problem.mu, time_step_method=time_step_method, rotational_form=True,
+        convection=convection, newton_tol=0.0, newton_rtol=newton_rtol,
+        newton_maxiter=newton_maxiter, linear_rtol=linear_rtol,
+        ew_forcing=ew_forcing, pressure_rtol=pressure_rtol,
+        correction_rtol=correction_rtol, cfl_target=cfl_target, dt_max=dt_max,
+        forces_probe=forces_probe, winkernel=winkernel, winkernel_S=winkernel_S,
+    )
+    if use_multigrid and n_refine > 0:
+        from ..solvers.multigrid import P1Hierarchy
+
+        hier = P1Hierarchy(problem.mesh_hierarchy, bc_mask=stepper.mask_p,
+                           smoother_degree=3, winkernel=winkernel,
+                           fine_window=stepper.K_Q)
+        stepper.pressure_precond = hier.v_cycle
+
+    if initial_state is not None:
+        U, P = initial_state  # e.g. a perturbed state to trigger shedding
+    else:
+        U, P = stepper.zeros()
+
+    def on_device(a):
+        return torch.as_tensor(a, dtype=stepper.dtype, device=stepper.device)
+
+    # checkpoint/resume of (U, P, dt); BDF2 also carries (Um1, dtp) so
+    # chained runs stay second order
+    Um1, dtp = None, None
+    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+        arrays, scalars = load_checkpoint(checkpoint_path)
+        U, P = on_device(arrays["U"]), on_device(arrays["P"])
+        dt0 = scalars["dt"]
+        if stepper.bdf2 and "Um1" in arrays:
+            Um1, dtp = on_device(arrays["Um1"]), scalars["dtp"]
+
+    chunk = min(num_steps, chunk_size)
+    n_chunks, rem = divmod(num_steps, chunk)
+    dt = dt0
+    tels = []
+
+    def save():
+        if checkpoint_path:
+            arrays, scalars = {"U": U, "P": P}, {"dt": float(dt)}
+            if stepper.bdf2 and Um1 is not None:
+                arrays["Um1"] = Um1
+                scalars["dtp"] = float(dtp)
+            save_checkpoint(checkpoint_path, arrays, scalars)
+
+    chunk_seconds = []
+    t0 = time.perf_counter()
+    for ci in range(n_chunks + (1 if rem else 0)):
+        n = chunk if ci < n_chunks else rem
+        tc = time.perf_counter()
+        if stepper.bdf2:
+            U, P, dt, tel, (Um1, dtp) = stepper.run(U, P, dt, n, Um1=Um1,
+                                                    dtp0=dtp, dt_max=dt_max)
+        else:
+            U, P, dt, tel = stepper.run(U, P, dt, n, dt_max=dt_max)
+        # the copy to the host waits for the chunk's device work
+        tels.append({k: v.cpu().numpy() for k, v in tel.items()})
+        chunk_seconds.append(time.perf_counter() - tc)
+        save()
+        if progress and ci < n_chunks:
+            done = (ci + 1) * chunk
+            print(f"  chunk {ci + 1}/{n_chunks}: {done} steps, "
+                  f"{done / (time.perf_counter() - t0):.2f} steps/s, "
+                  f"dt={float(dt):.4f}", flush=True)
+    telemetry = {k: np.concatenate([t[k] for t in tels]) for k in tels[0]}
+    # each chunk's time axis restarts at 0: rebuild it from the dt series
+    telemetry["t"] = np.cumsum(telemetry["dt"])
+    return {
+        "problem": problem,
+        "stepper": stepper,
+        "u": U,
+        "p": P,
+        "dt": float(dt),
+        "t": telemetry["t"],
+        "forces": telemetry["forces"],
+        "telemetry": telemetry,
+        "chunk_seconds": chunk_seconds,
+    }
+
+
+def strouhal_number(t, lift, min_periods=3, diameter=OBSTACLE_DIAMETER,
+                    u_ref=ENTRANCE_VELOCITY):
+    """St = f d / U from a lift time series (uniformly resampled, dominant
+    FFT frequency), or None when the series covers fewer than min_periods
+    periods. diameter/u_ref default to the reference geometry; pass
+    problem.diameter/problem.u_ref for other channels."""
+    t = np.asarray(t, dtype=float)
+    lift = np.asarray(lift, dtype=float)
+    tu = np.linspace(t[0], t[-1], 4 * len(t))
+    lu = np.interp(tu, t, lift - lift.mean())
+    freqs = np.fft.rfftfreq(len(tu), d=tu[1] - tu[0])
+    amp = np.abs(np.fft.rfft(lu))
+    amp[0] = 0.0
+    f = freqs[int(np.argmax(amp))]
+    if f * (t[-1] - t[0]) < min_periods:
+        return None
+    return f * diameter / u_ref

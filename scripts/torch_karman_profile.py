@@ -4,16 +4,20 @@ route, on one GPU.
 
     python3 scripts/torch_karman_profile.py [--lcar 0.02] [--n-refine 5]
                                              [--steps 3] [--json PATH]
+                                             [--convection lagged|newton]
 
-1. The Karman step (FastStepper, window route, the benchmark's settings) in
-   float32: host-clock time of each substep (pressure, correction, and the
-   rest: momentum right-hand side and solve, CFL), synchronised at its ends,
-   before any profiler has run in the process.
-2. The window kernels at the main path's layouts: the momentum kernel (K3)
-   on the velocity layout and the stiffness kernel (K4b) on the pressure
-   layout, float32, each against its plain PyTorch version: device time per
-   call from torch.profiler, and wall time per call from CUDA events over
-   back-to-back calls (which includes the host's launch cost).
+1. The Karman step (FastStepper, window route) in float32: host-clock time
+   of each substep (pressure, correction, and the rest: momentum residual
+   and solve, CFL), synchronised at its ends, before any profiler has run in
+   the process. --convection lagged (the default) takes the benchmark's
+   lagged settings; newton takes run_karman_fast's defaults (Newton,
+   backward Euler, the driver's tolerances).
+2. The window kernels at the main path's layouts: the momentum kernel (K3,
+   lagged, and with --convection newton also Newton, with the tables of the
+   run's state) on the velocity layout and the stiffness kernel (K4b) on the
+   pressure layout, float32, each against its plain PyTorch version: device
+   time per call from torch.profiler, and wall time per call from CUDA
+   events over back-to-back calls (which includes the host's launch cost).
 3. A torch.profiler window over --steps steps: device busy time, the
    device's idle share, kernel launches per step and the top operators by
    device time.
@@ -44,26 +48,35 @@ from torch_cavity3d_profile import (  # noqa: E402
     device_us, n_launches, profile, timed, wall_ms,
 )
 
-KARMAN_SETTINGS = dict(
-    convection="lagged", rotational_form=True, momentum_solver="bicgstab",
-    newton_tol=0.0, newton_rtol=1e-2, pressure_rtol=3e-4,
-    pressure_maxiter=600, correction_rtol=1e-4, cfl_target=1.0, dt_max=1.0,
-    packed=False, winkernel=True,
-)
+KARMAN_SETTINGS = {
+    "lagged": dict(
+        convection="lagged", rotational_form=True, momentum_solver="bicgstab",
+        newton_tol=0.0, newton_rtol=1e-2, pressure_rtol=3e-4,
+        pressure_maxiter=600, correction_rtol=1e-4, cfl_target=1.0, dt_max=1.0,
+        packed=False, winkernel=True,
+    ),
+    # run_karman_fast's defaults (flow_tpu/models/karman.py:301-327)
+    "newton": dict(
+        convection="newton", rotational_form=True, momentum_solver="bicgstab",
+        newton_tol=0.0, newton_rtol=1e-3, newton_maxiter=3, linear_rtol=1e-4,
+        pressure_rtol=1e-4, correction_rtol=1e-5, cfl_target=1.0, dt_max=1.0,
+        packed=False, winkernel=True,
+    ),
+}
 
 
-def build(lcar, n_refine):
+def build(lcar, n_refine, convection):
     prob = KarmanProblem(lcar=lcar, n_refine=n_refine, dtype=torch.float32,
                          device="cuda")
     st = FastStepper(prob.V, prob.Q, prob.u_bcs, prob.p_bcs, prob.rho, prob.mu,
-                     **KARMAN_SETTINGS)
+                     **KARMAN_SETTINGS[convection])
     hier = P1Hierarchy(prob.mesh_hierarchy, bc_mask=st.mask_p, smoother_degree=3,
                        winkernel=True, fine_window=st.K_Q)
     st.pressure_precond = hier.v_cycle
     return prob, st
 
 
-def kernel_times(st):
+def kernel_times(st, state):
     rng = np.random.default_rng(0)
     mo, ko = st.winmom, st.K_Q
     T = torch.as_tensor(0.01 * rng.standard_normal((mo.wl.n, 2)), dtype=torch.float32,
@@ -85,6 +98,13 @@ def kernel_times(st):
                      lambda: winkernel.stiffness_windows_plain(
                          x, ko.lidx, ko.valid, ko.Cg, ko.kref, ko.wl.S, ko.wl.W)),
     }
+    if not st.lagged:
+        Tn, Un, Gn = mo.state_qp(state[0])
+        cases["winmom_newton"] = (
+            lambda: mo.windows(xp, Tn, *w, Un, Gn),
+            lambda: winmom.momentum_windows_plain(
+                xp, mo.lidx, mo.valid, mo.detj, mo.G4, mo.Cg4, Tn, mo.tabs, scal,
+                mo.wl.S, mo.wl.W, Un, Gn))
     rows = []
     for name, (kernel, plain) in cases.items():
         row = {"kernel": name}
@@ -109,7 +129,7 @@ def step_substeps(st, steps):
     U, P, dt, _ = st.run(U, P, 1e-4, n_steps=2)  # warm-up
     torch.cuda.synchronize()
     acc = {}
-    plain = {k: getattr(st, k) for k in ("_pressure_solve_mg", "_correction")}
+    plain = {k: getattr(st, k) for k in ("_pressure_solve", "_correction")}
     for k, fn in plain.items():
         setattr(st, k, timed(k, fn, acc))
     torch.cuda.synchronize()
@@ -136,7 +156,8 @@ def step_substeps(st, steps):
 def step_profile(st, state, steps):
     """An unsynchronised run of --steps steps under the profiler."""
     U, P, dt = state
-    winmom.WINMOM.launches = winkernel.WINSTIFF.launches = 0
+    winmom.WINMOM.launches = winmom.WINMOM_NEWTON.launches = 0
+    winkernel.WINSTIFF.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     prof = profile(lambda: st.run(U, P, dt, n_steps=steps), 1)
@@ -155,6 +176,7 @@ def step_profile(st, state, steps):
         "device_events_per_step": n_kernels / steps,
         "launch_calls_per_step": n_launch_calls / steps,
         "winmom_launches_per_step": winmom.WINMOM.launches / steps,
+        "winmom_newton_launches_per_step": winmom.WINMOM_NEWTON.launches / steps,
         "winstiff_launches_per_step": winkernel.WINSTIFF.launches / steps,
         "top_ops": top_rows,
     }
@@ -171,6 +193,7 @@ def main():
     ap.add_argument("--n-refine", type=int, default=5)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--json", type=Path, default=None)
+    ap.add_argument("--convection", choices=("lagged", "newton"), default="lagged")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -180,9 +203,10 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print("[device]", smi, flush=True)
-    prob, st = build(args.lcar, args.n_refine)
+    prob, st = build(args.lcar, args.n_refine, args.convection)
     state, step = step_substeps(st, args.steps)
-    result = {"device": smi, "step": step, "kernels": kernel_times(st),
+    result = {"device": smi, "convection": args.convection, "step": step,
+              "kernels": kernel_times(st, state),
               "profile": step_profile(st, state, args.steps)}
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)

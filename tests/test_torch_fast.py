@@ -22,7 +22,7 @@ from flow_tpu.models.karman import KarmanProblem as JaxKarman
 from flow_tpu.navier_stokes.fast import FastStepper as JaxStepper
 from flow_tpu.solvers.multigrid import P1Hierarchy as JaxHierarchy
 from flow_tpu_torch import interop
-from flow_tpu_torch.models.karman import KarmanProblem
+from flow_tpu_torch.models.karman import KarmanProblem, run_karman_fast
 from flow_tpu_torch.navier_stokes.fast import FastStepper
 from flow_tpu_torch.solvers.multigrid import P1Hierarchy
 
@@ -96,14 +96,18 @@ def test_state_round_trip_through_interop():
 
 @pytest.mark.parametrize("route", [
     dict(winkernel=False),
-    dict(convection="newton"),
-    dict(time_step_method="bdf2"),
-    dict(time_step_method="crank-nicolson"),
     dict(momentum_solver="gmres"),
     dict(packed=True),
-], ids=["einsum", "newton", "bdf2", "cn", "gmres", "packed"])
+    dict(driver=True, backend="packed"),
+    dict(driver=True, from_rest=False),
+], ids=["einsum", "gmres", "packed", "driver-packed", "driver-stokes"])
 def test_unported_routes_raise(route):
     tp = KarmanProblem(lcar=0.2, dtype=torch.float64, device="cpu")
+    route = dict(route)
+    if route.pop("driver", False):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run_karman_fast(num_steps=1, problem=tp, winkernel=True, **route)
+        return
     kw = dict(BENCH, winkernel=True)
     kw.update(route)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

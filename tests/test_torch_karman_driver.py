@@ -1,0 +1,197 @@
+# flow_tpu_torch.models.karman's driver and probes against the JAX package,
+# float64 on the CPU:
+# - run_karman_fast(num_steps=3, lcar=0.2, n_refine=0, use_multigrid=False,
+#   chunk_size=2) at its defaults (Newton, backward Euler, consistent force
+#   probe; chunk plus remainder): the port on the window route against the
+#   JAX driver on its default route (the einsum Newton tangent in float64;
+#   its window route runs the Pallas kernels in interpret mode, ~2 minutes
+#   here). Telemetry keys, t, dt and iteration counts equal; forces within
+#   5e-5 of max|F| and the state at float32 level (the port's window route
+#   computes in float32);
+# - the Newton stepper with backward Euler and Crank-Nicolson at n_refine=0
+#   with no pressure preconditioner (the Jacobi-CG pressure solve), 2 steps,
+#   against the JAX FastStepper on the same route as above, with the same
+#   bounds, and with a tight Newton target and Eisenstat-Walker forcing;
+# - a JAX-written checkpoint loads and resumes in the port; the port's
+#   4 + 2 resumed steps equal a contiguous 6-step run to 1e-12 (BE and BDF2);
+# - ConsistentForceProbe and the traction integral against JAX on a random
+#   state to 1e-12; strouhal_number on a synthetic sine; the DFG 2D-2
+#   problem's invariants.
+import os
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from flow_tpu.io import save_checkpoint as jax_save_checkpoint
+from flow_tpu.models import karman as jax_karman
+from flow_tpu.navier_stokes.fast import FastStepper as JaxStepper
+from flow_tpu_torch import interop
+from flow_tpu_torch.io import load_checkpoint, save_checkpoint
+from flow_tpu_torch.models import karman
+from flow_tpu_torch.navier_stokes.fast import FastStepper
+
+torch.set_num_threads(1)
+
+SMALL = dict(lcar=0.2, n_refine=0, use_multigrid=False)
+PORT = dict(winkernel=True, device="cpu", dtype=torch.float64)
+ITERS = ("newton_iters", "linear_iters", "pressure_iters", "correction_iters")
+FLAGS = ("momentum_converged", "pressure_converged", "correction_converged")
+
+
+@pytest.fixture(scope="module")
+def drivers(tmp_path_factory):
+    ck = str(tmp_path_factory.mktemp("ck") / "jax.npz")
+    mp = pytest.MonkeyPatch()
+    mp.delenv("FLOW_WINKERNEL", raising=False)
+    try:
+        jout = jax_karman.run_karman_fast(num_steps=3, chunk_size=2,
+                                          checkpoint_path=ck, **SMALL)
+    finally:
+        mp.undo()
+    tout = karman.run_karman_fast(num_steps=3, chunk_size=2, **SMALL, **PORT)
+    return jout, tout, ck
+
+
+def test_driver_matches_jax(drivers):
+    jout, tout, _ = drivers
+    jt, tt = jout["telemetry"], tout["telemetry"]
+    assert set(tt) == set(jt) | set(FLAGS)
+    for key in ITERS:
+        assert tt[key].tolist() == np.asarray(jt[key]).tolist(), key
+    for key in ("t", "dt"):
+        np.testing.assert_allclose(tt[key], np.asarray(jt[key]), rtol=1e-12)
+    assert tout["dt"] == pytest.approx(jout["dt"], rel=1e-12)
+    for key in FLAGS:
+        assert tt[key].all(), key
+    F = np.asarray(jout["forces"])
+    assert tout["forces"].shape == F.shape == (3, 2)
+    np.testing.assert_allclose(tout["forces"], F, rtol=0, atol=5e-5 * np.abs(F).max())
+    Pj = np.asarray(jout["p"].vector)
+    np.testing.assert_allclose(tout["u"].numpy(), np.asarray(jout["u"].vector),
+                               rtol=0, atol=2e-7)
+    np.testing.assert_allclose(tout["p"].numpy(), Pj, rtol=0,
+                               atol=1.5e-5 * np.abs(Pj).max())
+
+
+@pytest.mark.parametrize("method, extra", [
+    ("backward euler", {}),
+    ("crank-nicolson", {}),
+    # a tight Newton target takes several Newton iterations per step, so
+    # the Eisenstat-Walker inner tolerance moves
+    ("backward euler", dict(newton_rtol=1e-8, ew_forcing=True)),
+], ids=["be", "cn", "be-eisenstat-walker"])
+def test_newton_stepper_without_preconditioner_matches_jax(method, extra):
+    kw = dict(convection="newton", time_step_method=method, rotational_form=True,
+              newton_tol=0.0, newton_rtol=1e-3, newton_maxiter=3,
+              linear_rtol=1e-4, pressure_rtol=1e-4, correction_rtol=1e-5,
+              ew_forcing=False, cfl_target=1.0, dt_max=1.0, packed=False)
+    kw.update(extra)
+    jp = jax_karman.KarmanProblem(lcar=0.2)
+    js = JaxStepper(jp.V, jp.Q, jp.u_bcs, jp.p_bcs, jp.rho, jp.mu, **kw)
+    assert js.pressure_precond is None
+    Uj, Pj, _, telj = js._run_jit(jp.V.zeros(), jp.Q.zeros(), jnp.asarray(1e-4),
+                                  n_steps=2)
+    tp = karman.KarmanProblem(lcar=0.2, dtype=torch.float64, device="cpu")
+    ts = FastStepper(tp.V, tp.Q, tp.u_bcs, tp.p_bcs, tp.rho, tp.mu,
+                     winkernel=True, **kw)
+    Ut, Pt, _, telt = ts.run(*ts.zeros(), 1e-4, n_steps=2)
+    for key in ITERS:
+        assert telt[key].tolist() == np.asarray(telj[key]).tolist(), key
+    assert max(telt["newton_iters"].tolist()) > 1 or not kw["ew_forcing"]
+    np.testing.assert_allclose(telt["dt"].numpy(), np.asarray(telj["dt"]), rtol=1e-12)
+    for key in FLAGS[1:] if kw["ew_forcing"] else FLAGS:
+        assert bool(telt[key].all()), key
+    Pj = np.asarray(Pj)
+    np.testing.assert_allclose(Ut.numpy(), np.asarray(Uj), rtol=0, atol=2e-7)
+    np.testing.assert_allclose(Pt.numpy(), Pj, rtol=0, atol=1.5e-5 * np.abs(Pj).max())
+
+
+def test_jax_checkpoint_resumes_in_the_port(drivers, tmp_path):
+    jout, _, ck = drivers
+    arrays, scalars = load_checkpoint(ck)
+    np.testing.assert_array_equal(arrays["U"], np.asarray(jout["u"].vector))
+    np.testing.assert_array_equal(arrays["P"], np.asarray(jout["p"].vector))
+    assert scalars["dt"] == jout["dt"]
+    out = karman.run_karman_fast(num_steps=1, checkpoint_path=ck, resume=True,
+                                 **SMALL, **PORT)
+    assert out["telemetry"]["dt"][0] == jout["dt"]
+    assert np.isfinite(out["u"].numpy()).all() and np.isfinite(out["forces"]).all()
+
+
+@pytest.mark.parametrize("method", ["backward euler", "bdf2"])
+def test_checkpoint_resume_equals_contiguous_run(method, tmp_path):
+    ck = str(tmp_path / "state.npz")
+    kw = dict(SMALL, time_step_method=method, **PORT)
+    karman.run_karman_fast(num_steps=4, checkpoint_path=ck, **kw)
+    assert os.path.exists(ck)
+    arrays, scalars = load_checkpoint(ck)
+    assert ("Um1" in arrays and "dtp" in scalars) == (method == "bdf2")
+    resumed = karman.run_karman_fast(num_steps=2, checkpoint_path=ck, resume=True, **kw)
+    full = karman.run_karman_fast(num_steps=6, **kw)
+    np.testing.assert_allclose(resumed["u"].numpy(), full["u"].numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(resumed["p"].numpy(), full["p"].numpy(), rtol=0,
+                               atol=1e-12 * np.abs(full["p"].numpy()).max())
+    np.testing.assert_allclose(resumed["telemetry"]["dt"], full["telemetry"]["dt"][4:],
+                               rtol=1e-12)
+
+
+def test_checkpoint_format_is_the_jax_packages(tmp_path):
+    rng = np.random.default_rng(0)
+    U, P = rng.standard_normal((7, 2)), rng.standard_normal(3)
+    jax_save_checkpoint(str(tmp_path / "j.npz"), {"U": U, "P": P}, {"dt": 0.5})
+    save_checkpoint(str(tmp_path / "t.npz"), {"U": torch.as_tensor(U), "P": P},
+                    {"dt": 0.5})
+    for name in ("j.npz", "t.npz"):
+        arrays, scalars = load_checkpoint(str(tmp_path / name))
+        np.testing.assert_array_equal(arrays["U"], U)
+        np.testing.assert_array_equal(arrays["P"], P)
+        assert scalars == {"dt": 0.5}
+    with np.load(tmp_path / "t.npz") as data:
+        assert sorted(data.files) == ["__version__", "arr_P", "arr_U", "scl_dt"]
+
+
+def test_force_probes_match_jax():
+    jp = jax_karman.KarmanProblem(lcar=0.2)
+    tp = karman.KarmanProblem(lcar=0.2, dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(4)
+    U1, U0 = (rng.standard_normal((tp.V.n_dofs, 2)) for _ in range(2))
+    P1 = rng.standard_normal(tp.Q.n_dofs)
+    jprobe, tprobe = jp.consistent_force_probe(), tp.consistent_force_probe()
+    assert tprobe.needs_history
+    for args in ((U1, P1), (U1, P1, U0, 3e-4)):
+        ref = np.asarray(jprobe(*(jnp.asarray(a) for a in args)))
+        # dt stays a Python float: a 0-d torch.as_tensor(float) is float32
+        got = tprobe(*(torch.as_tensor(a) if isinstance(a, np.ndarray) else a
+                       for a in args)).numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12 * np.abs(ref).max())
+    from flow_tpu.fem.spaces import Function
+
+    ref = jp.forces(Function(jp.V, jnp.asarray(U1)), Function(jp.Q, jnp.asarray(P1)))
+    Ut, Pt = interop.state_to_torch(U1, P1, device="cpu")
+    np.testing.assert_allclose(tp.forces(Ut, Pt), ref, rtol=1e-12)
+    np.testing.assert_allclose(tp.drag_lift_coefficients(Ut, Pt),
+                               jp.drag_lift_coefficients(Function(jp.V, jnp.asarray(U1)),
+                                                         Function(jp.Q, jnp.asarray(P1))),
+                               rtol=1e-12)
+
+
+def test_strouhal_estimator_synthetic():
+    # pure-sine lift at f=2 Hz -> St = f d / U = 2 * 0.04 / 0.01 = 8
+    t = np.linspace(0.0, 5.0, 400)
+    assert abs(karman.strouhal_number(t, np.sin(2 * np.pi * 2.0 * t)) - 8.0) < 0.2
+    assert karman.strouhal_number(t[:40], np.sin(2 * np.pi * 2.0 * t[:40])) is None
+
+
+def test_schafer_turek_problem():
+    prob = karman.schafer_turek_problem(lcar=0.05, n_refine=0,
+                                        dtype=torch.float64, device="cpu")
+    assert abs(prob.reynolds - 100.0) < 1e-12
+    assert abs(prob.force_scale - 0.5 * 1.0 * 1.0**2 * 0.1) < 1e-12
+    # open outflow: 4 velocity BCs (walls, obstacle, inlet), no outlet u BC
+    assert len(prob.u_bcs) == 4 and len(prob.p_bcs) == 1
+    out = karman.run_karman_fast(num_steps=4, dt0=1e-4, dt_max=2e-3, problem=prob,
+                                 chunk_size=2, winkernel=True)
+    assert np.isfinite(out["forces"]).all()
+    assert out["t"][-1] > 0

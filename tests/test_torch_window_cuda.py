@@ -1,7 +1,8 @@
-# The window kernels of flow_tpu_torch on the card: K3 (csrc/winmom.cu) and
-# K4b (csrc/winstiff.cu) against their plain PyTorch versions on small
-# Karman layouts, bitwise repeatable, and refusing a block whose cells do not
-# fit in shared memory. Skips without a CUDA device. Imports
+# The window kernels of flow_tpu_torch on the card: K3 (csrc/winmom.cu,
+# lagged and Newton) and K4b (csrc/winstiff.cu) against their plain PyTorch
+# versions on small Karman layouts, bitwise repeatable, the Newton kernel
+# equal to the lagged one where its reaction term vanishes, and refusing a
+# block whose cells do not fit in shared memory. Skips without a CUDA device. Imports
 # no JAX, so it runs on the machine with the card:
 #   python -m pytest --noconftest -q tests/test_torch_window_cuda.py
 # (tests/conftest.py imports JAX). Tolerance: float32 in both, another
@@ -70,6 +71,52 @@ def test_momentum_kernel_matches_plain(problem, S):
             x_pad, op.lidx, op.valid, op.detj, op.G4, op.Cg4, Tq, op.tabs,
             op._scal(*weights), op.wl.S, op.wl.W)
         assert _rel(y, y_plain) <= TOL
+
+
+def _momentum_inputs(problem, op, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((problem.V.n_dofs, 2)), dtype=torch.float32,
+                        device="cuda")
+    x_pad = torch.zeros((2, op.wl.n_pad), device="cuda")
+    x_pad[:, :op.wl.n] = torch.as_tensor(rng.standard_normal((2, op.wl.n)),
+                                         dtype=torch.float32)
+    return x, x_pad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [128, None])
+def test_newton_kernel_matches_plain(problem, S):
+    op = winmom.WindowLaggedMomentum(problem.V, S=S)
+    x, x_pad = _momentum_inputs(problem, op, 3)
+    Tq, Uq, Gu = op.state_qp(x)
+    weights = (1.0, 0.37, 0.021)
+    before = (winmom.WINMOM.launches, winmom.WINMOM_NEWTON.launches)
+    y = op.windows(x_pad, Tq, *weights, Uq, Gu)
+    y2 = op.windows(x_pad, Tq, *weights, Uq, Gu)
+    torch.cuda.synchronize()
+    assert (winmom.WINMOM.launches, winmom.WINMOM_NEWTON.launches) == (
+        before[0], before[1] + 2)
+    assert torch.equal(y, y2)
+    y_plain = winmom.momentum_windows_plain(
+        x_pad, op.lidx, op.valid, op.detj, op.G4, op.Cg4, Tq, op.tabs,
+        op._scal(*weights), op.wl.S, op.wl.W, Uq, Gu)
+    assert _rel(y, y_plain) <= TOL
+    # the wrapper takes only the state that is the transport (state_qp's)
+    with pytest.raises(ValueError, match="Uq that is"):
+        op.windows(x_pad, Tq, *weights, Tq.clone(), Gu)
+
+
+@pytest.mark.cuda
+def test_newton_kernel_without_reaction_is_the_lagged_kernel(problem):
+    op = winmom.WindowLaggedMomentum(problem.V, S=128)
+    _, x_pad = _momentum_inputs(problem, op, 4)
+    Tq = op.zero_transport()
+    Gu = torch.zeros((op.wl.nb, 4 * op.nq, op.wl.C), device="cuda")
+    weights = (1.0, 0.37, 0.021)
+    y = op.windows(x_pad, Tq, *weights, Tq, Gu)
+    y_lagged = op.windows(x_pad, Tq, *weights)
+    torch.cuda.synchronize()
+    assert _rel(y, y_lagged) <= 1e-7
 
 
 @pytest.mark.cuda
