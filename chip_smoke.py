@@ -6,8 +6,9 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. device and build: the card's name and power limit from nvidia-smi, then
-   the three CUDA kernels (csrc/stencil3d.cu, winstiff.cu, winmom.cu), one
-   nvcc each, started together, and the meshkit library (g++) beside them;
+   the four CUDA sources (csrc/stencil3d.cu, winstiff.cu, winmom.cu,
+   winmom3d.cu), one nvcc each, started together, and the meshkit library
+   (g++) beside them;
 2. stencil against plain: the stencil kernel (K1) against its plain PyTorch
    version on the 3-D cavity path's grids plus ragged ones, in float64
    (relative error <= 1e-13) and float32 (<= 1e-5: another summation order);
@@ -46,9 +47,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    lagged launches (the velocity correction) or K4b launches;
 11. K3 Newton at the main path's velocity layout, with the tables of the
    Newton path's final state: against its plain version (<= 1e-5
-   relative), bitwise repeat, wall time (CUDA events), device time
-   (torch.profiler, last, since profiling slows later host code),
-   the plain version's time and the CSR yardstick of the assembled tangent.
+   relative), bitwise repeat, wall time (CUDA events), the plain version's
+   time and the CSR yardstick of the assembled tangent;
+12. 3-D parity: run_cavity3d_fast(n=4, winkernel=True) in float64 for 3
+   steps on the card (kernels) and on the CPU (plain versions), lambda_max
+   carried across: equal per-step iteration counts, U within 2e-6 and P
+   within 1e-4 of max|P|;
+13. 3-D main path: run_cavity3d_fast(n=64, winkernel=True) in float32,
+   6,714,692 DoF, the JAX driver's defaults (Newton, backward Euler), one
+   step per chunk: 1 warm-up step and 3 timed steps, then one step with its
+   substeps timed. Fails on a non-finite state, an unconverged solve, or a
+   step without its K3 3-D Newton launches (2 per BiCGStab iteration), K3
+   3-D lagged launches (the velocity correction), K4b 3-D launches (one per
+   pressure CG iteration) or K1 launches (the V-cycle);
+14. 3-D kernels at the main path's layouts, with the tables of its final
+   state: K3 3-D lagged and Newton (velocity, nb=525, C=3,063) and K4b 3-D
+   (pressure, nb=68, C=23,958) against their plain versions (<= 1e-5
+   relative), bitwise repeat, wall times and the plain versions' times;
+   the CSR yardstick of K4b at N=64 and of K3 3-D at N=32, beside the
+   kernel's time at N=32 (the assembled N=64 tangent has ~1.4G element
+   entries before coalescing);
+15. device times (torch.profiler, last, since profiling slows later host
+   code) of K3 2-D Newton and the three 3-D kernels.
 
 The line before the last holds the kernel report, the one before it the
 card; the last line is {"ok": true, "device": {...}}. Imports neither jax
@@ -94,6 +114,9 @@ KARMAN_NEWTON = dict(
 KARMAN_DT0 = 1.0e-4  # bench.py:197
 KARMAN_MAIN = dict(lcar=0.02, n_refine=5)
 KARMAN_DOFS = 1905056  # 2 n_V + n_Q of the JAX package's mesh at these args
+CAVITY3D_MAIN = 64  # run_cavity3d_fast's n on the 3-D window route
+CAVITY3D_DOFS = 6714692  # 3 n_V + n_Q at n=64
+CAVITY3D_STEPS = 4  # 1 warm-up + 3 timed
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
 # tensor cores
@@ -175,7 +198,7 @@ def phase_build():
 
     th = threading.Thread(target=build_meshkit)
     th.start()
-    names = ["stencil3d", "winstiff", "winmom"]
+    names = ["stencil3d", "winstiff", "winmom", "winmom3d"]
     _build.build_all(names)
     th.join()
     check("error" not in meshkit, f"meshkit build failed: {meshkit.get('error')}")
@@ -367,7 +390,7 @@ def _stiffness_csr(op):
 
     wl = op.wl
     nb, NL, C = op.lidx.shape
-    K = op.kref.view(4, NL, NL)
+    K = op.kref.view(-1, NL, NL)
     Ae = torch.einsum("bkc,kij->bcij", op.Cg, K) * op.valid[:, :, None, None]
     g = (torch.arange(nb, device=op.lidx.device) * wl.S)[:, None, None] \
         + op.lidx.permute(0, 2, 1)  # [b, c, i]
@@ -378,7 +401,7 @@ def _stiffness_csr(op):
 
 def _momentum_csr(op, Tq, scal, Uq=None, Gu=None):
     """The window momentum operator (with Uq/Gu the Newton tangent)
-    assembled on the padded permuted dofs of both components (row
+    assembled on the padded permuted dofs of every component (row
     m*n_pad + dof): element matrices from the plain local apply on unit
     inputs."""
     import torch
@@ -386,21 +409,23 @@ def _momentum_csr(op, Tq, scal, Uq=None, Gu=None):
 
     wl = op.wl
     nb, NL, C = op.lidx.shape
+    DIM = op.dim
     dev = op.lidx.device
     g = (torch.arange(nb, device=dev) * wl.S)[:, None, None] + op.lidx  # [b, i, c]
     rows, cols, vals = [], [], []
-    for n in range(2):
+    for n in range(DIM):
         for j in range(NL):
-            U = torch.zeros((2, nb, NL, C), dtype=torch.float32, device=dev)
+            U = torch.zeros((DIM, nb, NL, C), dtype=torch.float32, device=dev)
             U[n, :, j, :] = 1.0
             loc = momentum_local_plain(U, op.valid, op.detj, op.G4, op.Cg4, Tq,
                                        op.tabs, scal, Uq, Gu)  # [m, b, i, c]
-            for m in range(2):
-                rows.append((m * wl.n_pad + g).reshape(-1))
-                cols.append((n * wl.n_pad + g[:, j:j + 1, :]).expand(nb, NL, C).reshape(-1))
+            for m in range(DIM):
+                rows.append((m * wl.n_pad + g).reshape(-1).long())
+                cols.append((n * wl.n_pad + g[:, j:j + 1, :]).expand(nb, NL, C)
+                            .reshape(-1).long())
                 vals.append(loc[m].reshape(-1))
-    return _csr(torch.cat(rows).long(), torch.cat(cols).long(), torch.cat(vals),
-                2 * wl.n_pad)
+            del U, loc
+    return _csr(torch.cat(rows), torch.cat(cols), torch.cat(vals), DIM * wl.n_pad)
 
 
 def _winstiff_work(op):
@@ -411,27 +436,31 @@ def _winstiff_work(op):
     scatter sums."""
     wl = op.wl
     nb, NL, C = op.lidx.shape
+    d2 = op.Cg.shape[1]
     cells = int(op.valid.sum())
-    nbytes = 4 * (wl.n_pad + nb * NL * C + nb * C + 4 * nb * C + 4 * NL * NL
+    nbytes = 4 * (wl.n_pad + nb * NL * C + nb * C + d2 * nb * C + d2 * NL * NL
                   + nb * wl.W)
-    ops = cells * (NL * (4 * (2 * NL + 2)) + NL) + cells * NL
+    ops = cells * (NL * (d2 * (2 * NL + 2)) + NL) + cells * NL
     return nbytes, ops
 
 
 def _winmom_work(op, newton=False):
     """Bytes and operations of one window momentum apply: the inputs the
     function needs read once and the output windows written once, not the
-    scatter lists that only this kernel's design reads; the per-cell
-    arithmetic of csrc/winmom.cu (DIM=2, NL=6, NQ=7) on the real cells, plus
-    the scatter sums. Newton mode adds the gradient table Gu and the
-    reaction term; its state table Uq is Tq, counted once."""
+    scatter lists or the scratch that only the kernels' design reads; the
+    per-cell arithmetic of csrc/winmom.cu (DIM=2, NL=6, NQ=7) or
+    csrc/winmom3d.cu (DIM=3, NL=10, NQ=27) on the real cells, plus the
+    scatter sums. Newton mode adds the gradient table Gu and the reaction
+    term; its state table Uq is Tq, counted once."""
     wl = op.wl
     nb, NL, C = op.lidx.shape
-    DIM, NQ = 2, op.nq
+    DIM, NQ = op.dim, op.nq
     cells = int(op.valid.sum())
     nbytes = 4 * (DIM * wl.n_pad + nb * NL * C + 2 * nb * C + 2 * DIM * DIM * nb * C
                   + DIM * NQ * nb * C + op.tabs.numel() + 3 + DIM * nb * wl.W
                   + (DIM * DIM * NQ * nb * C if newton else 0))
+    if DIM == 3:
+        return nbytes, cells * _winmom3d_ops_per_cell(newton)
     per_comp = (NQ * NL * 2 + DIM * NQ * NL * 2 + NQ * DIM * DIM * 2
                 + NQ * (2 * DIM + 2) + NQ * DIM * 3
                 + NL * ((2 * NL + 2) + (2 * NQ + DIM * DIM * (2 * NQ + 2)) + 2
@@ -444,6 +473,22 @@ def _winmom_work(op, newton=False):
         per_q = DIM * NL * 2 + 1 + NL * DIM * DIM * 3 + DIM * (2 * DIM + 2 + 4 * NL)
         per_cell += NQ * per_q + DIM * NL * 2
     return nbytes, cells * per_cell + DIM * cells * NL
+
+
+def _winmom3d_ops_per_cell(newton):
+    """Flops per cell of csrc/winmom3d.cu (DIM=3, NL=10, NQ=27), term by
+    term as the kernel computes them."""
+    DIM, NL, NQ, D2 = 3, 10, 27, 9
+    mass = NL * DIM * (2 * NL + 2)
+    stress = NL * (D2 * NL * 2 + DIM * (2 * NL + 2))
+    coupling = 1 + D2 * (NL * DIM * 2 + DIM + NL * (2 * NL + 2 * DIM))
+    # per point: weight, direction values, T.grad phi_i, then per component
+    # T.grad v_m, the two weights and the NL updates
+    per_q = 2 + DIM * 2 * NL + DIM * 2 * DIM + NL * 2 * DIM + DIM * (2 * NL + 4 + 4 * NL)
+    if newton:
+        # v.grad phi_i, then per component (v.grad x)_m, two weights, updates
+        per_q += DIM * 2 * DIM + NL * 2 * DIM + DIM * (2 * DIM + 4 + 4 * NL)
+    return mass + stress + coupling + NQ * per_q + DIM * NL + DIM * NL
 
 
 def _rel(a, b):
@@ -777,13 +822,221 @@ def phase_newton_kernel(st, U):
     torch.cuda.empty_cache()
     nbytes, nops = _winmom_work(op, newton=True)
     b_ms, b_by = bound_ms(nbytes, nops)
-    dev_ms = device_ms(kernel, 50)
     log(f"[window] winmom newton main: n={op.wl.n} nb={op.wl.nb} C={op.wl.C} "
         f"max_abs_err={abs_err:.3e} rel_err={rel_err:.3e} kernel_ms={ms:.5f} "
-        f"device_ms={dev_ms:.5f} plain_ms={plain_ms:.5f} csr_ms={lib_ms:.5f} "
+        f"plain_ms={plain_ms:.5f} csr_ms={lib_ms:.5f} "
         f"(nnz {nnz}) bytes={nbytes} ops={nops} bound_ms={b_ms:.6f} ({b_by})")
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                bound_by=b_by, library_ms=lib_ms), kernel
+
+
+def phase_cavity3d_parity():
+    import torch
+    from flow_tpu_torch.models.cavity3d import run_cavity3d_fast
+
+    runs = {}
+    lmax = None
+    for device in ("cpu", "cuda"):
+        out = run_cavity3d_fast(num_steps=3, n=4, winkernel=True, device=device,
+                                dtype=torch.float64, lmax=lmax)
+        lmax = [L.lmax for L in out["stepper"].pressure_precond.__self__.levels]
+        _check_solves(out["telemetry"], f"cavity3d-parity ({device})")
+        runs[device] = (out["U"].cpu(), out["P"].cpu(), out["telemetry"])
+    (U_c, P_c, tel_c), (U_g, P_g, tel_g) = runs["cpu"], runs["cuda"]
+    for key in ("newton_iters", "linear_iters", "pressure_iters", "correction_iters"):
+        a, b = tel_g[key].tolist(), tel_c[key].tolist()
+        log(f"[cavity3d-parity] {key}: cuda={a} cpu={b}")
+        check(a == b, f"cavity3d parity: {key} differ (cuda {a}, cpu {b})")
+    du = float((U_g - U_c).abs().max())
+    dp = float((P_g - P_c).abs().max())
+    pmax = float(P_c.abs().max())
+    log(f"[cavity3d-parity] max|dU|={du:.3e} (max|U| {float(U_c.abs().max()):.3e}) "
+        f"max|dP|={dp:.3e} (max|P| {pmax:.3e})")
+    check(du <= 2e-6, f"cavity3d parity: U differs by {du}")
+    check(dp <= 1e-4 * pmax, f"cavity3d parity: P differs by {dp}")
+
+
+def phase_cavity3d_main():
+    """run_cavity3d_fast on the 3-D window route at N=64, one step per
+    chunk: the first chunk is the warm-up, the next three are timed (each
+    chunk ends in a device->host copy of its telemetry)."""
+    import torch
+    from flow_tpu_torch.attic.winkernel import WINSTIFF3D
+    from flow_tpu_torch.attic.winmom import WINMOM3D, WINMOM3D_NEWTON
+    from flow_tpu_torch.models.cavity3d import run_cavity3d_fast
+    from flow_tpu_torch.ops.stencil import STENCIL_3D
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels = {"winmom3d": WINMOM3D, "winmom3d_newton": WINMOM3D_NEWTON,
+               "winstiff3d": WINSTIFF3D, "stencil3d": STENCIL_3D}
+    for k in kernels.values():
+        k.launches = 0
+    out = run_cavity3d_fast(num_steps=CAVITY3D_STEPS, n=CAVITY3D_MAIN, winkernel=True,
+                            chunk_size=1, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    prob, st, tel = out["problem"], out["stepper"], out["telemetry"]
+    n_dofs = 3 * prob.V.n_dofs + prob.Q.n_dofs
+    timed = sum(out["chunk_seconds"][1:])
+    n_timed = CAVITY3D_STEPS - 1
+    setup, layouts = out["setup_seconds"], out["layout_seconds"]
+    log(f"[cavity3d] run_cavity3d_fast n={CAVITY3D_MAIN} n_dofs={n_dofs} float32 "
+        f"winkernel=True convection={'lagged' if st.lagged else 'newton'} "
+        f"theta={st.theta}")
+    for name, wl in (("V", st.winmom.wl), ("Q", st.K_Q.wl)):
+        log(f"[cavity3d] {name} layout: n={wl.n} nb={wl.nb} S={wl.S} W={wl.W} C={wl.C}")
+    log(f"[cavity3d] setup {setup:.1f} s (window layouts, tables and scatter lists "
+        f"{layouts:.1f} s, the rest {setup - layouts:.1f} s)")
+    log(f"[cavity3d] steps/s={n_timed / timed:.4f} ({n_timed} steps in {timed:.3f} s, "
+        f"after 1 warm-up step of {out['chunk_seconds'][0]:.3f} s)")
+    for k in ("dt", "newton_iters", "linear_iters", "pressure_iters", "correction_iters",
+              "momentum_converged", "pressure_converged", "correction_converged"):
+        log(f"[cavity3d] {k}: {tel[k].tolist()}")
+    log(f"[cavity3d] peak_mem_bytes={peak} launches={launches} (per step: "
+        + ", ".join(f"{k} {v / CAVITY3D_STEPS:.1f}" for k, v in launches.items()) + ")")
+    check(n_dofs == CAVITY3D_DOFS, f"cavity3d: unexpected n_dofs {n_dofs}")
+    check(not st.lagged and st.theta == (0.0, 1.0), "cavity3d: not the driver's defaults")
+    U, P = out["U"], out["P"]
+    check(tuple(U.shape) == (prob.V.n_dofs, 3) and tuple(P.shape) == (prob.Q.n_dofs,),
+          "cavity3d: state of the wrong shape")
+    check(bool(torch.isfinite(U).all()) and bool(torch.isfinite(P).all()),
+          "cavity3d: non-finite state")
+    _check_solves(tel, "cavity3d")
+    check(bool((tel["newton_iters"] >= 1).all() and (tel["linear_iters"] >= 1).all()),
+          "cavity3d: a step without a Newton iteration")
+    # every BiCGStab iteration is two K3 3-D Newton launches; the correction
+    # CG one K3 3-D lagged launch per iteration plus one for its right-hand
+    # side; every pressure CG iteration one K4b 3-D launch and V-cycle
+    check(launches["winmom3d_newton"] == 2 * int(tel["linear_iters"].sum()),
+          "cavity3d: K3 3-D Newton launches do not match the BiCGStab iterations")
+    check(launches["winmom3d"] == int(tel["correction_iters"].sum()) + CAVITY3D_STEPS,
+          "cavity3d: K3 3-D lagged launches do not match the correction iterations")
+    check(launches["winstiff3d"] == int(tel["pressure_iters"].sum()),
+          "cavity3d: K4b 3-D launches do not match the pressure iterations")
+    check(launches["stencil3d"] > 0, "cavity3d: the stencil kernel was never launched")
+    umax = float(U.abs().max())
+    check(abs(umax - 1.0) < 1e-6, f"cavity3d: max |u| {umax} is not the lid speed")
+    times = _timed_step(st, U, P, st._scalar(out["dt"]))
+    log("[cavity3d] substeps ms (one synchronised step): "
+        + ", ".join(f"{k}={v:.2f}" for k, v in times.items()))
+    return out, launches
+
+
+def phase_window3d_kernels(st, U):
+    """K3 3-D lagged and Newton and K4b 3-D at the 3-D main path's layouts,
+    with the tables of its final state; the CSR yardsticks of K4b at N=64
+    and of K3 at N=32."""
+    import torch
+    from flow_tpu_torch.attic import winkernel, winmom
+    from flow_tpu_torch.models.cavity3d import Cavity3DProblem
+
+    rng = np.random.default_rng(3)
+    report, jobs = {}, {}
+    op = st.winmom
+    xp = torch.zeros((3, op.wl.n_pad), device="cuda")
+    xp[:, :op.wl.n] = torch.as_tensor(rng.standard_normal((3, op.wl.n)),
+                                      dtype=torch.float32)
+    # the weights of a momentum matvec at dt = 1e-3
+    s = 1e-3 / st.rho
+    w = (1.0, s * st.rho, s * st.mu)
+    scal = op._scal(*w)
+    Tq, Uq, Gu = op.state_qp(U)
+    for name, extra in (("winmom3d", ()), ("winmom3d_newton", (Uq, Gu))):
+        def kernel(extra=extra):
+            return op.windows(xp, Tq, *w, *extra)
+
+        def plain(extra=extra):
+            return winmom.momentum_windows_plain(xp, op.lidx, op.valid, op.detj, op.G4,
+                                                 op.Cg4, Tq, op.tabs, scal, op.wl.S,
+                                                 op.wl.W, *extra)
+
+        abs_err, rel_err = _check_kernel(f"{name} main", kernel, plain)
+        # at dt = 1e-3 the mass term dominates; weights of order one hold
+        # the convection, stress and reaction terms to the same tolerance
+        strong = (1.0, 0.37, 0.021)
+        _, rel_strong = _check_kernel(
+            f"{name} strong", lambda extra=extra: op.windows(xp, Tq, *strong, *extra),
+            lambda extra=extra: winmom.momentum_windows_plain(
+                xp, op.lidx, op.valid, op.detj, op.G4, op.Cg4, Tq, op.tabs,
+                op._scal(*strong), op.wl.S, op.wl.W, *extra))
+        log(f"[window3d] {name} with weights {strong}: rel_err={rel_strong:.3e}")
+        if not extra:
+            _check_kernel(f"{name} mass", lambda: op.windows(xp, Tq, 1.0, 0.0, 0.0),
+                          lambda: winmom.momentum_windows_plain(
+                              xp, op.lidx, op.valid, op.detj, op.G4, op.Cg4, Tq,
+                              op.tabs, op._scal(1.0, 0.0, 0.0), op.wl.S, op.wl.W))
+        ms = cuda_time_ms(kernel, 20)
+        plain_ms = cuda_time_ms(plain, 3)
+        nbytes, nops = _winmom_work(op, newton=bool(extra))
+        b_ms, b_by = bound_ms(nbytes, nops)
+        log(f"[window3d] {name} main: n={op.wl.n} nb={op.wl.nb} S={op.wl.S} W={op.wl.W} "
+            f"C={op.wl.C} max_abs_err={abs_err:.3e} rel_err={rel_err:.3e} "
+            f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} bytes={nbytes} ops={nops} "
+            f"bound_ms={b_ms:.6f} ({b_by})")
+        report[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by)
+        jobs[name] = kernel
+    del Uq, Gu
+    torch.cuda.empty_cache()
+
+    kq = st.K_Q
+    x = torch.zeros(kq.wl.n_pad, device="cuda")
+    x[:kq.wl.n] = torch.as_tensor(rng.standard_normal(kq.wl.n), dtype=torch.float32)
+
+    def kernel_q():
+        return kq.windows(x)
+
+    def plain_q():
+        return winkernel.stiffness_windows_plain(x, kq.lidx, kq.valid, kq.Cg, kq.kref,
+                                                 kq.wl.S, kq.wl.W)
+
+    abs_err, rel_err = _check_kernel("winstiff3d pressure", kernel_q, plain_q)
+    ms = cuda_time_ms(kernel_q, 100)
+    plain_ms = cuda_time_ms(plain_q, 10)
+    A = _stiffness_csr(kq)
+    _, csr_err = _rel((A @ x)[:kq.wl.n], kq.wl.overlap_add(kernel_q()))
+    check(csr_err <= 1e-5, f"winstiff3d: the CSR yardstick differs ({csr_err})")
+    lib_ms = cuda_time_ms(lambda: A @ x, 100)
+    nnz = A.values().numel()
+    del A
+    nbytes, nops = _winstiff_work(kq)
+    b_ms, b_by = bound_ms(nbytes, nops)
+    log(f"[window3d] winstiff3d pressure: n={kq.wl.n} nb={kq.wl.nb} S={kq.wl.S} "
+        f"W={kq.wl.W} C={kq.wl.C} max_abs_err={abs_err:.3e} rel_err={rel_err:.3e} "
+        f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} csr_ms={lib_ms:.5f} (N=64, nnz {nnz}) "
+        f"bytes={nbytes} ops={nops} bound_ms={b_ms:.6f} ({b_by})")
+    report["winstiff3d"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    jobs["winstiff3d"] = kernel_q
+
+    # K3's CSR yardstick at N=32, where its assembly fits: the kernel and
+    # the CSR matvec of the same assembled operator on the same input
+    small = Cavity3DProblem(n=32, mu=st.mu, dtype=torch.float32, device="cuda")
+    op32 = winmom.WindowLaggedMomentum(small.V)
+    U32 = torch.as_tensor(0.1 * rng.standard_normal((small.V.n_dofs, 3)),
+                          dtype=torch.float32, device="cuda")
+    Tq32, Uq32, Gu32 = op32.state_qp(U32)
+    xp32 = torch.zeros((3, op32.wl.n_pad), device="cuda")
+    xp32[:, :op32.wl.n] = torch.as_tensor(rng.standard_normal((3, op32.wl.n)),
+                                          dtype=torch.float32)
+    xf = xp32.reshape(-1)
+    for name, extra in (("winmom3d", ()), ("winmom3d_newton", (Uq32, Gu32))):
+        A = _momentum_csr(op32, Tq32, op32._scal(*w), *extra)
+        y = op32.windows(xp32, Tq32, *w, *extra)
+        y_csr = (A @ xf).view(3, op32.wl.n_pad)[:, :op32.wl.n]
+        _, csr_err = _rel(y_csr, op32.wl.overlap_add(y))
+        check(csr_err <= 1e-5, f"{name}: the N=32 CSR yardstick differs ({csr_err})")
+        lib_ms = cuda_time_ms(lambda: A @ xf, 50)
+        ms32 = cuda_time_ms(lambda: op32.windows(xp32, Tq32, *w, *extra), 50)
+        log(f"[window3d] {name} at N=32 (n={op32.wl.n} nb={op32.wl.nb} C={op32.wl.C}): "
+            f"kernel_ms={ms32:.5f} csr_ms={lib_ms:.5f} (nnz {A.values().numel()}) "
+            f"csr rel_err={csr_err:.3e}")
+        report[name]["library_ms"] = lib_ms
+        report[name]["kernel_ms_n32"] = ms32
+        del A
+        torch.cuda.empty_cache()
+    return report, jobs
 
 
 def main():
@@ -820,19 +1073,37 @@ def main():
         torch.cuda.empty_cache()
         phase_karman_parity(KARMAN_NEWTON, "newton-parity")
         out, newton = phase_newton_main()
-        knewton = phase_newton_kernel(out["stepper"], out["u"])
+        knewton, newton_job = phase_newton_kernel(out["stepper"], out["u"])
+        del out
+        torch.cuda.empty_cache()
+        phase_cavity3d_parity()
+        out3, launches3 = phase_cavity3d_main()
+        k3d, jobs3 = phase_window3d_kernels(out3["stepper"], out3["U"])
+        # device times from the profiler, last: a profiler session slows
+        # later host code in the process
+        knewton["device_ms"] = device_ms(newton_job, 50)
+        for name, job in jobs3.items():
+            k3d[name]["device_ms"] = device_ms(job, 20)
+        log("[profile] device ms per call: "
+            + ", ".join(f"{k}={v['device_ms']:.5f}" for k, v in
+                        (("winmom newton", knewton), *k3d.items())))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
-    # launches: the Newton main path's counts (this slice's path), with the
-    # lagged path's beside them; K1's from the cavity path
+    # launches: each kernel's count on its main path (the 3-D route for the
+    # 3-D kernels, the Newton driver for the 2-D window kernels), with the
+    # other paths' beside them; K1's from the box cavity path
     kwin["winmom"]["launches"] = newton["winmom"]
     kwin["winstiff"]["launches"] = newton["winstiff"]
     knewton["launches"] = newton["winmom_newton"]
+    for name in ("winmom3d", "winmom3d_newton", "winstiff3d"):
+        k3d[name]["launches"] = launches3[name]
     paths = {"winmom": {"karman_newton": newton["winmom"], "karman_lagged": lagged["winmom"]},
              "winstiff": {"karman_newton": newton["winstiff"],
-                          "karman_lagged": lagged["winstiff"]}}
+                          "karman_lagged": lagged["winstiff"]},
+             "stencil3d": {"cavity_box": k1["launches"],
+                           "cavity3d_window": launches3["stencil3d"]}}
     rows = [
         dict(name="stencil_apply_3d", route="cuda",
              source="flow_tpu_torch/csrc/stencil3d.cu",
@@ -843,9 +1114,18 @@ def main():
         dict(name="momentum_windows (Newton)", route="cuda",
              source="flow_tpu_torch/csrc/winmom.cu",
              replaces="flow_tpu/attic/winmom.py:199", **knewton),
+        dict(name="momentum_windows 3-D (lagged)", route="cuda",
+             source="flow_tpu_torch/csrc/winmom3d.cu",
+             replaces="flow_tpu/attic/winmom.py:209", **k3d["winmom3d"]),
+        dict(name="momentum_windows 3-D (Newton)", route="cuda",
+             source="flow_tpu_torch/csrc/winmom3d.cu",
+             replaces="flow_tpu/attic/winmom.py:219", **k3d["winmom3d_newton"]),
         dict(name="stiffness_windows", route="cuda",
              source="flow_tpu_torch/csrc/winstiff.cu",
              replaces="flow_tpu/attic/winkernel.py:259", **kwin["winstiff"]),
+        dict(name="stiffness_windows 3-D", route="cuda",
+             source="flow_tpu_torch/csrc/winstiff.cu",
+             replaces="flow_tpu/attic/winkernel.py:259", **k3d["winstiff3d"]),
     ]
     log(f"[done] launches by path: {json.dumps(paths)}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -88,8 +88,21 @@ def _dof_graph_rcm(cell_dofs, n):
     cd = np.asarray(cell_dofs, dtype=np.int64)
     nl = cd.shape[1]
     ii, jj = np.triu_indices(nl, 1)
-    e = np.stack([cd[:, ii].ravel(), cd[:, jj].ravel()], axis=1)
-    e = np.unique(np.sort(e, axis=1), axis=0).astype(np.int32)
+    # a pair (a, b), a < b, is keyed a*n + b: the sorted unique keys are the
+    # row-wise unique's lexicographic edge list. Sorting in place keeps the
+    # temporaries few (70M keys on the N=64 cavity's P2 tets): ~50x faster
+    # than np.unique(..., axis=0)
+    cs = np.sort(cd, axis=1)
+    keys = cs[:, ii]
+    keys *= n
+    keys += cs[:, jj]
+    keys = keys.ravel()
+    keys.sort()
+    first = np.empty(len(keys), dtype=bool)
+    first[:1] = True
+    np.not_equal(keys[1:], keys[:-1], out=first[1:])
+    keys = keys[first]
+    e = np.stack([keys // n, keys % n], axis=1).astype(np.int32)
     perm = np.asarray(native.rcm_order(n, e))
     inv = np.empty_like(perm)
     inv[perm] = np.arange(n, dtype=perm.dtype)

@@ -4,16 +4,18 @@
 # flow_tpu/attic/winkernel.py::WindowStiffnessOperator._pallas (K4b), and its
 # plain PyTorch version.
 #
-# It is the pressure operator of the window route (navier_stokes/fast.py) and
-# the operator of every large P1Hierarchy level (solvers/multigrid.py). Like
-# the JAX package, the apply computes in float32 whatever the caller's dtype
-# and casts at the boundary.
+# It is the pressure operator of the window route (navier_stokes/fast.py, 2-D
+# and 3-D) and the operator of every large P1Hierarchy level
+# (solvers/multigrid.py). Like the JAX package, the apply computes in float32
+# whatever the caller's dtype and casts at the boundary.
 #
 # stiffness_windows launches the kernel for CUDA tensors and takes the plain
-# version only for CPU tensors. It counts its launches in WINSTIFF.launches.
+# version only for CPU tensors. It counts its launches in WINSTIFF.launches
+# (2-D P1) and WINSTIFF3D.launches (3-D P1).
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 import torch
@@ -24,13 +26,23 @@ from ..mesh3d import _device
 from .window import build_scatter_lists, build_window_layout
 
 __all__ = ["WindowStiffnessOperator", "stiffness_windows",
-           "stiffness_windows_plain", "WINSTIFF"]
+           "stiffness_windows_plain", "WINSTIFF", "WINSTIFF3D"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 WINSTIFF = Kernel("winstiff", {
     "winstiff_p1_2d": [_P] * 8 + [_I] * 4 + [_P],
 })
+# the 3-D variant: the same library, its own entry point and count; it
+# takes a device scratch for the local results
+WINSTIFF3D = Kernel("winstiff", {
+    "winstiff_p1_3d": [_P] * 9 + [_I] * 4 + [_P],
+})
+# (DIM^2, NL) -> (kernel, entry point, takes a scratch)
+_ENTRIES = {
+    (4, 3): (WINSTIFF, "winstiff_p1_2d", False),
+    (9, 4): (WINSTIFF3D, "winstiff_p1_3d", True),
+}
 
 
 def stiffness_windows_plain(x_pad, lidx, valid, cg, kref, S, W):
@@ -54,9 +66,10 @@ def stiffness_windows(x_pad, lidx, valid, cg, kref, S, W, scatter=None):
     """Per-block output windows [nb, W] of the scalar stiffness apply (see
     stiffness_windows_plain). CPU tensors take the plain version; CUDA
     tensors launch the kernel, which sums each window dof along the
-    layout's scatter lists `scatter` = (rowptr, ent) tensors. The kernel
-    holds a block's C cells in shared memory at once and raises
-    (RuntimeError) when they do not fit."""
+    layout's scatter lists `scatter` = (rowptr, ent) tensors. The 2-D
+    kernel holds a block's C cells in shared memory at once and raises
+    (RuntimeError) when they do not fit; the 3-D kernel writes them to a
+    device scratch [nb, C*NL] and takes any C."""
     if x_pad.device.type == "cpu":
         return stiffness_windows_plain(x_pad, lidx, valid, cg, kref, S, W)
     if x_pad.device.type != "cuda":
@@ -64,11 +77,12 @@ def stiffness_windows(x_pad, lidx, valid, cg, kref, S, W, scatter=None):
     nb, NL, C = lidx.shape
     d2 = cg.shape[1]
     rowptr, ent = scatter
-    if (d2, NL) != (4, 3):
+    if (d2, NL) not in _ENTRIES:
         raise ValueError(
-            f"stiffness_windows: the kernel takes 2-D P1 (DIM=2, NL=3), got "
-            f"DIM^2={d2}, NL={NL}"
+            f"stiffness_windows: the kernels take P1 (DIM=2, NL=3 or DIM=3, "
+            f"NL=4), got DIM^2={d2}, NL={NL}"
         )
+    kernel, entry, scratched = _ENTRIES[(d2, NL)]
     tensors = (x_pad, lidx, valid, cg, kref, rowptr, ent)
     for t in tensors:
         if t.device != x_pad.device or not t.is_contiguous():
@@ -82,28 +96,32 @@ def stiffness_windows(x_pad, lidx, valid, cg, kref, S, W, scatter=None):
             or tuple(cg.shape) != (nb, d2, C) or kref.numel() != d2 * NL * NL
             or tuple(rowptr.shape) != (nb, W + 1)
             or tuple(ent.shape) != (nb, C * NL)
-            or x_pad.numel() >= 2**31 or ent.numel() >= 2**31):
+            or x_pad.numel() >= 2**31 or ent.numel() >= 2**31
+            or cg.numel() >= 2**31):
         raise ValueError("stiffness_windows: inconsistent layout shapes")
     out = torch.empty((nb, W), dtype=torch.float32, device=x_pad.device)
+    args = [x_pad.data_ptr(), lidx.data_ptr(), valid.data_ptr(), cg.data_ptr(),
+            kref.data_ptr(), rowptr.data_ptr(), ent.data_ptr()]
+    if scratched:
+        scratch = torch.empty((nb, C * NL), dtype=torch.float32, device=x_pad.device)
+        args.append(scratch.data_ptr())
     with torch.cuda.device(x_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
-        WINSTIFF.launch(
-            "winstiff_p1_2d", x_pad.data_ptr(), lidx.data_ptr(),
-            valid.data_ptr(), cg.data_ptr(), kref.data_ptr(),
-            rowptr.data_ptr(), ent.data_ptr(), out.data_ptr(),
-            nb, S, W, C, stream,
-        )
+        kernel.launch(entry, *args, out.data_ptr(), nb, S, W, C, stream)
     return out
 
 
 class WindowStiffnessOperator:
-    """Scalar stiffness apply on the window layout of a P1 space (the
-    pressure-Poisson and multigrid-level operator). Tables live in float32
-    on `device` (default: the mesh's). apply(x) takes x [n] in the original
-    numbering, in any float dtype, and returns K x in that dtype."""
+    """Scalar stiffness apply on the window layout of a P1 space on
+    triangles or tets (the pressure-Poisson and multigrid-level operator).
+    Tables live in float32 on `device` (default: the mesh's). apply(x)
+    takes x [n] in the original numbering, in any float dtype, and returns
+    K x in that dtype. layout_seconds: the host seconds of the layout, its
+    tables and scatter lists."""
 
     def __init__(self, space, S=None, device=None):
         self.space = space
+        t0 = time.perf_counter()
         wl = build_window_layout(space, S=S)
         self.wl = wl
         self.device = space.mesh.device if device is None else _device(device)
@@ -129,6 +147,7 @@ class WindowStiffnessOperator:
         self.scatter = None
         if self.device.type == "cuda":
             self.scatter = tuple(dev(a, torch.int32) for a in build_scatter_lists(wl))
+        self.layout_seconds = time.perf_counter() - t0
 
     def windows(self, x_pad):
         """[nb*S + W] float32 permuted, padded input -> [nb, W] windows."""

@@ -1,4 +1,4 @@
-# Window-blocked momentum operator on a 2-D vector-P2 space:
+# Window-blocked momentum operator on a vector-P2 space (2-D or 3-D):
 #
 #   A v = mass_w M v + s_rho c(T; v) + s_mu sym_grad(v)          (lagged)
 #   J v = A v + s_rho c(v; x)                                   (Newton)
@@ -7,11 +7,12 @@
 # 2 eps(u):eps(v), and in Newton mode the reaction term of the skew
 # convection about the state x, which makes J the exact volume tangent with
 # T = x), on the uniform-stride layout of attic/window.py: the hand-written
-# CUDA kernel (csrc/winmom.cu) that replaces the Pallas kernel
-# flow_tpu/attic/winmom.py::momentum_tables_apply with its _mom_kernel_2d and
-# _mom_newton_kernel_2d (K3, the 2-D lagged and Newton variants), and its
-# plain PyTorch version. It computes in float32 whatever the caller's dtype,
-# as the JAX package does.
+# CUDA kernels that replace the Pallas kernel
+# flow_tpu/attic/winmom.py::momentum_tables_apply (K3) - csrc/winmom.cu for
+# its _mom_kernel_2d and _mom_newton_kernel_2d (DIM=2, NL=6, NQ=7) and
+# csrc/winmom3d.cu for its _mom_kernel_3d and _mom_newton_kernel_3d (DIM=3,
+# NL=10, NQ=27) - and their plain PyTorch version. It computes in float32
+# whatever the caller's dtype, as the JAX package does.
 #
 # Blocked-table row layouts (all [nb, rows, C]):
 #   geometry G    row DIM*d + k         = G[c, d, k]
@@ -25,10 +26,12 @@
 #
 # momentum_windows launches the kernel for CUDA tensors and takes the plain
 # version only for CPU tensors. It counts its launches in WINMOM.launches
-# (lagged) and WINMOM_NEWTON.launches (Newton).
+# (2-D lagged), WINMOM_NEWTON.launches (2-D Newton), WINMOM3D.launches (3-D
+# lagged) and WINMOM3D_NEWTON.launches (3-D Newton).
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 import torch
@@ -39,7 +42,8 @@ from ..mesh3d import _device
 from .window import build_scatter_lists, build_window_layout
 
 __all__ = ["WindowLaggedMomentum", "momentum_windows", "momentum_windows_plain",
-           "momentum_local_plain", "smem_tables", "WINMOM", "WINMOM_NEWTON"]
+           "momentum_local_plain", "smem_tables", "WINMOM", "WINMOM_NEWTON",
+           "WINMOM3D", "WINMOM3D_NEWTON"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,10 +54,23 @@ WINMOM = Kernel("winmom", {
 WINMOM_NEWTON = Kernel("winmom", {
     "winmom_p2_2d_newton": [_P] * 13 + [_I] * 5 + [_P],
 })
+# the 3-D variants, which take a device scratch for the local results
+WINMOM3D = Kernel("winmom3d", {
+    "winmom_p2_3d_lagged": [_P] * 13 + [_I] * 5 + [_P],
+})
+WINMOM3D_NEWTON = Kernel("winmom3d", {
+    "winmom_p2_3d_newton": [_P] * 14 + [_I] * 5 + [_P],
+})
 
-# the one configuration the kernel is built for: 2-D, P2 (NL=6), the
-# degree-5 triangle rule (NQ=7)
-_DIM, _NL, _NQ = 2, 6, 7
+# the configurations the kernels are built for, P2 with the degree-5 rule:
+# (DIM, NL, NQ) -> ((lagged kernel, entry), (Newton kernel, entry), takes a
+# scratch)
+_ENTRIES = {
+    (2, 6, 7): ((WINMOM, "winmom_p2_2d_lagged"),
+                (WINMOM_NEWTON, "winmom_p2_2d_newton"), False),
+    (3, 10, 27): ((WINMOM3D, "winmom_p2_3d_lagged"),
+                  (WINMOM3D_NEWTON, "winmom_p2_3d_newton"), True),
+}
 
 
 def smem_tables(tab, degree, dim):
@@ -147,10 +164,12 @@ def momentum_windows(x_pad, lidx, valid, detj, g4, cg4, Tq, tabs, scal, S, W,
     """Per-block output windows [DIM, nb, W] of the momentum apply (see
     momentum_windows_plain). CPU tensors take the plain version; CUDA
     tensors launch the kernel, which sums each window dof along the
-    layout's scatter lists `scatter` = (rowptr, ent). The kernel holds a
-    block's C cells in shared memory at once and raises (RuntimeError) when
-    they do not fit. The Newton kernel reads the state values from Tq, so
-    it takes only Uq that is Tq (as state_qp returns them)."""
+    layout's scatter lists `scatter` = (rowptr, ent). The 2-D kernel holds
+    a block's C cells in shared memory at once and raises (RuntimeError)
+    when they do not fit; the 3-D kernel writes them to a device scratch
+    [nb, DIM, C*NL] and takes any C. The Newton kernels read the state
+    values from Tq, so they take only Uq that is Tq (as state_qp returns
+    them)."""
     if x_pad.device.type == "cpu":
         return momentum_windows_plain(x_pad, lidx, valid, detj, g4, cg4, Tq,
                                       tabs, scal, S, W, Uq, Gu)
@@ -159,11 +178,12 @@ def momentum_windows(x_pad, lidx, valid, detj, g4, cg4, Tq, tabs, scal, S, W,
     DIM = x_pad.shape[0]
     nb, NL, C = lidx.shape
     NQ = Tq.shape[1] // DIM
-    if (DIM, NL, NQ) != (_DIM, _NL, _NQ):
+    if (DIM, NL, NQ) not in _ENTRIES:
         raise ValueError(
-            f"momentum_windows: the kernel takes DIM=2, NL=6, NQ=7, got "
-            f"DIM={DIM}, NL={NL}, NQ={NQ}"
+            f"momentum_windows: the kernels take (DIM, NL, NQ) = (2, 6, 7) or "
+            f"(3, 10, 27), got ({DIM}, {NL}, {NQ})"
         )
+    lagged, newton_entry, scratched = _ENTRIES[(DIM, NL, NQ)]
     newton = Uq is not None
     if newton and (Uq is not Tq or Gu is None):
         raise ValueError("momentum_windows: the Newton kernel takes Uq that is "
@@ -194,29 +214,33 @@ def momentum_windows(x_pad, lidx, valid, detj, g4, cg4, Tq, tabs, scal, S, W,
             or (newton and Gu.numel() >= 2**31)):
         raise ValueError("momentum_windows: inconsistent layout shapes")
     out = torch.empty((DIM, nb, W), dtype=torch.float32, device=x_pad.device)
+    head = (x_pad.data_ptr(), lidx.data_ptr(), valid.data_ptr(),
+            detj.data_ptr(), g4.data_ptr(), cg4.data_ptr(), Tq.data_ptr())
+    tail = [tabs.data_ptr(), scal.data_ptr(), rowptr.data_ptr(), ent.data_ptr()]
+    if scratched:
+        scratch = torch.empty((nb, DIM, C * NL), dtype=torch.float32,
+                              device=x_pad.device)
+        tail.append(scratch.data_ptr())
+    kernel, entry = newton_entry if newton else lagged
     with torch.cuda.device(x_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
-        head = (x_pad.data_ptr(), lidx.data_ptr(), valid.data_ptr(),
-                detj.data_ptr(), g4.data_ptr(), cg4.data_ptr(), Tq.data_ptr())
-        tail = (tabs.data_ptr(), scal.data_ptr(), rowptr.data_ptr(),
-                ent.data_ptr(), out.data_ptr(), nb, S, W, C, n_pad, stream)
-        if newton:
-            WINMOM_NEWTON.launch("winmom_p2_2d_newton", *head, Gu.data_ptr(),
-                                 *tail)
-        else:
-            WINMOM.launch("winmom_p2_2d_lagged", *head, *tail)
+        kernel.launch(entry, *head, *((Gu.data_ptr(),) if newton else ()), *tail,
+                      out.data_ptr(), nb, S, W, C, n_pad, stream)
     return out
 
 
 class WindowLaggedMomentum:
     """The momentum volume operator (lagged, or with Uq/Gu the Newton
-    tangent) on the window layout of a 2-D vector-P2 space. Tables live in
-    float32 on `device` (default: the mesh's). State convention: [n, DIM] in
-    the original numbering (apply), or in the layout's permuted row order
-    (apply_perm_rows, the solve-side path)."""
+    tangent) on the window layout of a vector-P2 space on triangles or
+    tets. Tables live in float32 on `device` (default: the mesh's). State
+    convention: [n, DIM] in the original numbering (apply), or in the
+    layout's permuted row order (apply_perm_rows, the solve-side path).
+    layout_seconds: the host seconds of the layout, its tables and scatter
+    lists."""
 
     def __init__(self, V, S=None, device=None):
         self.V = V
+        t0 = time.perf_counter()
         self.wl = wl = build_window_layout(V, S=S)
         self.device = V.mesh.device if device is None else _device(device)
         dim = assembly._dim(V)
@@ -248,6 +272,7 @@ class WindowLaggedMomentum:
         if self.device.type == "cuda":
             self.scatter = tuple(dev(a, torch.int32) for a in build_scatter_lists(wl))
         self._scal_cache = {}
+        self.layout_seconds = time.perf_counter() - t0
 
     # -- per-step transport ------------------------------------------------
     def transport_qp(self, T):

@@ -1,8 +1,9 @@
-// Window-blocked scalar stiffness apply on a 2-D P1 space (DIM=2, NL=3):
+// Window-blocked scalar stiffness apply on a P1 space, 2-D (DIM=2, NL=3)
+// or 3-D (DIM=3, NL=4):
 //
 //   out[b, w] = sum over the real cells c of block b and local dofs i with
 //               lidx[b, i, c] == w of
-//               valid[b, c] * sum_{k,l} Cg[b, 2k+l, c]
+//               valid[b, c] * sum_{k,l} Cg[b, DIM*k+l, c]
 //                             * sum_j Kref[k, l, i, j] * x[b*S + lidx[b, j, c]]
 //
 // x is the permuted, zero-padded input [nb*S + W]; out holds one window
@@ -10,49 +11,63 @@
 //
 // Replaces flow_tpu/attic/winkernel.py::WindowStiffnessOperator._pallas
 // (K4b), whose TPU kernel DMAs the window into VMEM and gathers and scatters
-// with one-hot MXU contractions. It is the pressure operator of the Karman
-// window route and the operator of the large multigrid levels.
+// with one-hot MXU contractions. It is the pressure operator of the window
+// route (Karman in 2-D, the cavity in 3-D) and the operator of the large
+// 2-D multigrid levels.
 //
-// Bound: memory bandwidth. Per cell it reads 3 indices, 4 geometry factors,
-// a mask and 3 window values and does ~40 flops. The scatter lists, which
-// only this design needs, add one index per (cell, local dof) and one row
-// pointer per window dof on top of the function's own bytes.
+// Bound: memory bandwidth. Per cell it reads NL indices, DIM^2 geometry
+// factors, a mask and NL window values and does ~100 (2-D) or ~370 (3-D)
+// flops. The scatter lists, which only this design needs, add one index
+// per (cell, local dof) and one row pointer per window dof on top of the
+// function's own bytes.
 //
-// Design: one block per window block b. The 36-entry Kref table is staged
-// in shared memory. Threads take cells in turn, gather the 3 window values
-// (the window of one block spans a few thousand contiguous floats, so the
-// gathers hit L1/L2), and write the 3 local results to shared memory. Then
-// each thread takes window dofs in turn and sums the local results of its
-// dof along the block's scatter list (rowptr, ent), built on the host in
-// ascending (cell, local dof) order: a fixed order, so the result is
-// bitwise repeatable (no atomics). All C cells of a block are in shared
-// memory at once (12 B each, with S <= 4096 far below the opt-in limit of
-// ~19,000 cells); the launcher refuses a layout whose C does not fit.
+// Design: one block per window block b. The Kref table is staged in shared
+// memory. Threads take cells in turn, gather the NL window values (the
+// window of one block spans a few thousand contiguous floats, so the
+// gathers hit L1/L2), and write the NL local results. Then each thread
+// takes window dofs in turn and sums the local results of its dof along
+// the block's scatter list (rowptr, ent), built on the host in ascending
+// (cell, local dof) order: a fixed order, so the result is bitwise
+// repeatable (no atomics). Where the local results live:
+// - 2-D: all C cells of a block in shared memory at once (12 B each, with
+//   S <= 4096 far below the opt-in limit of ~19,000 cells); the launcher
+//   refuses a layout whose C does not fit;
+// - 3-D: a device scratch [nb, C*NL] that the wrapper allocates, so any C
+//   fits (C = 23,958 at the cavity's N=64, 383 KB a block); __syncthreads()
+//   makes the block's global writes visible to the block before the sums.
+//   The 3-D layouts have few blocks (68 at N=64), so a block has 1,024
+//   threads.
 //
 // Plain C interface (loaded with ctypes): the entry launches on the given
 // stream and returns the cudaError_t of the launch (0 on success).
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
-
-template <int DIM, int NL>
-__global__ void __launch_bounds__(kThreads)
+template <int DIM, int NL, int THREADS, bool SCRATCH>
+__global__ void __launch_bounds__(THREADS)
 winstiff_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
                 const float* __restrict__ valid, const float* __restrict__ cg,
                 const float* __restrict__ kref, const int* __restrict__ rowptr,
-                const int* __restrict__ ent, float* __restrict__ out, int S,
-                int W, int C) {
+                const int* __restrict__ ent, float* __restrict__ scratch,
+                float* __restrict__ out, int S, int W, int C) {
   constexpr int D2 = DIM * DIM;
   constexpr int KT = D2 * NL * NL;
+  // the 3-D table (144 floats) is read through a volatile pointer, so that
+  // every use reads shared memory: otherwise the compiler hoists it out of
+  // the cell loop and spills it to local memory; the 2-D table (36 floats)
+  // stays in registers
+  using KrefPtr = std::conditional_t<(KT > 64), const volatile float*, const float*>;
   extern __shared__ float smem[];
-  float* kref_s = smem;       // [D2*NL, NL]
-  float* loc_s = smem + KT;   // [C, NL]
+  float* kref_s = smem;  // [D2*NL, NL]
 
   const int b = blockIdx.x;
   for (int t = threadIdx.x; t < KT; t += blockDim.x) kref_s[t] = kref[t];
 
+  // [C, NL] local results: shared memory, or the block's rows of scratch
+  float* loc_s = SCRATCH ? scratch + static_cast<long long>(b) * C * NL : smem + KT;
   const float* xw = x + static_cast<long long>(b) * S;
   const int* lidx_b = lidx + static_cast<long long>(b) * NL * C;
   const float* valid_b = valid + static_cast<long long>(b) * C;
@@ -75,7 +90,7 @@ winstiff_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
       float loc = 0.f;
 #pragma unroll
       for (int kl = 0; kl < D2; ++kl) {
-        const float* kr = kref_s + (kl * NL + i) * NL;
+        KrefPtr kr = kref_s + (kl * NL + i) * NL;
         float s = 0.f;
 #pragma unroll
         for (int j = 0; j < NL; ++j) s += kr[j] * u[j];
@@ -92,32 +107,38 @@ winstiff_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
   }
 }
 
-// Shared memory of a block: the Kref table plus the local results of its C
-// cells. A layout that needs more than the device grants one block is
-// refused with cudaErrorInvalidValue.
-template <int DIM, int NL>
+// Shared memory of a block: the Kref table, plus in the shared variant the
+// local results of its C cells; a layout that needs more than the device
+// grants one block is refused with cudaErrorInvalidValue.
+template <int DIM, int NL, int THREADS, bool SCRATCH>
 int launch(const void* x, const void* lidx, const void* valid, const void* cg,
-           const void* kref, const void* rowptr, const void* ent, void* out,
-           int nb, int S, int W, int C, void* stream) {
+           const void* kref, const void* rowptr, const void* ent,
+           void* scratch, void* out, int nb, int S, int W, int C,
+           void* stream) {
   if (nb <= 0 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int table = DIM * DIM * NL * NL * static_cast<int>(sizeof(float));
-  const int per_cell = NL * static_cast<int>(sizeof(float));
-  if (C > (optin - table) / per_cell) return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = table + C * per_cell;
-  err = cudaFuncSetAttribute(winstiff_kernel<DIM, NL>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  winstiff_kernel<DIM, NL><<<nb, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(lidx),
-      static_cast<const float*>(valid), static_cast<const float*>(cg),
-      static_cast<const float*>(kref), static_cast<const int*>(rowptr),
-      static_cast<const int*>(ent), static_cast<float*>(out), S, W, C);
+  int bytes = table;
+  if (!SCRATCH) {
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int per_cell = NL * static_cast<int>(sizeof(float));
+    if (C > (optin - table) / per_cell) return static_cast<int>(cudaErrorInvalidValue);
+    bytes = table + C * per_cell;
+    err = cudaFuncSetAttribute(winstiff_kernel<DIM, NL, THREADS, SCRATCH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  winstiff_kernel<DIM, NL, THREADS, SCRATCH>
+      <<<nb, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(x), static_cast<const int*>(lidx),
+          static_cast<const float*>(valid), static_cast<const float*>(cg),
+          static_cast<const float*>(kref), static_cast<const int*>(rowptr),
+          static_cast<const int*>(ent), static_cast<float*>(scratch),
+          static_cast<float*>(out), S, W, C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -128,6 +149,15 @@ extern "C" int winstiff_p1_2d(const void* x, const void* lidx,
                               const void* kref, const void* rowptr,
                               const void* ent, void* out, int nb, int S, int W,
                               int C, void* stream) {
-  return launch<2, 3>(x, lidx, valid, cg, kref, rowptr, ent, out, nb, S, W, C,
-                      stream);
+  return launch<2, 3, 256, false>(x, lidx, valid, cg, kref, rowptr, ent,
+                                   nullptr, out, nb, S, W, C, stream);
+}
+
+extern "C" int winstiff_p1_3d(const void* x, const void* lidx,
+                              const void* valid, const void* cg,
+                              const void* kref, const void* rowptr,
+                              const void* ent, void* scratch, void* out,
+                              int nb, int S, int W, int C, void* stream) {
+  return launch<3, 4, 1024, true>(x, lidx, valid, cg, kref, rowptr, ent,
+                                   scratch, out, nb, S, W, C, stream);
 }

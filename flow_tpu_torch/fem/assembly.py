@@ -1,12 +1,12 @@
 # Assembly primitives. Port of flow_tpu/fem/assembly.py, cut to what the
-# 3-D box path and the 2-D Karman window route call.
+# 3-D box path and the window routes (2-D Karman, 3-D cavity) call.
 #
 # Setup (geometry, reference tensors, diagonals, element matrices) is host
 # numpy in float64; callers cast and move the results to their device once.
 # The per-step quadrature evaluations (values_at_qp, grads_at_qp,
-# integrate_rhs, BoundaryTab) are torch on the state's device, over device
-# copies of the geometry (geometry_on) and of the tabulations (Tab.on) made
-# once per (dtype, device).
+# integrate_rhs, BoundaryTab, BoundaryFaceTab) are torch on the state's
+# device, over device copies of the geometry (geometry_on) and of the
+# tabulations (Tab.on) made once per (dtype, device).
 #
 # Per-element geometry is two tiny tensors: detJ [nc] and G = J^{-T}
 # [nc,dim,dim]; constant-coefficient forms use exact factored reference
@@ -37,6 +37,7 @@ __all__ = [
     "grads_at_qp",
     "integrate_rhs",
     "BoundaryTab",
+    "BoundaryFaceTab",
     "ref_mass",
     "ref_stiffness",
     "ref_mixed",
@@ -256,7 +257,8 @@ def stiffness_local(space, geom):
 
 
 # ---------------------------------------------------------------------------
-# Boundary (facet) tabulation of a 2-D space -- for ds-integrals
+# Boundary (facet) tabulations -- for ds-integrals: edges of a 2-D space
+# (BoundaryTab), triangle faces of a 3-D one (BoundaryFaceTab)
 # ---------------------------------------------------------------------------
 class BoundaryTab:
     """The basis on each boundary edge at 1-D Gauss points, as device
@@ -342,3 +344,68 @@ class BoundaryTab:
         flat = loc.reshape((-1,) + loc.shape[2:])
         out = flat.new_zeros((self.space.n_dofs,) + flat.shape[1:])
         return out.index_add_(0, self.cell_dofs.reshape(-1), flat)
+
+    def integrate_scalar(self, val):
+        """sum_facets int val ds (a 0-d tensor); val [nb, nq1]."""
+        return torch.einsum("bq,bq->", val, self.wl)
+
+
+class BoundaryFaceTab(BoundaryTab):
+    """The 3-D facet (triangle face) tabulation of a tet-mesh space, for
+    ds-integrals on TetMesh boundaries: the same tensors and methods as
+    BoundaryTab, with nq1 points of triangle_rule(rule_degree) per face,
+    wl = w_q * 2 * face area (the rule's weights sum to 1/2), outward unit
+    normals [nb, 3] and physical quadrature points x_np [nb, nq1, 3]."""
+
+    _TET_FACES = [(1, 2, 3), (0, 2, 3), (0, 1, 3), (0, 1, 2)]
+    _REF_V = np.array(
+        [[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]]
+    )
+
+    def __init__(self, space: FunctionSpace, rule_degree=4, dtype=None,
+                 device=None):
+        mesh = space.mesh
+        assert getattr(mesh, "dim", 2) == 3
+        dtype = mesh.dtype if dtype is None else dtype
+        device = mesh.device if device is None else torch.device(device)
+        tpts, tw = quadrature.triangle_rule(rule_degree)
+        nq = len(tw)
+        # reference tet coords of face k at the triangle's points
+        phi_k = np.empty((4, nq, space.n_local))
+        dphi_k = np.empty((4, nq, space.n_local, 3))
+        pts_k = np.empty((4, nq, 3))
+        lam_a = 1.0 - tpts[:, 0] - tpts[:, 1]
+        for k, (a, b, c) in enumerate(self._TET_FACES):
+            pts_k[k] = (lam_a[:, None] * self._REF_V[a] + tpts[:, 0:1] * self._REF_V[b]
+                        + tpts[:, 1:2] * self._REF_V[c])
+            phi_k[k], dphi_k[k] = elements.tabulate(space.degree, pts_k[k], dim=3)
+
+        loc = mesh.boundary_local_np
+        cells = mesh.boundary_cells_np.astype(np.int64)
+        p = mesh.points_np
+        f = mesh.boundary_faces_np  # sorted triples; orientation fixed below
+        cr = np.cross(p[f[:, 1]] - p[f[:, 0]], p[f[:, 2]] - p[f[:, 0]])
+        area2 = np.linalg.norm(cr, axis=1)  # 2 * area
+        n = cr / area2[:, None]
+        # outward: away from the cell centroid
+        cent_cell = p[mesh.cells_np[cells]].mean(axis=1)
+        flip = np.einsum("bd,bd->b", n, p[f].mean(axis=1) - cent_cell) < 0
+        n[flip] *= -1.0
+        x0 = p[mesh.cells_np[cells][:, 0]]
+        dv = np.stack([p[mesh.cells_np[cells][:, k + 1]] - x0 for k in range(3)],
+                      axis=-1)
+        self.x_np = x0[:, None, :] + np.einsum("bqk,bdk->bqd", pts_k[loc], dv)
+
+        def dev(a, dt=dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                   device=device)
+
+        self.phi = dev(phi_k[loc])
+        self.dphi = dev(dphi_k[loc])
+        self.wl = dev(tw[None, :] * area2[:, None])
+        self.normals = dev(n)
+        self.Gb = dev(geometry(mesh).G[cells])
+        self.cell_dofs_np = space.cell_dofs_np[cells]
+        self.cell_dofs = dev(self.cell_dofs_np, torch.int64)
+        self.space = space
+        self.nq1 = nq

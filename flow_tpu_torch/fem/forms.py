@@ -1,6 +1,7 @@
 # Weak-form operators of the incompressible-flow forms. Port of
-# flow_tpu/fem/forms.py, cut to what the 2-D Karman window route calls
-# (forms.py:59-222 of the JAX package).
+# flow_tpu/fem/forms.py, cut to what the window routes (2-D Karman, 3-D
+# cavity) call (forms.py:59-222 of the JAX package); every form takes
+# triangles and tets alike.
 #
 # Torch on the state's device: `geom` is an assembly.geometry_on view
 # (detJ, G, C tensors), tabulations come from assembly.Tab.on. Vector fields

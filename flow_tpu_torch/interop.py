@@ -20,9 +20,9 @@ def state_to_torch(U, P, dtype=torch.float64, device=None, Um1=None):
     (U, P, Um1).
 
     The port numbers dofs as the JAX package does, so a state of one
-    package is a state of the other: the Karman state (U [n_V, 2], P [n_Q])
-    of navier_stokes/fast.py, and the packed box state (Uf [3*n2], Pf [n1])
-    of fem/boxpack.py."""
+    package is a state of the other: the states (U [n_V, dim], P [n_Q]) of
+    navier_stokes/fast.py (Karman in 2-D, the cavity in 3-D), and the
+    packed box state (Uf [3*n2], Pf [n1]) of fem/boxpack.py."""
     device = _device(device)
     out = tuple(torch.tensor(np.asarray(a), dtype=dtype, device=device)
                 for a in (U, P) + (() if Um1 is None else (Um1,)))

@@ -1,7 +1,8 @@
-# The projection stepper of the Karman benchmark path on the window-kernel
-# route. Port of flow_tpu/navier_stokes/fast.py::FastStepper, cut to the
-# route that runs the window kernels (the JAX package's FLOW_WINKERNEL=1,
-# BiCGStab momentum, packed=False):
+# The projection stepper of the Karman benchmark path and of the 3-D cavity
+# driver on the window-kernel route, on triangles or tets. Port of
+# flow_tpu/navier_stokes/fast.py::FastStepper, cut to the route that runs
+# the window kernels (the JAX package's FLOW_WINKERNEL=1, BiCGStab momentum,
+# packed=False; the JAX stepper never packs in 3-D):
 #
 #   1. tentative velocity, in the window layout's permuted row order:
 #      - Newton (the default): a Newton loop on the nonlinear residual; each
@@ -13,8 +14,9 @@
 #        is affine and one BiCGStab solve (K3, lagged) is the step;
 #   2. pressure Poisson in increment form: CG on the window stiffness
 #      operator (attic/winkernel.py, K4b) preconditioned by the caller's
-#      V-cycle (solvers/multigrid.P1Hierarchy), or, without one, Jacobi CG on
-#      the exact stiffness (NSContext.pressure_solve);
+#      V-cycle (solvers/multigrid.P1Hierarchy in 2-D,
+#      solvers/structured_mg.StructuredHierarchy on a box mesh), or, without
+#      one, Jacobi CG on the exact stiffness (NSContext.pressure_solve);
 #   3. velocity correction, CG on the consistent mass through the window
 #      momentum kernel with zero convection and stress weights.
 #
@@ -58,10 +60,11 @@ class FastStepper:
                           controller on the device; BDF2 returns
                           (..., (Um1, dtp)) as well
 
-    U is [n_V, 2] and P [n_Q] in the spaces' numbering, in `dtype` on
-    `device` (defaults: the mesh's). Set `pressure_precond` (a callable
-    r -> z, e.g. P1Hierarchy.v_cycle) before stepping, or leave it None for
-    Jacobi CG. forces_probe: a callable (U1, P1) -> [2], or with
+    U is [n_V, dim] and P [n_Q] in the spaces' numbering, in `dtype` on
+    `device` (defaults: the mesh's), on a triangle or a tet mesh. Set
+    `pressure_precond` (a callable r -> z, e.g. P1Hierarchy.v_cycle in 2-D,
+    StructuredHierarchy.v_cycle on a box mesh) before stepping, or leave it
+    None for Jacobi CG. forces_probe: a callable (U1, P1) -> [2], or with
     needs_history (U1, P1, U0, dt) -> [2] (navier_stokes/forces.py), whose
     values run() reports as telemetry["forces"].
     """
@@ -168,7 +171,8 @@ class FastStepper:
 
     def zeros(self):
         return (
-            torch.zeros((self.V.n_dofs, 2), dtype=self.dtype, device=self.device),
+            torch.zeros((self.V.n_dofs, self.V.n_components), dtype=self.dtype,
+                        device=self.device),
             torch.zeros(self.Q.n_dofs, dtype=self.dtype, device=self.device),
         )
 

@@ -1,10 +1,11 @@
 # The momentum residual and the setup tables of the pressure-correction
-# (projection) step on a 2-D P2/P1 pair. Port of the pieces of
-# flow_tpu/navier_stokes/pressure_correction.py::_Context that the window
-# route of navier_stokes/fast.py reads: the theta-weighted residual (Newton
-# or with a lagged transport), its boundary (ds) terms, the pressure solve
-# without a preconditioner, the Jacobi diagonals and the boundary
-# tabulations. The Chorin/IPCS/Rotational scheme drivers are not ported.
+# (projection) step on a P2/P1 pair, on triangles or tets. Port of the
+# pieces of flow_tpu/navier_stokes/pressure_correction.py::_Context that the
+# window route of navier_stokes/fast.py reads: the theta-weighted residual
+# (Newton or with a lagged transport), its boundary (ds) terms, the pressure
+# solve without a preconditioner, the Jacobi diagonals and the boundary
+# tabulations (BoundaryTab on edges in 2-D, BoundaryFaceTab on faces in
+# 3-D). The Chorin/IPCS/Rotational scheme drivers are not ported.
 #
 # The residual of the tentative velocity, theta = (w_ex, w_im):
 #   F1(ui) = (ui - u0, v) - dt/rho * [w_ex rhs_weak(u0, v; p0, u0)
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from ..fem import assembly, forms
-from ..fem.assembly import BoundaryTab, geometry_on
+from ..fem.assembly import BoundaryFaceTab, BoundaryTab, geometry_on
 from ..solvers import krylov
 
 __all__ = ["NSContext", "CONV_RULE"]
@@ -33,15 +34,11 @@ class NSContext:
     def __init__(self, V, Q, dtype, device):
         self.V, self.Q = V, Q
         mesh = V.mesh
-        if getattr(mesh, "dim", 2) != 2:
-            raise NotImplementedError(
-                "the port's projection context is 2-D only (3-D facet tables "
-                "are ROADMAP queue 1 item 5)"
-            )
         self.dtype, self.device = dtype, device
         self.geom = geometry_on(mesh, dtype, device)
-        self.btab = BoundaryTab(V, rule_degree=6, dtype=dtype, device=device)
-        self.btabQ = BoundaryTab(Q, rule_degree=6, dtype=dtype, device=device)
+        Tab = BoundaryTab if getattr(mesh, "dim", 2) == 2 else BoundaryFaceTab
+        self.btab = Tab(V, rule_degree=6, dtype=dtype, device=device)
+        self.btabQ = Tab(Q, rule_degree=6, dtype=dtype, device=device)
         hgeom = assembly.geometry(mesh)
         ncomp = V.n_components
 

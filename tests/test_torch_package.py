@@ -1,6 +1,6 @@
-# flow_tpu_torch as a package: it and chip_smoke.py import neither jax nor
-# flow_tpu, it switches TF32 off, and chip_smoke.py refuses to run without a
-# CUDA device or outside the repository.
+# flow_tpu_torch as a package: it, chip_smoke.py and scripts/torch_*.py
+# import neither jax nor flow_tpu, it switches TF32 off, and chip_smoke.py
+# refuses to run without a CUDA device or outside the repository.
 import json
 import shutil
 import subprocess
@@ -43,14 +43,17 @@ def test_port_imports_no_jax_and_turns_tf32_off():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     for mod in ("navier_stokes.boxfast", "navier_stokes.fast", "interop",
                 "attic.winmom", "attic.winkernel", "attic.window",
-                "solvers.multigrid", "models.karman", "native", "mesh"):
+                "solvers.multigrid", "models.karman", "models.cavity3d",
+                "native", "mesh"):
         assert f"flow_tpu_torch.{mod}" in out["modules"], mod
     assert out["foreign"] == []
     assert out["tf32"] == [False, False]
 
 
 def test_port_sources_name_no_jax():
-    paths = [*(ROOT / "flow_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    paths = [*(ROOT / "flow_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
+             *(ROOT / "scripts").glob("torch_*.py")]
+    assert len(paths) > 40
     for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()

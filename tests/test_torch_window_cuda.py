@@ -2,7 +2,11 @@
 # lagged and Newton) and K4b (csrc/winstiff.cu) against their plain PyTorch
 # versions on small Karman layouts, bitwise repeatable, the Newton kernel
 # equal to the lagged one where its reaction term vanishes, and refusing a
-# block whose cells do not fit in shared memory. Skips without a CUDA device. Imports
+# block whose cells do not fit in shared memory; their 3-D variants
+# (csrc/winmom3d.cu, winstiff.cu's winstiff_p1_3d) the same on box_mesh
+# tet layouts, taking a block of any size (their local results live in a
+# device scratch) and refusing inputs they do not take. Skips without a
+# CUDA device. Imports
 # no JAX, so it runs on the machine with the card:
 #   python -m pytest --noconftest -q tests/test_torch_window_cuda.py
 # (tests/conftest.py imports JAX). Tolerance: float32 in both, another
@@ -12,6 +16,8 @@ import pytest
 import torch
 
 from flow_tpu_torch.attic import winkernel, winmom
+from flow_tpu_torch.fem.spaces import FunctionSpace, VectorFunctionSpace
+from flow_tpu_torch.mesh3d import box_mesh
 from flow_tpu_torch.models.karman import KarmanProblem
 
 torch.set_num_threads(1)
@@ -148,3 +154,127 @@ def test_kernels_refuse_cells_beyond_shared_memory(problem):
             torch.zeros((1, 14, C), **z), torch.zeros(313, **z), torch.zeros(3, **z),
             S, W, scatter)
     assert winmom.WINMOM.launches == before
+
+
+@pytest.fixture(scope="module")
+def box():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc (CUDA kernel has no CPU mode)")
+    mesh = box_mesh((0, 0, 0), (1, 1, 1), 6, 6, 6, dtype=torch.float32, device="cuda")
+    return VectorFunctionSpace(mesh, 2, n_components=3), FunctionSpace(mesh, 1)
+
+
+def _inputs_3d(V, op, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((V.n_dofs, 3)), dtype=torch.float32,
+                        device="cuda")
+    x_pad = torch.zeros((3, op.wl.n_pad), device="cuda")
+    x_pad[:, :op.wl.n] = torch.as_tensor(rng.standard_normal((3, op.wl.n)),
+                                         dtype=torch.float32)
+    return x, x_pad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [128, None])
+def test_momentum_3d_kernels_match_plain(box, S):
+    V, _ = box
+    op = winmom.WindowLaggedMomentum(V, S=S)
+    x, x_pad = _inputs_3d(V, op, 5)
+    Tq, Uq, Gu = op.state_qp(x)
+    weights = (1.0, 0.37, 0.021)
+    for newton in (False, True):
+        extra = (Uq, Gu) if newton else ()
+        counter = winmom.WINMOM3D_NEWTON if newton else winmom.WINMOM3D
+        before = counter.launches
+        y = op.windows(x_pad, Tq, *weights, *extra)
+        y2 = op.windows(x_pad, Tq, *weights, *extra)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 2
+        assert torch.equal(y, y2)
+        y_plain = winmom.momentum_windows_plain(
+            x_pad, op.lidx, op.valid, op.detj, op.G4, op.Cg4, Tq, op.tabs,
+            op._scal(*weights), op.wl.S, op.wl.W, *extra)
+        assert _rel(y, y_plain) <= TOL
+
+
+@pytest.mark.cuda
+def test_newton_3d_kernel_without_reaction_is_the_lagged_kernel(box):
+    V, _ = box
+    op = winmom.WindowLaggedMomentum(V, S=128)
+    _, x_pad = _inputs_3d(V, op, 6)
+    Tq = op.zero_transport()
+    Gu = torch.zeros((op.wl.nb, 9 * op.nq, op.wl.C), device="cuda")
+    weights = (1.0, 0.37, 0.021)
+    y = op.windows(x_pad, Tq, *weights, Tq, Gu)
+    y_lagged = op.windows(x_pad, Tq, *weights)
+    torch.cuda.synchronize()
+    assert _rel(y, y_lagged) <= 1e-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [128, None])
+def test_stiffness_3d_kernel_matches_plain(box, S):
+    _, Q = box
+    op = winkernel.WindowStiffnessOperator(Q, S=S)
+    x_pad = torch.zeros(op.wl.n_pad, device="cuda")
+    x_pad[:op.wl.n] = torch.as_tensor(np.random.default_rng(7).standard_normal(op.wl.n),
+                                      dtype=torch.float32)
+    before = winkernel.WINSTIFF3D.launches
+    y = op.windows(x_pad)
+    y2 = op.windows(x_pad)
+    torch.cuda.synchronize()
+    assert winkernel.WINSTIFF3D.launches == before + 2
+    assert torch.equal(y, y2)
+    y_plain = winkernel.stiffness_windows_plain(x_pad, op.lidx, op.valid, op.Cg,
+                                                op.kref, op.wl.S, op.wl.W)
+    assert _rel(y, y_plain) <= TOL
+
+
+@pytest.mark.cuda
+def test_3d_kernels_take_blocks_beyond_shared_memory_and_refuse_bad_inputs(box):
+    # one block of C cells, past what shared memory would hold (16 B a cell
+    # for K4b 3-D, 120 B for K3 3-D): the 3-D kernels take it; one real
+    # cell whose window dofs 0..NL-1 hold x = 1, all other cells masked
+    S = W = 128
+    z = dict(device="cuda")
+    C = 30000
+    lidx = torch.arange(4, dtype=torch.int32, **z)[None, :, None].expand(1, 4, C).contiguous()
+    valid = torch.zeros((1, C), **z)
+    valid[0, 0] = 1.0
+    cg = torch.ones((1, 9, C), **z)
+    kref = torch.ones((36, 4), **z)
+    rowptr = torch.zeros((1, W + 1), dtype=torch.int32, **z)
+    rowptr[0, 1:5] = torch.arange(1, 5, dtype=torch.int32, **z)
+    rowptr[0, 5:] = 4
+    ent = torch.zeros((1, 4 * C), dtype=torch.int32, **z)
+    ent[0, :4] = torch.arange(4, dtype=torch.int32, **z)
+    x = torch.zeros(S + W, **z)
+    x[:4] = 1.0
+    y = winkernel.stiffness_windows(x, lidx, valid, cg, kref, S, W, (rowptr, ent))
+    torch.cuda.synchronize()
+    assert y[0, :4].tolist() == [36.0] * 4 and float(y[0, 4:].abs().max()) == 0.0
+    with pytest.raises(TypeError, match="float32"):
+        winkernel.stiffness_windows(x.double(), lidx, valid, cg, kref, S, W, (rowptr, ent))
+    with pytest.raises(ValueError, match="contiguous"):
+        winkernel.stiffness_windows(x, lidx, valid, cg.transpose(1, 2).contiguous()
+                                    .transpose(1, 2), kref, S, W, (rowptr, ent))
+    C = 5000
+    before = winmom.WINMOM3D.launches
+    out = winmom.momentum_windows(
+        torch.zeros((3, S + W), **z), torch.zeros((1, 10, C), dtype=torch.int32, **z),
+        torch.zeros((1, C), **z), torch.zeros((1, C), **z),
+        torch.zeros((1, 9, C), **z), torch.zeros((1, 9, C), **z),
+        torch.zeros((1, 81, C), **z), torch.zeros(2107, **z), torch.zeros(3, **z),
+        S, W, (torch.zeros((1, W + 1), dtype=torch.int32, **z),
+               torch.zeros((1, 10 * C), dtype=torch.int32, **z)))
+    torch.cuda.synchronize()
+    assert winmom.WINMOM3D.launches == before + 1 and float(out.abs().max()) == 0.0
+    with pytest.raises(ValueError, match="inconsistent layout shapes"):
+        winmom.momentum_windows(
+            torch.zeros((3, S + W), **z), torch.zeros((1, 10, C), dtype=torch.int32, **z),
+            torch.zeros((1, C), **z), torch.zeros((1, C), **z),
+            torch.zeros((1, 9, C), **z), torch.zeros((1, 9, C), **z),
+            torch.zeros((1, 81, C), **z), torch.zeros(2000, **z), torch.zeros(3, **z),
+            S, W, (torch.zeros((1, W + 1), dtype=torch.int32, **z),
+                   torch.zeros((1, 10 * C), dtype=torch.int32, **z)))
+    assert winmom.WINMOM3D.launches == before + 1
