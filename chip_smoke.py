@@ -6,12 +6,14 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. device and build: the card's name and power limit from nvidia-smi, then
-   the four CUDA sources (csrc/stencil3d.cu, winstiff.cu, winmom.cu,
-   winmom3d.cu), one nvcc each, started together, and the meshkit library
-   (g++) beside them;
-2. stencil against plain: the stencil kernel (K1) against its plain PyTorch
-   version on the 3-D cavity path's grids plus ragged ones, in float64
-   (relative error <= 1e-13) and float32 (<= 1e-5: another summation order);
+   the seven CUDA sources (csrc/stencil3d.cu, stencil2d.cu, winstiff.cu,
+   winmom.cu, winmom3d.cu, winmass.cu, winform.cu), one nvcc each, started
+   together, and the meshkit library (g++) beside them;
+2. stencils against plain: the 27-point kernel (K1) on the 3-D cavity
+   path's grids and the 9-point kernel (K2) on the 2-D multigrid levels of
+   2,049^2 down, plus ragged grids, against their plain PyTorch versions, in
+   float64 (relative error <= 1e-13 for K1, 1e-12 for K2) and float32
+   (<= 1e-5: another summation order); cuDNN's convolution as the yardstick;
 3. cavity parity: Cavity3DProblem(n=8) in float64 for 3 steps on the card
    and on the CPU: equal per-step iteration counts, U within 1e-10 and the
    mean-removed P within 1e-8;
@@ -67,14 +69,42 @@ Phases, in order; any failure exits non-zero and prints no result:
    the CSR yardstick of K4b at N=64 and of K3 3-D at N=32, beside the
    kernel's time at N=32 (the assembled N=64 tangent has ~1.4G element
    entries before coalescing);
-15. device times (torch.profiler, last, since profiling slows later host
-   code) of K3 2-D Newton and the three 3-D kernels.
+15. 2-D structured parity: the MG-preconditioned CG Poisson solves of
+   unit_square_mesh(32) (Neumann and Dirichlet) in float64 on the card (K2)
+   and on the CPU, lambda_max carried across: equal iterations, solutions
+   within 1e-10;
+16. 2-D structured main path: unit_square_mesh(2048), P1, 4,198,401 DoF,
+   float32, the same two solves at rtol 1e-6 with a 6-level
+   StructuredHierarchy; fails on no convergence, no K2 launch, a solution
+   more than 1e-4 (relative) from the float64 solve, or a true float64
+   residual above 3e-4 of |b|;
+17. formwin2d: unit_square_mesh(1024) P2, 4,198,401 DoF, float32: 1 + 5
+   implicit Euler steps of a rotating convection-diffusion operator
+   compiled by formlang, applied by K5 (window_operator) with the mass
+   right-hand side by K4a (WindowMassOperator) and Jacobi-BiCGStab; fails
+   unless K4a launches once per step and K5 once per BiCGStab matvec, or if
+   the steps differ from the reference (CompiledForm.apply and mass_apply,
+   run under torch's deterministic algorithms) by more than one iteration
+   in any step or 1e-4 relative in the state; then
+   K4a and K5 against their plain versions at this layout, with the CSR
+   yardstick;
+18. K4b P2: Jacobi-CG Dirichlet P2 Poisson solves with WindowStiffnessOperator
+   on unit_square_mesh(256) and box_mesh N=32 tets, float64 vectors
+   (launches = iterations, solution within 1e-3 of the einsum operator's),
+   each operator then against its plain version at its layout (2-D P2,
+   NL = 6; 3-D P2, NL = 10); then K4a and K5 at NL = 10 on the tet layout
+   against their plain versions;
+19. device times (torch.profiler, last, since profiling slows later host
+   code) of K3 2-D Newton, the three 3-D kernels, K2, K4a, K5 and K4b 2-D
+   and 3-D P2.
 
 The line before the last holds the kernel report, the one before it the
 card; the last line is {"ok": true, "device": {...}}. Imports neither jax
 nor flow_tpu.
 """
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -117,6 +147,16 @@ KARMAN_DOFS = 1905056  # 2 n_V + n_Q of the JAX package's mesh at these args
 CAVITY3D_MAIN = 64  # run_cavity3d_fast's n on the 3-D window route
 CAVITY3D_DOFS = 6714692  # 3 n_V + n_Q at n=64
 CAVITY3D_STEPS = 4  # 1 warm-up + 3 timed
+STRUCTURED2D_N = 2048  # unit_square_mesh(2048, "right"): the Poisson solves
+STRUCTURED2D_DOFS = 4198401  # P1: 2049^2
+FORMWIN_N = 1024  # unit_square_mesh(1024, "right") P2: the formwin2d steps
+FORMWIN_DOFS = 4198401  # P2: 2049^2
+FORMWIN_STEPS = 6  # 1 warm-up + 5 timed
+# implicit Euler step and diffusivity of formwin2d: where |b| = 0.5 (h =
+# 1/1024) the cell Peclet number |b| h / (2 kappa) is ~1 and the Courant
+# number |b| dt / h ~2.6
+FORMWIN_DT = 5e-3
+FORMWIN_KAPPA = 2.5e-4
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
 # tensor cores
@@ -177,6 +217,20 @@ def device_ms(fn, reps):
     return us / reps / 1e3
 
 
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms for the block: index_add_ on the card
+    then sums in a fixed order, so a reference repeats bitwise from run to
+    run (cuBLAS needs CUBLAS_WORKSPACE_CONFIG, which main() sets)."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def bound_ms(nbytes, ops):
     """Least time for the work on the card, and what bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -198,7 +252,8 @@ def phase_build():
 
     th = threading.Thread(target=build_meshkit)
     th.start()
-    names = ["stencil3d", "winstiff", "winmom", "winmom3d"]
+    names = ["stencil3d", "stencil2d", "winstiff", "winmom", "winmom3d", "winmass",
+             "winform"]
     _build.build_all(names)
     th.join()
     check("error" not in meshkit, f"meshkit build failed: {meshkit.get('error')}")
@@ -209,45 +264,57 @@ def phase_build():
         f"(nvcc seconds {secs}) into {_build.BUILD_DIR}")
 
 
-def phase_stencil():
+def phase_stencil(dim):
+    """K1 (dim 3) or K2 (dim 2) against its plain version on the main path's
+    grids (every multigrid level) and ragged ones; the cuDNN convolution of
+    the same stencil as the yardstick at the finest grid. Returns the
+    report of the finest grid in float32 and, to time its device time
+    later, a call of the kernel there."""
     import torch
     import torch.nn.functional as F
-    from flow_tpu_torch.ops.stencil import stencil_apply_3d, stencil_apply_3d_plain
+    from flow_tpu_torch.ops import stencil
 
-    shapes = [(65, 65, 65), (33, 33, 33), (17, 17, 17), (9, 9, 9), (5, 5, 5),
-              (5, 6, 7), (2, 7, 9), (1, 4, 3), (1, 1, 1)]
-    tols = {torch.float64: 1e-13, torch.float32: 1e-5}
+    if dim == 3:
+        shapes = [(65, 65, 65), (33, 33, 33), (17, 17, 17), (9, 9, 9), (5, 5, 5),
+                  (5, 6, 7), (2, 7, 9), (1, 4, 3), (1, 1, 1)]
+        apply, plain, conv, tag = (stencil.stencil_apply_3d, stencil.stencil_apply_3d_plain,
+                                   F.conv3d, "stencil")
+        tols = {torch.float64: 1e-13, torch.float32: 1e-5}
+    else:
+        shapes = [(2049, 2049), (1025, 1025), (513, 513), (257, 257), (129, 129),
+                  (65, 65), (1, 257), (257, 1), (7, 13), (1, 1)]
+        apply, plain, conv, tag = (stencil.stencil_apply_2d, stencil.stencil_apply_2d_plain,
+                                   F.conv2d, "stencil2d")
+        tols = {torch.float64: 1e-12, torch.float32: 1e-5}
     rng = np.random.default_rng(0)
     report = {}
     for dtype, tol in tols.items():
         for shape in shapes:
             x = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device="cuda")
-            k = torch.as_tensor(rng.standard_normal((3, 3, 3)), dtype=dtype,
+            k = torch.as_tensor(rng.standard_normal((3,) * dim), dtype=dtype,
                                 device="cuda")
-            y = stencil_apply_3d(x, k)
-            y_plain = stencil_apply_3d_plain(x, k)
+            y = apply(x, k)
+            y_plain = plain(x, k)
             torch.cuda.synchronize()
             abs_err = float((y - y_plain).abs().max())
             rel_err = abs_err / max(float(y_plain.abs().max()), 1e-300)
             reps = 200 if x.numel() > 1000 else 50
-            ms = cuda_time_ms(lambda: stencil_apply_3d(x, k), reps)
-            plain_ms = cuda_time_ms(lambda: stencil_apply_3d_plain(x, k), reps)
-            log(f"[stencil] {str(dtype):13s} {str(shape):15s} max_abs_err={abs_err:.3e} "
+            ms = cuda_time_ms(lambda: apply(x, k), reps)
+            plain_ms = cuda_time_ms(lambda: plain(x, k), reps)
+            log(f"[{tag}] {str(dtype):13s} {str(shape):15s} max_abs_err={abs_err:.3e} "
                 f"rel_err={rel_err:.3e} kernel_ms={ms:.5f} plain_ms={plain_ms:.5f}")
-            check(rel_err <= tol, f"stencil {shape} {dtype}: rel err {rel_err} > {tol}")
+            check(rel_err <= tol, f"{tag} {shape} {dtype}: rel err {rel_err} > {tol}")
             report[(dtype, shape)] = (abs_err, ms, plain_ms)
     # the yardstick: a cuDNN convolution of the same stencil (TF32 is off)
-    x = torch.as_tensor(rng.standard_normal((65, 65, 65)), dtype=torch.float32,
-                        device="cuda")
-    k = torch.as_tensor(rng.standard_normal((3, 3, 3)), dtype=torch.float32,
-                        device="cuda")
-    lib_ms = cuda_time_ms(lambda: F.conv3d(x[None, None], k[None, None], padding=1), 200)
+    x = torch.as_tensor(rng.standard_normal(shapes[0]), dtype=torch.float32, device="cuda")
+    k = torch.as_tensor(rng.standard_normal((3,) * dim), dtype=torch.float32, device="cuda")
+    lib_ms = cuda_time_ms(lambda: conv(x[None, None], k[None, None], padding=1), 200)
     n = x.numel()
-    b_ms, b_by = bound_ms(2 * 4 * n + 4 * 27, 54 * n)
-    abs_err, ms, plain_ms = report[(torch.float32, (65, 65, 65))]
-    log(f"[stencil] 65^3 f32 conv3d_ms={lib_ms:.5f} bound_ms={b_ms:.6f} ({b_by})")
+    b_ms, b_by = bound_ms(2 * 4 * n + 4 * 3**dim, 2 * 3**dim * n)
+    abs_err, ms, plain_ms = report[(torch.float32, shapes[0])]
+    log(f"[{tag}] {shapes[0]} f32 conv{dim}d_ms={lib_ms:.5f} bound_ms={b_ms:.6f} ({b_by})")
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                bound_by=b_by, library_ms=lib_ms), lambda: apply(x, k)
 
 
 def _cavity_run(n, dtype, device, n_steps, lmax=None):
@@ -384,19 +451,18 @@ def _csr(rows, cols, vals, n):
     return A.to_sparse_csr()
 
 
-def _stiffness_csr(op):
-    """The window stiffness operator assembled on the padded permuted dofs."""
+def _stiffness_elements(op):
+    """The element matrices [nb, C, NL, NL] of a window stiffness operator."""
     import torch
 
-    wl = op.wl
-    nb, NL, C = op.lidx.shape
+    NL = op.lidx.shape[1]
     K = op.kref.view(-1, NL, NL)
-    Ae = torch.einsum("bkc,kij->bcij", op.Cg, K) * op.valid[:, :, None, None]
-    g = (torch.arange(nb, device=op.lidx.device) * wl.S)[:, None, None] \
-        + op.lidx.permute(0, 2, 1)  # [b, c, i]
-    rows = g[:, :, :, None].expand(nb, C, NL, NL).reshape(-1).long()
-    cols = g[:, :, None, :].expand(nb, C, NL, NL).reshape(-1).long()
-    return _csr(rows, cols, Ae.reshape(-1), wl.n_pad)
+    return torch.einsum("bkc,kij->bcij", op.Cg, K) * op.valid[:, :, None, None]
+
+
+def _stiffness_csr(op):
+    """The window stiffness operator assembled on the padded permuted dofs."""
+    return _element_csr(op, _stiffness_elements(op))
 
 
 def _momentum_csr(op, Tq, scal, Uq=None, Gu=None):
@@ -1038,8 +1104,439 @@ def phase_window3d_kernels(st, U):
         torch.cuda.empty_cache()
     return report, jobs
 
+def _poisson2d(mesh, bc, rtol, lmax=None, dtype=None):
+    """MG-preconditioned CG on the P1 Poisson problem of
+    tests/test_structured_mg.py: pure Neumann with the constant nullspace,
+    or Dirichlet on the whole boundary, with a StructuredHierarchy V-cycle
+    (K2 on every level, the finest level's operator as the matrix), in
+    `dtype` (default: the mesh's). Returns the hierarchy, the operator, b
+    and solve() -> (x, the solve info, the synchronised solve ms)."""
+    import torch
+    from flow_tpu_torch import interop
+    from flow_tpu_torch.fem.spaces import FunctionSpace
+    from flow_tpu_torch.solvers import krylov
+    from flow_tpu_torch.solvers.structured_mg import StructuredHierarchy
+
+    Q = FunctionSpace(mesh, 1)
+    mask = None
+    if bc == "dirichlet":
+        mask = np.zeros(Q.n_dofs)
+        mask[Q.boundary_dofs()] = 1.0
+    hier = StructuredHierarchy(mesh, bc_mask=mask, dtype=dtype)
+    if lmax is not None:
+        interop.load_hierarchy_lmax(hier, lmax)
+    K = hier.levels[-1].K
+    b = torch.as_tensor(np.random.default_rng(0).standard_normal(Q.n_dofs),
+                        dtype=hier.dtype, device=mesh.device)
+    nullspace = None
+    if mask is None:
+        b = b - b.mean()
+        nullspace = [torch.ones_like(b)]
+    else:
+        b = b * (1.0 - hier.levels[-1].mask)
+
+    def solve():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = krylov.cg(K, b, M=hier.v_cycle, rtol=rtol, maxiter=200,
+                            nullspace=nullspace)
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize()
+        return x, info, 1e3 * (time.perf_counter() - t0)
+
+    return hier, K, b, solve
+
+
+def phase_structured2d_parity():
+    """The 2-D structured Poisson solves of unit_square_mesh(32) in float64
+    on the card (K2) and on the CPU (plain stencil), lambda_max carried
+    across: equal CG iterations, solutions within 1e-10."""
+    import torch
+    from flow_tpu_torch.mesh import unit_square_mesh
+
+    for bc in ("neumann", "dirichlet"):
+        runs, lmax = {}, None
+        for device in ("cpu", "cuda"):
+            mesh = unit_square_mesh(32, "right", dtype=torch.float64, device=device)
+            hier, _, _, solve = _poisson2d(mesh, bc, 1e-10, lmax)
+            lmax = [L.lmax for L in hier.levels]
+            x, info, _ = solve()
+            check(bool(info.converged), f"structured2d parity ({device}, {bc}): no convergence")
+            runs[device] = (x.cpu(), info.iters)
+        dx = float((runs["cuda"][0] - runs["cpu"][0]).abs().max())
+        log(f"[structured2d-parity] {bc}: iterations cuda={runs['cuda'][1]} "
+            f"cpu={runs['cpu'][1]} max|dx|={dx:.3e} "
+            f"(max|x| {float(runs['cpu'][0].abs().max()):.3e})")
+        check(runs["cuda"][1] == runs["cpu"][1],
+              f"structured2d parity ({bc}): iterations differ")
+        check(dx <= 1e-10, f"structured2d parity ({bc}): x differs by {dx}")
+
+
+def phase_structured2d_main():
+    """unit_square_mesh(2048, 'right'), P1, 4,198,401 DoF, float32: the pure
+    Neumann and the Dirichlet Poisson solves with the StructuredHierarchy
+    V-cycle, rtol 1e-6. Each solve runs once as a warm-up; the counts are
+    set to 0 before the second and read after it. The solution is held
+    against a float64 solve (rtol 1e-10) of the same problem on the card,
+    and its true residual is computed in float64 (the float32 rounding of
+    x alone puts it near 1e-4)."""
+    import torch
+    from flow_tpu_torch.mesh import unit_square_mesh
+    from flow_tpu_torch.ops.stencil import STENCIL_2D
+
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    mesh = unit_square_mesh(STRUCTURED2D_N, "right", dtype=torch.float32, device="cuda")
+    log(f"[structured2d] unit_square_mesh({STRUCTURED2D_N}) n_points={mesh.n_points} "
+        f"mesh {time.perf_counter() - t0:.1f} s")
+    check(mesh.n_points == STRUCTURED2D_DOFS, f"structured2d: n_dofs {mesh.n_points}")
+    launches = 0
+    for bc in ("neumann", "dirichlet"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hier, K, b, solve = _poisson2d(mesh, bc, 1e-6)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        solve()
+        STENCIL_2D.launches = 0
+        x, info, ms = solve()
+        n_launch = STENCIL_2D.launches
+        launches += n_launch
+        peak = torch.cuda.max_memory_allocated() - base
+        # the float64 solve of the same problem, and the true residual of
+        # the float32 solution in float64
+        hier64, K64, b64, solve64 = _poisson2d(mesh, bc, 1e-10, dtype=torch.float64)
+        x64, info64, _ = solve64()
+        x32 = x.double()
+        if bc == "neumann":
+            x32, x64 = x32 - x32.mean(), x64 - x64.mean()
+        err = float((x32 - x64).norm() / x64.norm())
+        res = float((b64 - K64(x.double())).norm() / b64.norm())
+        log(f"[structured2d] {bc}: levels {[L.grid[0] for L in hier.levels]} setup "
+            f"{setup:.1f} s; CG iterations {info.iters} solve_ms={ms:.3f} "
+            f"stencil2d_launches={n_launch} peak_mem_bytes={peak} (above the "
+            f"{base} allocated before the phase); against the float64 solve "
+            f"({info64.iters} iterations): rel err {err:.3e}, true rel residual "
+            f"{res:.3e}")
+        check(bool(info.converged) and bool(info64.converged),
+              f"structured2d ({bc}): CG did not converge")
+        check(bool(torch.isfinite(x).all()), f"structured2d ({bc}): non-finite solution")
+        check(n_launch > 0, f"structured2d ({bc}): the 2-D stencil kernel was never launched")
+        # measured on the H100: err 1.8e-5 / 1.1e-5, residual 9.4e-5 / 3.2e-5
+        # (Neumann / Dirichlet)
+        check(err <= 1e-4, f"structured2d ({bc}): {err} from the float64 solution")
+        check(res <= 3e-4, f"structured2d ({bc}): true residual {res}")
+        del hier, K, b, x, hier64, K64, b64, x64, x32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _bump(points):
+    """The initial state of the formwin2d phase: a Gaussian bump at (0.5,
+    0.75) of width 0.05."""
+    r2 = (points[:, 0] - 0.5) ** 2 + (points[:, 1] - 0.75) ** 2
+    return np.exp(-r2 / (2 * 0.05 ** 2))
+
+
+def _rotating(x):
+    """The transport field of the formwin2d phase: a solid-body rotation
+    about (0.5, 0.5), |b| <= 0.71 on the unit square."""
+    import torch
+
+    return torch.stack([-(x[..., 1] - 0.5), x[..., 0] - 0.5], dim=-1)
+
+
+def _formwin_steps(U, n_steps, apply_K, apply_M, free, mask, jac):
+    """Implicit Euler steps (M + dt(kappa K + C)) u^{n+1} = M u^n with
+    homogeneous Dirichlet rows (heat.py's masking), Jacobi-BiCGStab from the
+    previous state, rtol 1e-5."""
+    import torch
+    from flow_tpu_torch.solvers import krylov
+
+    iters, converged = [], True
+    for _ in range(n_steps):
+        U, info = krylov.bicgstab(lambda x: free * apply_K(x) + mask * x,
+                                  free * apply_M(U), x0=U, M=lambda r: r / jac,
+                                  rtol=1e-5, maxiter=500)
+        iters.append(info.iters)
+        converged &= bool(info.converged)
+    torch.cuda.synchronize()
+    return U, iters, converged
+
+
+def _window_work(op, table_floats, ops_per_cell):
+    """Bytes and operations of one window apply of K4a or K5: x, lidx, valid
+    and the kernel's tables (`table_floats` floats) read once and the
+    output windows written once (not the scatter lists or the scratch that
+    only the kernels' design reads); `ops_per_cell` on the real cells,
+    plus the scatter sums."""
+    wl = op.wl
+    nb, NL, C = op.lidx.shape
+    cells = int(op.valid.sum())
+    nbytes = 4 * (wl.n_pad + nb * NL * C + nb * C + table_floats + nb * wl.W)
+    return nbytes, cells * (ops_per_cell + NL)
+
+
+def _element_csr(op, Ae):
+    """The assembled operator of element matrices Ae [nb, C, NL, NL] (masked
+    cells zero) on the padded permuted dofs of op's window layout."""
+    import torch
+
+    wl = op.wl
+    nb, NL, C = op.lidx.shape
+    g = (torch.arange(nb, device=op.lidx.device) * wl.S)[:, None, None] \
+        + op.lidx.permute(0, 2, 1)  # [b, c, i]
+    rows = g[:, :, :, None].expand(nb, C, NL, NL).reshape(-1).long()
+    cols = g[:, :, None, :].expand(nb, C, NL, NL).reshape(-1).long()
+    return _csr(rows, cols, Ae.reshape(-1), wl.n_pad)
+
+
+def _window_kernel_report(name, op, kernel, plain, Ae, nbytes, nops, reps=50):
+    """Kernel against plain (<= 1e-5 relative, bitwise repeat), its wall
+    time, the plain version's, the CSR matvec of the same assembled
+    operator (checked against the kernel's apply) and the bound."""
+    import torch
+
+    x = torch.zeros(op.wl.n_pad, device="cuda")
+    x[:op.wl.n] = torch.as_tensor(np.random.default_rng(4).standard_normal(op.wl.n),
+                                  dtype=torch.float32)
+    abs_err, rel_err = _check_kernel(name, lambda: kernel(x), lambda: plain(x))
+    ms = cuda_time_ms(lambda: kernel(x), reps)
+    plain_ms = cuda_time_ms(lambda: plain(x), 5)
+    A = _element_csr(op, Ae)
+    _, csr_err = _rel((A @ x)[:op.wl.n], op.wl.overlap_add(kernel(x)))
+    check(csr_err <= 1e-5, f"{name}: the CSR yardstick differs ({csr_err})")
+    lib_ms = cuda_time_ms(lambda: A @ x, reps)
+    nnz = A.values().numel()
+    del A
+    b_ms, b_by = bound_ms(nbytes, nops)
+    wl = op.wl
+    log(f"[{name}] n={wl.n} nb={wl.nb} S={wl.S} W={wl.W} C={wl.C} NL={op.lidx.shape[1]} "
+        f"max_abs_err={abs_err:.3e} rel_err={rel_err:.3e} kernel_ms={ms:.5f} "
+        f"plain_ms={plain_ms:.5f} csr_ms={lib_ms:.5f} (nnz {nnz}) bytes={nbytes} "
+        f"ops={nops} bound_ms={b_ms:.6f} ({b_by})")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms), lambda: kernel(x)
+
+
+def _mass_report(name, M):
+    from flow_tpu_torch.attic import winkernel
+
+    nb, NL, C = M.lidx.shape
+    Ae = (M.detj * M.valid)[:, :, None, None] * M.mref
+    nbytes, nops = _window_work(M, nb * C + NL * NL, 2 * NL * NL + 2 * NL + 1)
+    return _window_kernel_report(
+        name, M, M.windows,
+        lambda x: winkernel.mass_windows_plain(x, M.lidx, M.valid, M.detj, M.mref,
+                                               M.wl.S, M.wl.W), Ae, nbytes, nops)
+
+
+def _element_report(name, K):
+    from flow_tpu_torch.attic import winform
+
+    nb, NL, C = K.lidx.shape
+    Ae = K.aloc.view(nb, NL, NL, C).permute(0, 3, 1, 2) * K.valid[:, :, None, None]
+    nbytes, nops = _window_work(K, nb * NL * NL * C, 2 * NL * NL + NL)
+    return _window_kernel_report(
+        name, K, K.windows,
+        lambda x: winform.element_windows_plain(x, K.lidx, K.valid, K.aloc, K.wl.S,
+                                                K.wl.W), Ae, nbytes, nops)
+
+
+def _stiffness_report(name, op):
+    from flow_tpu_torch.attic import winkernel
+
+    return _window_kernel_report(
+        name, op, op.windows,
+        lambda x: winkernel.stiffness_windows_plain(x, op.lidx, op.valid, op.Cg, op.kref,
+                                                    op.wl.S, op.wl.W),
+        _stiffness_elements(op), *_winstiff_work(op))
+
+
+def phase_formwin2d():
+    """unit_square_mesh(1024, 'right'), P2, 4,198,401 DoF, float32: implicit
+    Euler for u_t + b.grad u = kappa lap u, the operator compiled by
+    formlang and applied by K5 (window_operator), the right-hand side M u
+    by K4a (WindowMassOperator), Jacobi from S.assemble_diag(). 1 + 5
+    steps with the counts set to 0 before and read after; the same steps
+    with CompiledForm.apply and assembly.mass_apply as the reference, under
+    torch's deterministic algorithms (their index_add_ then sums in a fixed
+    order, as the kernels do); then K4a and K5 against their plain versions
+    at this layout."""
+    import torch
+    from flow_tpu_torch.attic import winform, winkernel
+    from flow_tpu_torch.fem import assembly, formlang as fl
+    from flow_tpu_torch.fem.bc import DirichletBC, combine_bcs
+    from flow_tpu_torch.fem.spaces import FunctionSpace
+    from flow_tpu_torch.mesh import unit_square_mesh
+
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    mesh = unit_square_mesh(FORMWIN_N, "right", dtype=torch.float32, device="cuda")
+    V = FunctionSpace(mesh, 2)
+    check(V.n_dofs == FORMWIN_DOFS, f"formwin2d: n_dofs {V.n_dofs}")
+    geom = assembly.geometry(mesh)
+    u, v = fl.TrialFunction(V), fl.TestFunction(V)
+    b = fl.Coefficient(_rotating, vector=True)
+    S = fl.compile_form(u * v + FORMWIN_DT * (FORMWIN_KAPPA * fl.dot(fl.grad(u), fl.grad(v))
+                                              + fl.dot(b, fl.grad(u)) * v), geom, 3)
+    mask = torch.as_tensor(combine_bcs(V, [DirichletBC(V, 0.0)])[0], dtype=torch.float32,
+                           device="cuda")
+    free = 1.0 - mask
+    with deterministic():
+        jac = free * S.assemble_diag() + mask
+    K = winform.window_operator(S)
+    M = winkernel.WindowMassOperator(V)
+    U0 = torch.as_tensor(_bump(V.dof_points_np), dtype=torch.float32, device="cuda") * free
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    layouts = K.layout_seconds + M.layout_seconds
+    h = 1.0 / FORMWIN_N
+    log(f"[formwin2d] unit_square_mesh({FORMWIN_N}) P2 n_dofs={V.n_dofs} "
+        f"cells={mesh.n_cells} dt={FORMWIN_DT} kappa={FORMWIN_KAPPA} cell Peclet "
+        f"|b| h / (2 kappa) = {0.5 * h / (2 * FORMWIN_KAPPA):.3f} at |b| = 0.5; setup "
+        f"{setup:.1f} s (the two window layouts and scatter lists {layouts:.1f} s, the "
+        f"rest {setup - layouts:.1f} s)")
+    for name, op in (("K5", K), ("K4a", M)):
+        wl = op.wl
+        log(f"[formwin2d] {name} layout: n={wl.n} nb={wl.nb} S={wl.S} W={wl.W} C={wl.C}")
+
+    torch.cuda.reset_peak_memory_stats()
+    winkernel.WINMASS.launches = winform.WINFORM.launches = 0
+    U, iters_w, conv_w = _formwin_steps(U0, 1, K.apply, M.apply, free, mask, jac)
+    t0 = time.perf_counter()
+    U, iters, conv = _formwin_steps(U, FORMWIN_STEPS - 1, K.apply, M.apply, free, mask, jac)
+    elapsed = time.perf_counter() - t0
+    launches = {"winmass": winkernel.WINMASS.launches, "winform": winform.WINFORM.launches}
+    peak = torch.cuda.max_memory_allocated() - base
+    iters = iters_w + iters
+    n_timed = FORMWIN_STEPS - 1
+    log(f"[formwin2d] steps/s={n_timed / elapsed:.4f} ({n_timed} steps in {elapsed:.3f} s "
+        f"after 1 warm-up step) BiCGStab iterations {iters} peak_mem_bytes={peak} (of "
+        f"the steps, above the {base} allocated before the phase) launches={launches}")
+    check(conv_w and conv, "formwin2d: a BiCGStab solve did not converge")
+    check(launches["winmass"] == FORMWIN_STEPS,
+          "formwin2d: K4a launches do not match the steps")
+    check(launches["winform"] == sum(2 * i + 1 for i in iters),
+          "formwin2d: K5 launches do not match the BiCGStab iterations")
+    check(tuple(U.shape) == (V.n_dofs,) and bool(torch.isfinite(U).all()),
+          "formwin2d: state of the wrong shape or not finite")
+    umax, u0max = float(U.abs().max()), float(U0.abs().max())
+    check(0.0 < umax <= u0max * (1 + 1e-3), f"formwin2d: max |u| {umax} (initial {u0max})")
+
+    # the reference: the compiled form's einsum apply and the assembled mass,
+    # run twice to show that it repeats bitwise
+    dg = assembly.geometry_on(mesh, torch.float32, mesh.device)
+    with deterministic():
+        runs = [_formwin_steps(U0, FORMWIN_STEPS, S.apply,
+                               lambda x: assembly.mass_apply(V, dg, x), free, mask, jac)
+                for _ in range(2)]
+    (U_ref, iters_ref, conv_ref), (U_rep, iters_rep, _) = runs
+    _, rel = _rel(U, U_ref)
+    log(f"[formwin2d] reference (CompiledForm.apply + mass_apply, deterministic "
+        f"algorithms): iterations {iters_ref}, repeat {iters_rep}, bitwise equal "
+        f"{bool(torch.equal(U_rep, U_ref))}; state rel diff {rel:.3e}")
+    check(conv_ref, "formwin2d reference: a BiCGStab solve did not converge")
+    check(iters_rep == iters_ref and torch.equal(U_rep, U_ref),
+          "formwin2d reference: its repeat differs under deterministic algorithms")
+    check(all(abs(a - b) <= 1 for a, b in zip(iters, iters_ref)),
+          "formwin2d: iterations differ from the reference's by more than one in a step")
+    check(rel <= 1e-4, f"formwin2d: the state differs from the reference by {rel}")
+    del U_ref, U_rep, runs, dg
+
+    k4a, k4a_job = _mass_report("formwin2d winmass", M)
+    k5, k5_job = _element_report("formwin2d winform", K)
+    k4a["launches"], k5["launches"] = launches["winmass"], launches["winform"]
+    torch.cuda.empty_cache()
+    return k4a, k5, {"winmass": k4a_job, "winform": k5_job}
+
+
+def _p2_poisson(V, kernel_counter):
+    """Jacobi-CG on the Dirichlet P2 Poisson problem K u = M 1 with the
+    window stiffness operator (K4b P2, float32 inside) as the matrix, rtol
+    1e-6, on the mesh's dtype (float64: over the ~1,000 iterations at
+    n=256, float32 vectors let the recursive residual drift from the true
+    one). The solution is held against the same solve with the einsum
+    stiffness apply in float64, within 1e-3: a float32 operator limits the
+    attainable accuracy to ~eps32 x the condition number (2.4e-4 at n=256
+    on the CPU's plain version); a residual check cannot tell, since the
+    float32 rounding of K x alone is ~1e-3 of |b| here. Returns the
+    operator and the launches."""
+    import torch
+    from flow_tpu_torch.attic import winkernel
+    from flow_tpu_torch.fem import assembly
+    from flow_tpu_torch.fem.bc import DirichletBC, combine_bcs
+    from flow_tpu_torch.solvers import krylov
+
+    mesh = V.mesh
+    op = winkernel.WindowStiffnessOperator(V)
+    dtype = mesh.dtype
+    mask = torch.as_tensor(combine_bcs(V, [DirichletBC(V, 0.0)])[0], dtype=dtype,
+                           device="cuda")
+    free = 1.0 - mask
+    geom = assembly.geometry(mesh)
+    diag = torch.as_tensor(assembly.stiffness_diag(V, geom), dtype=dtype, device="cuda")
+    jac = free * diag + mask
+    dg = assembly.geometry_on(mesh, dtype, mesh.device)
+    rhs = free * assembly.mass_apply(V, dg, torch.ones(V.n_dofs, dtype=dtype, device="cuda"))
+    kernel_counter.launches = 0
+    x, info = krylov.cg(lambda y: free * op.apply(free * y) + mask * y, rhs,
+                        M=lambda r: r / jac, rtol=1e-6, maxiter=3000)
+    torch.cuda.synchronize()
+    launches = kernel_counter.launches
+    x_ref, info_ref = krylov.cg(
+        lambda y: free * assembly.stiffness_apply(V, dg, free * y) + mask * y, rhs,
+        M=lambda r: r / jac, rtol=1e-8, maxiter=5000)
+    err = float((x - x_ref).norm() / x_ref.norm())
+    log(f"[k4b-p2] {V.dim}-D P2 Poisson n={V.n_dofs} layout nb={op.wl.nb} S={op.wl.S} "
+        f"W={op.wl.W} C={op.wl.C}: CG iterations {info.iters} launches {launches}; "
+        f"against the einsum-operator solve ({info_ref.iters} iterations) rel err "
+        f"{err:.3e}")
+    check(bool(info.converged) and bool(info_ref.converged),
+          f"k4b-p2 ({V.dim}-D): CG did not converge")
+    check(launches == info.iters, f"k4b-p2 ({V.dim}-D): launches do not match iterations")
+    check(err <= 1e-3, f"k4b-p2 ({V.dim}-D): {err} from the einsum-operator solution")
+    return op, launches
+
+
+def phase_window_p2():
+    """K4b P2 on its paths (Dirichlet P2 Poisson on unit_square_mesh(256)
+    triangles and box_mesh N=32 tets), each operator against its plain
+    version at its layout, then K4a and K5 at NL=10 on the N=32 P2 tet
+    layout against theirs. Returns the 2-D and 3-D reports and jobs."""
+    import torch
+    from flow_tpu_torch.attic import winform, winkernel
+    from flow_tpu_torch.fem import assembly, formlang as fl
+    from flow_tpu_torch.fem.spaces import FunctionSpace
+    from flow_tpu_torch.mesh import unit_square_mesh
+    from flow_tpu_torch.mesh3d import box_mesh
+
+    V2 = FunctionSpace(unit_square_mesh(256, "right", dtype=torch.float64, device="cuda"), 2)
+    V3 = FunctionSpace(box_mesh((0, 0, 0), (1, 1, 1), 32, 32, 32, dtype=torch.float64,
+                                device="cuda"), 2)
+    op2, l2 = _p2_poisson(V2, winkernel.WINSTIFF_P2)
+    op3, l3 = _p2_poisson(V3, winkernel.WINSTIFF3D_P2)
+    k4b2, k4b2_job = _stiffness_report("k4b-p2 tri n=256", op2)
+    k4b3, k4b3_job = _stiffness_report("k4b-p2 tets N=32", op3)
+    k4b2["launches"], k4b3["launches"] = l2, l3
+
+    u, v = fl.TrialFunction(V3), fl.TestFunction(V3)
+    b = fl.Coefficient(lambda x: x - 0.5, vector=True)
+    S = fl.compile_form(u * v + 1e-3 * (1e-2 * fl.dot(fl.grad(u), fl.grad(v))
+                                        + fl.dot(b, fl.grad(u)) * v),
+                        assembly.geometry(V3.mesh), 3)
+    _mass_report("tets N=32 winmass", winkernel.WindowMassOperator(V3))
+    _element_report("tets N=32 winform", winform.window_operator(S))
+    torch.cuda.empty_cache()
+    return (k4b2, k4b2_job), (k4b3, k4b3_job)
+
+
 
 def main():
+    # a workspace setting under which cuBLAS is deterministic, for the
+    # references run under deterministic() (read when cuBLAS starts)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -1062,7 +1559,8 @@ def main():
     t_start = time.perf_counter()
     try:
         phase_build()
-        k1 = phase_stencil()
+        k1, _ = phase_stencil(3)
+        k2, k2_job = phase_stencil(2)
         phase_cavity_parity()
         k1["launches"] = phase_cavity_main()
         prob, st, hier, setup = phase_karman_setup()
@@ -1079,14 +1577,27 @@ def main():
         phase_cavity3d_parity()
         out3, launches3 = phase_cavity3d_main()
         k3d, jobs3 = phase_window3d_kernels(out3["stepper"], out3["U"])
+        del out3
+        torch.cuda.empty_cache()
+        phase_structured2d_parity()
+        k2["launches"] = phase_structured2d_main()
+        k4a, k5, jobs2 = phase_formwin2d()
+        (k4b_p2, k4b_p2_job), (k4b3_p2, k4b3_p2_job) = phase_window_p2()
         # device times from the profiler, last: a profiler session slows
         # later host code in the process
         knewton["device_ms"] = device_ms(newton_job, 50)
         for name, job in jobs3.items():
             k3d[name]["device_ms"] = device_ms(job, 20)
+        k2["device_ms"] = device_ms(k2_job, 100)
+        k4a["device_ms"] = device_ms(jobs2["winmass"], 50)
+        k5["device_ms"] = device_ms(jobs2["winform"], 50)
+        k4b_p2["device_ms"] = device_ms(k4b_p2_job, 50)
+        k4b3_p2["device_ms"] = device_ms(k4b3_p2_job, 50)
         log("[profile] device ms per call: "
             + ", ".join(f"{k}={v['device_ms']:.5f}" for k, v in
-                        (("winmom newton", knewton), *k3d.items())))
+                        (("winmom newton", knewton), *k3d.items(), ("stencil2d", k2),
+                         ("winmass", k4a), ("winform", k5), ("winstiff_p2 tri", k4b_p2),
+                         ("winstiff3d_p2 tets", k4b3_p2))))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1103,7 +1614,12 @@ def main():
              "winstiff": {"karman_newton": newton["winstiff"],
                           "karman_lagged": lagged["winstiff"]},
              "stencil3d": {"cavity_box": k1["launches"],
-                           "cavity3d_window": launches3["stencil3d"]}}
+                           "cavity3d_window": launches3["stencil3d"]},
+             "stencil2d": {"structured2d_poisson": k2["launches"]},
+             "winmass": {"formwin2d": k4a["launches"]},
+             "winform": {"formwin2d": k5["launches"]},
+             "winstiff_p2": {"p2_poisson_2d": k4b_p2["launches"]},
+             "winstiff3d_p2": {"p2_poisson_3d": k4b3_p2["launches"]}}
     rows = [
         dict(name="stencil_apply_3d", route="cuda",
              source="flow_tpu_torch/csrc/stencil3d.cu",
@@ -1126,6 +1642,21 @@ def main():
         dict(name="stiffness_windows 3-D", route="cuda",
              source="flow_tpu_torch/csrc/winstiff.cu",
              replaces="flow_tpu/attic/winkernel.py:259", **k3d["winstiff3d"]),
+        dict(name="stiffness_windows P2", route="cuda",
+             source="flow_tpu_torch/csrc/winstiff.cu",
+             replaces="flow_tpu/attic/winkernel.py:259", **k4b_p2),
+        dict(name="stiffness_windows 3-D P2", route="cuda",
+             source="flow_tpu_torch/csrc/winstiff.cu",
+             replaces="flow_tpu/attic/winkernel.py:259", **k4b3_p2),
+        dict(name="stencil_apply_2d", route="cuda",
+             source="flow_tpu_torch/csrc/stencil2d.cu",
+             replaces="flow_tpu/ops/pallas_stencil.py:131", **k2),
+        dict(name="mass_windows", route="cuda",
+             source="flow_tpu_torch/csrc/winmass.cu",
+             replaces="flow_tpu/attic/winkernel.py:150", **k4a),
+        dict(name="element_windows", route="cuda",
+             source="flow_tpu_torch/csrc/winform.cu",
+             replaces="flow_tpu/attic/winform.py:92", **k5),
     ]
     log(f"[done] launches by path: {json.dumps(paths)}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

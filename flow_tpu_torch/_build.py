@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``flow_tpu_torch/build/``, a directory
-that git ignores. The library's file name carries a hash of its source, so an
-edited source is rebuilt and a built one is reused. No PyTorch headers are
-included, which keeps a build to seconds.
+that git ignores. The library's file name carries a hash of its source and of
+the shared headers ``csrc/*.cuh``, so an edited source is rebuilt and a built
+one is reused. No PyTorch headers are included, which keeps a build to
+seconds.
 """
 from __future__ import annotations
 
@@ -52,9 +53,12 @@ def nvcc_command(nvcc, src, out):
 
 
 def _library_path(name):
+    # the hash covers the shared headers too, which any source may include
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names):

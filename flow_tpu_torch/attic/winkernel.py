@@ -1,17 +1,21 @@
-# Window-blocked scalar stiffness apply, y = K x with K = int grad(u).grad(v),
-# on the uniform-stride layout of attic/window.py: the hand-written CUDA
-# kernel (csrc/winstiff.cu) that replaces the Pallas kernel
-# flow_tpu/attic/winkernel.py::WindowStiffnessOperator._pallas (K4b), and its
-# plain PyTorch version.
+# Window-blocked scalar operators on the uniform-stride layout of
+# attic/window.py: the hand-written CUDA kernels that replace the Pallas
+# kernels of flow_tpu/attic/winkernel.py, and their plain PyTorch versions:
+#   - the consistent mass apply y = M x (WindowMassOperator, K4a,
+#     csrc/winmass.cu), the mass right-hand side of implicit steps;
+#   - the stiffness apply y = K x with K = int grad(u).grad(v)
+#     (WindowStiffnessOperator, K4b, csrc/winstiff.cu), the pressure
+#     operator of the window route (navier_stokes/fast.py, 2-D and 3-D) and
+#     the operator of every large P1Hierarchy level (solvers/multigrid.py).
+# Both take P1 and P2 spaces on triangles and tets. Like the JAX package, an
+# apply computes in float32 whatever the caller's dtype and casts at the
+# boundary.
 #
-# It is the pressure operator of the window route (navier_stokes/fast.py, 2-D
-# and 3-D) and the operator of every large P1Hierarchy level
-# (solvers/multigrid.py). Like the JAX package, the apply computes in float32
-# whatever the caller's dtype and casts at the boundary.
-#
-# stiffness_windows launches the kernel for CUDA tensors and takes the plain
-# version only for CPU tensors. It counts its launches in WINSTIFF.launches
-# (2-D P1) and WINSTIFF3D.launches (3-D P1).
+# mass_windows and stiffness_windows launch their kernels for CUDA tensors
+# and take the plain versions only for CPU tensors. They count their
+# launches in WINMASS.launches (K4a) and WINSTIFF.launches (K4b 2-D P1),
+# WINSTIFF3D.launches (3-D P1), WINSTIFF_P2.launches (2-D P2) and
+# WINSTIFF3D_P2.launches (3-D P2).
 from __future__ import annotations
 
 import ctypes
@@ -26,7 +30,9 @@ from ..mesh3d import _device
 from .window import build_scatter_lists, build_window_layout
 
 __all__ = ["WindowStiffnessOperator", "stiffness_windows",
-           "stiffness_windows_plain", "WINSTIFF", "WINSTIFF3D"]
+           "stiffness_windows_plain", "WINSTIFF", "WINSTIFF3D", "WINSTIFF_P2",
+           "WINSTIFF3D_P2",
+           "WindowMassOperator", "mass_windows", "mass_windows_plain", "WINMASS"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,11 +44,59 @@ WINSTIFF = Kernel("winstiff", {
 WINSTIFF3D = Kernel("winstiff", {
     "winstiff_p1_3d": [_P] * 9 + [_I] * 4 + [_P],
 })
+# the P2 variants (NL = 6 triangles, 10 tets), each with a scratch and its
+# own count
+WINSTIFF_P2 = Kernel("winstiff", {
+    "winstiff_p2_2d": [_P] * 9 + [_I] * 4 + [_P],
+})
+WINSTIFF3D_P2 = Kernel("winstiff", {
+    "winstiff_p2_3d": [_P] * 9 + [_I] * 4 + [_P],
+})
 # (DIM^2, NL) -> (kernel, entry point, takes a scratch)
 _ENTRIES = {
     (4, 3): (WINSTIFF, "winstiff_p1_2d", False),
     (9, 4): (WINSTIFF3D, "winstiff_p1_3d", True),
+    (4, 6): (WINSTIFF_P2, "winstiff_p2_2d", True),
+    (9, 10): (WINSTIFF3D_P2, "winstiff_p2_3d", True),
 }
+WINMASS = Kernel("winmass", {"winmass": [_P] * 9 + [_I] * 5 + [_P]})
+# the local-dof counts the window kernels are instantiated for
+WINDOW_NL = (3, 4, 6, 10)
+
+
+def scatter_windows_plain(loc, lidx, W):
+    """Sum local results loc [nb, NL, C] into per-block windows [nb, W] at
+    the window-local dofs lidx [nb, NL, C] (index_add_)."""
+    nb = lidx.shape[0]
+    out = loc.new_zeros(nb * W)
+    rows = (torch.arange(nb, device=lidx.device) * W)[:, None, None] + lidx
+    return out.index_add_(0, rows.reshape(-1).long(), loc.reshape(-1)).view(nb, W)
+
+
+def gather_windows_plain(x_pad, lidx, S):
+    """Window values u [nb, NL, C] = x_pad[b*S + lidx[b, j, c]]."""
+    base = (torch.arange(lidx.shape[0], device=lidx.device) * S)[:, None, None]
+    return x_pad[(base + lidx).long()]
+
+
+def check_window_args(name, x_pad, lidx, valid, floats, scatter, S, W):
+    """The checks every window kernel wrapper makes before its launch:
+    contiguous tensors on x_pad's device, float32 and int32 where the
+    kernels read them, and the layout's shapes. `floats` are the kernel's
+    per-block tables and small reference tensors."""
+    nb, NL, C = lidx.shape
+    rowptr, ent = scatter
+    for t in (x_pad, lidx, valid, rowptr, ent, *floats):
+        if t.device != x_pad.device or not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous and on one device")
+    if any(t.dtype != torch.float32 for t in (x_pad, valid, *floats)):
+        raise TypeError(f"{name}: float tensors must be float32")
+    if any(t.dtype != torch.int32 for t in (lidx, rowptr, ent)):
+        raise TypeError(f"{name}: index tensors must be int32")
+    if (x_pad.numel() != nb * S + W or tuple(valid.shape) != (nb, C)
+            or tuple(rowptr.shape) != (nb, W + 1) or tuple(ent.shape) != (nb, C * NL)
+            or max(x_pad.numel(), ent.numel(), *(t.numel() for t in floats)) >= 2**31):
+        raise ValueError(f"{name}: inconsistent layout shapes")
 
 
 def stiffness_windows_plain(x_pad, lidx, valid, cg, kref, S, W):
@@ -51,54 +105,38 @@ def stiffness_windows_plain(x_pad, lidx, valid, cg, kref, S, W):
     x_pad [nb*S + W] float32 (permuted, zero padded); lidx [nb, NL, C] int32;
     valid [nb, C]; cg [nb, DIM*DIM, C] with row DIM*k+l = C[c, k, l];
     kref [DIM*DIM*NL, NL] with row (DIM*k+l)*NL + i = Kref[k, l, i, :]."""
-    nb, NL, C = lidx.shape
+    NL = lidx.shape[1]
     d2 = cg.shape[1]
-    base = (torch.arange(nb, device=lidx.device) * S)[:, None, None]
-    u = x_pad[(base + lidx).long()]  # [nb, NL, C]
+    u = gather_windows_plain(x_pad, lidx, S)  # [nb, NL, C]
     K = kref.reshape(d2, NL, NL)
     loc = torch.einsum("bkc,kij,bjc->bic", cg, K, u) * valid[:, None, :]
-    out = x_pad.new_zeros(nb * W)
-    rows = (torch.arange(nb, device=lidx.device) * W)[:, None, None] + lidx
-    return out.index_add_(0, rows.reshape(-1).long(), loc.reshape(-1)).view(nb, W)
+    return scatter_windows_plain(loc, lidx, W)
 
 
 def stiffness_windows(x_pad, lidx, valid, cg, kref, S, W, scatter=None):
     """Per-block output windows [nb, W] of the scalar stiffness apply (see
     stiffness_windows_plain). CPU tensors take the plain version; CUDA
     tensors launch the kernel, which sums each window dof along the
-    layout's scatter lists `scatter` = (rowptr, ent) tensors. The 2-D
+    layout's scatter lists `scatter` = (rowptr, ent) tensors. The 2-D P1
     kernel holds a block's C cells in shared memory at once and raises
-    (RuntimeError) when they do not fit; the 3-D kernel writes them to a
-    device scratch [nb, C*NL] and takes any C."""
+    (RuntimeError) when they do not fit; the others write them to a
+    device scratch [nb, C*NL] and take any C."""
     if x_pad.device.type == "cpu":
         return stiffness_windows_plain(x_pad, lidx, valid, cg, kref, S, W)
     if x_pad.device.type != "cuda":
         raise ValueError(f"stiffness_windows: no kernel for device {x_pad.device}")
     nb, NL, C = lidx.shape
     d2 = cg.shape[1]
-    rowptr, ent = scatter
     if (d2, NL) not in _ENTRIES:
         raise ValueError(
-            f"stiffness_windows: the kernels take P1 (DIM=2, NL=3 or DIM=3, "
-            f"NL=4), got DIM^2={d2}, NL={NL}"
+            f"stiffness_windows: the kernels take P1 and P2 on triangles and "
+            f"tets (DIM^2, NL) in {sorted(_ENTRIES)}, got ({d2}, {NL})"
         )
     kernel, entry, scratched = _ENTRIES[(d2, NL)]
-    tensors = (x_pad, lidx, valid, cg, kref, rowptr, ent)
-    for t in tensors:
-        if t.device != x_pad.device or not t.is_contiguous():
-            raise ValueError("stiffness_windows: tensors must be contiguous "
-                             "and on one device")
-    if any(t.dtype != torch.float32 for t in (x_pad, valid, cg, kref)):
-        raise TypeError("stiffness_windows: float tensors must be float32")
-    if any(t.dtype != torch.int32 for t in (lidx, rowptr, ent)):
-        raise TypeError("stiffness_windows: index tensors must be int32")
-    if (x_pad.numel() != nb * S + W or tuple(valid.shape) != (nb, C)
-            or tuple(cg.shape) != (nb, d2, C) or kref.numel() != d2 * NL * NL
-            or tuple(rowptr.shape) != (nb, W + 1)
-            or tuple(ent.shape) != (nb, C * NL)
-            or x_pad.numel() >= 2**31 or ent.numel() >= 2**31
-            or cg.numel() >= 2**31):
+    check_window_args("stiffness_windows", x_pad, lidx, valid, (cg, kref), scatter, S, W)
+    if tuple(cg.shape) != (nb, d2, C) or kref.numel() != d2 * NL * NL:
         raise ValueError("stiffness_windows: inconsistent layout shapes")
+    rowptr, ent = scatter
     out = torch.empty((nb, W), dtype=torch.float32, device=x_pad.device)
     args = [x_pad.data_ptr(), lidx.data_ptr(), valid.data_ptr(), cg.data_ptr(),
             kref.data_ptr(), rowptr.data_ptr(), ent.data_ptr()]
@@ -112,7 +150,7 @@ def stiffness_windows(x_pad, lidx, valid, cg, kref, S, W, scatter=None):
 
 
 class WindowStiffnessOperator:
-    """Scalar stiffness apply on the window layout of a P1 space on
+    """Scalar stiffness apply on the window layout of a P1 or P2 space on
     triangles or tets (the pressure-Poisson and multigrid-level operator).
     Tables live in float32 on `device` (default: the mesh's). apply(x)
     takes x [n] in the original numbering, in any float dtype, and returns
@@ -154,6 +192,90 @@ class WindowStiffnessOperator:
         wl = self.wl
         return stiffness_windows(x_pad, self.lidx, self.valid, self.Cg,
                                  self.kref, wl.S, wl.W, self.scatter)
+
+    def apply(self, x):
+        wl = self.wl
+        x_pad = x.new_zeros(wl.n_pad, dtype=torch.float32)
+        x_pad[:wl.n] = x[self.perm]
+        yw = wl.overlap_add(self.windows(x_pad))
+        return yw[self.inv].to(x.dtype)
+
+
+def mass_windows_plain(x_pad, lidx, valid, detj, mref, S, W):
+    """Per-block output windows [nb, W] of the consistent mass apply.
+
+    x_pad [nb*S + W] float32 (permuted, zero padded); lidx [nb, NL, C]
+    int32; valid, detj [nb, C]; mref [NL, NL] = Mref[i, j]."""
+    u = gather_windows_plain(x_pad, lidx, S)  # [nb, NL, C]
+    loc = torch.einsum("ij,bjc->bic", mref, u) * (detj * valid)[:, None, :]
+    return scatter_windows_plain(loc, lidx, W)
+
+
+def mass_windows(x_pad, lidx, valid, detj, mref, S, W, scatter=None):
+    """Per-block output windows [nb, W] of the consistent mass apply (see
+    mass_windows_plain). CPU tensors take the plain version; CUDA tensors
+    launch the kernel (csrc/winmass.cu), which writes the local results to
+    a device scratch [nb, C*NL] and sums each window dof along the layout's
+    scatter lists `scatter` = (rowptr, ent) tensors."""
+    if x_pad.device.type == "cpu":
+        return mass_windows_plain(x_pad, lidx, valid, detj, mref, S, W)
+    if x_pad.device.type != "cuda":
+        raise ValueError(f"mass_windows: no kernel for device {x_pad.device}")
+    nb, NL, C = lidx.shape
+    if NL not in WINDOW_NL:
+        raise ValueError(f"mass_windows: the kernel takes NL in {WINDOW_NL}, got {NL}")
+    check_window_args("mass_windows", x_pad, lidx, valid, (detj, mref), scatter, S, W)
+    if tuple(detj.shape) != (nb, C) or tuple(mref.shape) != (NL, NL):
+        raise ValueError("mass_windows: inconsistent layout shapes")
+    rowptr, ent = scatter
+    out = torch.empty((nb, W), dtype=torch.float32, device=x_pad.device)
+    scratch = torch.empty((nb, C * NL), dtype=torch.float32, device=x_pad.device)
+    with torch.cuda.device(x_pad.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        WINMASS.launch("winmass", x_pad.data_ptr(), lidx.data_ptr(), valid.data_ptr(),
+                       detj.data_ptr(), mref.data_ptr(), rowptr.data_ptr(),
+                       ent.data_ptr(), scratch.data_ptr(), out.data_ptr(), nb, S, W,
+                       C, NL, stream)
+    return out
+
+
+class WindowMassOperator:
+    """Consistent scalar mass apply on the window layout of a P1 or P2 space
+    on triangles or tets. Tables live in float32 on `device` (default: the
+    mesh's). apply(x) takes a scalar x [n] in the original numbering, in any
+    float dtype, and returns M x in that dtype (the same vector as
+    assembly.mass_apply at float32 level). layout_seconds: the host seconds
+    of the layout, its tables and scatter lists."""
+
+    def __init__(self, space, S=None, device=None):
+        self.space = space
+        t0 = time.perf_counter()
+        wl = build_window_layout(space, S=S)
+        self.wl = wl
+        self.device = space.mesh.device if device is None else _device(device)
+        geom = assembly.geometry(space.mesh)
+        cells = np.asarray(wl.cells, dtype=np.int64)
+
+        def dev(a, dtype=torch.float32):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=self.device)
+
+        self.detj = dev(geom.detJ[cells])
+        self.mref = dev(assembly.ref_mass(space.degree, assembly._dim(space)))
+        self.lidx = dev(np.transpose(wl.lidx, (0, 2, 1)), torch.int32)
+        self.valid = dev(wl.valid)
+        self.perm = dev(wl.perm, torch.int64)
+        self.inv = dev(wl.inv, torch.int64)
+        self.scatter = None
+        if self.device.type == "cuda":
+            self.scatter = tuple(dev(a, torch.int32) for a in build_scatter_lists(wl))
+        self.layout_seconds = time.perf_counter() - t0
+
+    def windows(self, x_pad):
+        """[nb*S + W] float32 permuted, padded input -> [nb, W] windows."""
+        wl = self.wl
+        return mass_windows(x_pad, self.lidx, self.valid, self.detj, self.mref,
+                            wl.S, wl.W, self.scatter)
 
     def apply(self, x):
         wl = self.wl

@@ -1,5 +1,5 @@
-// Window-blocked scalar stiffness apply on a P1 space, 2-D (DIM=2, NL=3)
-// or 3-D (DIM=3, NL=4):
+// Window-blocked scalar stiffness apply on a P1 or P2 space, 2-D (DIM=2,
+// NL=3 or 6) or 3-D (DIM=3, NL=4 or 10):
 //
 //   out[b, w] = sum over the real cells c of block b and local dofs i with
 //               lidx[b, i, c] == w of
@@ -16,33 +16,34 @@
 // 2-D multigrid levels.
 //
 // Bound: memory bandwidth. Per cell it reads NL indices, DIM^2 geometry
-// factors, a mask and NL window values and does ~100 (2-D) or ~370 (3-D)
-// flops. The scatter lists, which only this design needs, add one index
+// factors, a mask and NL window values and does ~100 (2-D P1), ~370 (3-D
+// P1), ~360 (2-D P2) or ~1,900 (3-D P2) flops. The scatter lists, which only this design needs, add one index
 // per (cell, local dof) and one row pointer per window dof on top of the
 // function's own bytes.
 //
 // Design: one block per window block b. The Kref table is staged in shared
 // memory. Threads take cells in turn, gather the NL window values (the
 // window of one block spans a few thousand contiguous floats, so the
-// gathers hit L1/L2), and write the NL local results. Then each thread
-// takes window dofs in turn and sums the local results of its dof along
-// the block's scatter list (rowptr, ent), built on the host in ascending
-// (cell, local dof) order: a fixed order, so the result is bitwise
-// repeatable (no atomics). Where the local results live:
-// - 2-D: all C cells of a block in shared memory at once (12 B each, with
-//   S <= 4096 far below the opt-in limit of ~19,000 cells); the launcher
-//   refuses a layout whose C does not fit;
-// - 3-D: a device scratch [nb, C*NL] that the wrapper allocates, so any C
-//   fits (C = 23,958 at the cavity's N=64, 383 KB a block); __syncthreads()
-//   makes the block's global writes visible to the block before the sums.
-//   The 3-D layouts have few blocks (68 at N=64), so a block has 1,024
-//   threads.
+// gathers hit L1/L2), and write the NL local results. Then the block sums
+// them into its window along the host-built scatter lists, in a fixed order
+// and with no atomics (scatter_window, csrc/winscatter.cuh, as in
+// winmass.cu and winform.cu). Where the local results live:
+// - 2-D P1: all C cells of a block in shared memory at once (12 B each,
+//   with S <= 4096 far below the opt-in limit of ~19,000 cells); the
+//   launcher refuses a layout whose C does not fit;
+// - 3-D P1 and P2 (both dims): a device scratch [nb, C*NL] that the wrapper
+//   allocates, so any C fits (C = 23,958 at the cavity's N=64, 383 KB a
+//   block); __syncthreads() makes the block's global writes visible to the
+//   block before the sums. The 3-D layouts have few blocks (68 at N=64),
+//   so a 3-D block has 1,024 threads; a 2-D P2 block 256.
 //
 // Plain C interface (loaded with ctypes): the entry launches on the given
 // stream and returns the cudaError_t of the launch (0 on success).
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "winscatter.cuh"
 
 namespace {
 
@@ -55,10 +56,10 @@ winstiff_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
                 float* __restrict__ out, int S, int W, int C) {
   constexpr int D2 = DIM * DIM;
   constexpr int KT = D2 * NL * NL;
-  // the 3-D table (144 floats) is read through a volatile pointer, so that
-  // every use reads shared memory: otherwise the compiler hoists it out of
-  // the cell loop and spills it to local memory; the 2-D table (36 floats)
-  // stays in registers
+  // the 3-D P1 table (144 floats) and the P2 tables (144 and 900) are read
+  // through a volatile pointer, so that every use reads shared memory:
+  // otherwise the compiler hoists them out of the cell loop and spills them
+  // to local memory; the 2-D P1 table (36 floats) stays in registers
   using KrefPtr = std::conditional_t<(KT > 64), const volatile float*, const float*>;
   extern __shared__ float smem[];
   float* kref_s = smem;  // [D2*NL, NL]
@@ -100,11 +101,7 @@ winstiff_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
     }
   }
   __syncthreads();
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    float acc = 0.f;
-    for (int p = rp[w]; p < rp[w + 1]; ++p) acc += loc_s[en[p]];
-    out_b[w] = acc;
-  }
+  scatter_window(loc_s, rp, en, out_b, W);
 }
 
 // Shared memory of a block: the Kref table, plus in the shared variant the
@@ -160,4 +157,22 @@ extern "C" int winstiff_p1_3d(const void* x, const void* lidx,
                               int nb, int S, int W, int C, void* stream) {
   return launch<3, 4, 1024, true>(x, lidx, valid, cg, kref, rowptr, ent,
                                    scratch, out, nb, S, W, C, stream);
+}
+
+extern "C" int winstiff_p2_2d(const void* x, const void* lidx,
+                              const void* valid, const void* cg,
+                              const void* kref, const void* rowptr,
+                              const void* ent, void* scratch, void* out,
+                              int nb, int S, int W, int C, void* stream) {
+  return launch<2, 6, 256, true>(x, lidx, valid, cg, kref, rowptr, ent,
+                                  scratch, out, nb, S, W, C, stream);
+}
+
+extern "C" int winstiff_p2_3d(const void* x, const void* lidx,
+                              const void* valid, const void* cg,
+                              const void* kref, const void* rowptr,
+                              const void* ent, void* scratch, void* out,
+                              int nb, int S, int W, int C, void* stream) {
+  return launch<3, 10, 1024, true>(x, lidx, valid, cg, kref, rowptr, ent,
+                                    scratch, out, nb, S, W, C, stream);
 }

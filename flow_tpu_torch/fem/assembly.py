@@ -1,5 +1,6 @@
 # Assembly primitives. Port of flow_tpu/fem/assembly.py, cut to what the
-# 3-D box path and the window routes (2-D Karman, 3-D cavity) call.
+# 3-D box path, the window routes (2-D Karman, 3-D cavity) and the form
+# compiler (fem/formlang.py) call.
 #
 # Setup (geometry, reference tensors, diagonals, element matrices) is host
 # numpy in float64; callers cast and move the results to their device once.
@@ -42,6 +43,7 @@ __all__ = [
     "ref_stiffness",
     "ref_mixed",
     "stiffness_apply",
+    "mass_apply",
     "mass_diag",
     "stiffness_diag",
     "stiffness_local",
@@ -50,8 +52,9 @@ __all__ = [
 
 class Geometry:
     """Per-element affine geometry of a triangle or tet mesh: detJ [nc],
-    G = J^{-T} [nc,dim,dim] (grad_phys[d] = G[d,k] grad_ref[k]) and the
-    exact stiffness factor C = detJ * G^T G. Host float64."""
+    G = J^{-T} [nc,dim,dim] (grad_phys[d] = G[d,k] grad_ref[k]), the
+    exact stiffness factor C = detJ * G^T G, and the affine map's origin
+    cell_x0 [nc,dim] and columns dvecs [nc,dim,dim]. Host float64."""
 
     def __init__(self, mesh):
         p = mesh.points_np
@@ -83,6 +86,13 @@ class Geometry:
         self.detJ = detJ
         self.G = inv
         self.C = np.einsum("edk,edl->ekl", inv, inv) * detJ[:, None, None]
+        self.cell_x0 = p[c[:, 0]]
+        self.dvecs = dvecs
+
+    def physical_points(self, ref_pts):
+        """Map reference points [nq,dim] to physical [nc,nq,dim]."""
+        r = np.asarray(ref_pts, dtype=np.float64)
+        return self.cell_x0[:, None, :] + np.einsum("qk,edk->eqd", r, self.dvecs)
 
 
 def geometry(mesh) -> Geometry:
@@ -111,12 +121,14 @@ def geometry_on(mesh, dtype, device):
 
 
 class Tab:
-    """Tabulation of a basis at a quadrature rule: host float64 arrays
-    (w, phi, dphi), and their device copies through on()."""
+    """Tabulation of a basis at a quadrature rule (a degree, or
+    quadrature.VERTEX): host float64 arrays (ref_pts, w, phi, dphi), and
+    device copies of w, phi, dphi through on()."""
 
     def __init__(self, degree, rule_degree, dim=2):
         pts, w = quadrature.simplex_rule(rule_degree, dim)
         phi, dphi = elements.tabulate(degree, pts, dim=dim)
+        self.ref_pts = np.asarray(pts, dtype=np.float64)
         self.w = np.asarray(w, dtype=np.float64)
         self.phi = np.asarray(phi, dtype=np.float64)
         self.dphi = np.asarray(dphi, dtype=np.float64)
@@ -199,6 +211,15 @@ def stiffness_apply(space: FunctionSpace, geom: Geometry, U):
     else:
         loc = np.einsum("ekl,klij,ejm->eim", geom.C, Kref, Uloc)
     return space.dof_sum(loc)
+
+
+def mass_apply(space: FunctionSpace, geom, U):
+    """y = M U with M_ij = int phi_i phi_j for a scalar tensor U [n], on
+    U's device (geom a geometry_on view): the window mass kernel's
+    reference."""
+    Mref = torch.as_tensor(ref_mass(space.degree, _dim(space)), dtype=U.dtype,
+                           device=U.device)
+    return space.dof_sum(torch.einsum("ij,ej,e->ei", Mref, space.gather(U), geom.detJ))
 
 
 def mass_diag(space, geom):

@@ -1,6 +1,5 @@
 # Quadrature rules on the reference simplices and the reference edge. Port
-# of flow_tpu/fem/quadrature.py (host numpy + scipy, unchanged), cut to the
-# rules the ported paths call (no vertex rule).
+# of flow_tpu/fem/quadrature.py (host numpy + scipy, unchanged).
 #
 # Weights sum to the reference-cell measure (1/2 for the triangle, 1/6 for
 # the tetrahedron, 1 for the edge), so physical integrals are
@@ -9,7 +8,10 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["triangle_rule", "edge_rule", "tet_rule", "simplex_rule"]
+__all__ = ["triangle_rule", "edge_rule", "tet_rule", "simplex_rule", "VERTEX"]
+
+# the vertex rule (mass lumping), selected by this degree
+VERTEX = "vertex"
 
 
 def _perm3(a):
@@ -24,8 +26,12 @@ def _perm_full(a, b):
 
 def triangle_rule(degree):
     """(points [nq,2], weights [nq]) on the reference triangle, exact for
-    polynomials of `degree` (Strang-Fix/Dunavant rules up to degree 6)."""
-    if degree <= 1:
+    polynomials of `degree` (Strang-Fix/Dunavant rules up to degree 6);
+    degree=VERTEX gives the 3-point vertex rule."""
+    if degree == VERTEX:
+        bary = [(1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0)]
+        w = [1.0 / 3.0] * 3
+    elif degree <= 1:
         bary = [(1 / 3, 1 / 3, 1 / 3)]
         w = [1.0]
     elif degree == 2:
@@ -73,7 +79,14 @@ def tet_rule(degree):
     """Quadrature on the reference tetrahedron {x,y,z>=0, x+y+z<=1}: a
     conical-product Gauss-Jacobi rule, exact for polynomials of `degree` by
     construction (collapsed-coordinate map with Jacobi(2,0) and Jacobi(1,0)
-    weights absorbing the Duffy Jacobian). Weights sum to 1/6."""
+    weights absorbing the Duffy Jacobian). Weights sum to 1/6.
+    degree=VERTEX gives the 4-point vertex rule."""
+    if degree == VERTEX:
+        pts = np.array(
+            [[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]]
+        )
+        return pts, np.full(4, 1.0 / 24.0)
+
     from scipy.special import roots_jacobi
 
     n = max(1, (degree + 2) // 2)

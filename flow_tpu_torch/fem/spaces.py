@@ -20,7 +20,7 @@ import torch
 
 from . import elements
 
-__all__ = ["FunctionSpace", "VectorFunctionSpace", "SubSpace"]
+__all__ = ["FunctionSpace", "VectorFunctionSpace", "SubSpace", "Function"]
 
 
 class FunctionSpace:
@@ -142,3 +142,13 @@ class SubSpace:
         assert 0 <= component < parent.n_components
         self.parent = parent
         self.component = component
+
+
+class Function:
+    """A finite-element function: (space, dof vector), the vector a tensor
+    [n_dofs] (scalar) or [n_dofs, n_components] (vector); the form
+    compiler's field coefficient (fem/formlang.py)."""
+
+    def __init__(self, space: FunctionSpace, vector=None):
+        self.space = space
+        self.vector = space.zeros() if vector is None else vector

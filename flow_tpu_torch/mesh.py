@@ -19,7 +19,8 @@ import torch
 from . import native
 from .mesh3d import _device
 
-__all__ = ["Mesh", "refine_uniform", "reorder_rcm", "rectangle_with_hole_mesh"]
+__all__ = ["Mesh", "refine_uniform", "reorder_rcm", "rectangle_with_hole_mesh",
+           "rectangle_mesh", "unit_square_mesh"]
 
 
 class Mesh:
@@ -105,6 +106,60 @@ class Mesh:
             f"Mesh(n_points={self.n_points}, n_cells={self.n_cells}, "
             f"hmax={self.hmax:.3e})"
         )
+
+
+_DIAGONALS = ("left", "right", "left/right", "right/left", "crossed")
+
+
+def rectangle_mesh(p0, p1, nx, ny, diagonal="right", dtype=None, device=None):
+    """Structured triangulation of the rectangle [p0, p1] (dolfin's
+    RectangleMesh), with the JAX package's vertex ids (i*(ny+1) + j, y
+    fastest) and cell order (quad (i, j) in row-major order, its triangles
+    in turn), built with array operations instead of a loop over quads.
+
+    ``diagonal`` in {'left', 'right', 'left/right', 'right/left',
+    'crossed'}; 'crossed' adds one centre point per quad after the grid
+    vertices and cuts the quad into 4. Uniform 'left'/'right' grids carry
+    grid_shape (nx+1, ny+1) and grid_spacing, which the structured stencil
+    operator (ops/structured.py) needs."""
+    if diagonal not in _DIAGONALS:
+        raise ValueError(f"unknown diagonal {diagonal!r}")
+    x0, y0 = p0
+    x1, y1 = p1
+    xs = np.linspace(x0, x1, nx + 1)
+    ys = np.linspace(y0, y1, ny + 1)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    pts = np.stack([X.ravel(), Y.ravel()], axis=1)
+
+    I, J = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    I, J = I.ravel(), J.ravel()
+    v00 = I * (ny + 1) + J
+    v10 = v00 + (ny + 1)
+    v01 = v00 + 1
+    v11 = v10 + 1
+    if diagonal == "crossed":
+        cc = (nx + 1) * (ny + 1) + I * ny + J
+        centers = 0.25 * (pts[v00] + pts[v10] + pts[v01] + pts[v11])
+        tris = [(v00, v10, cc), (v10, v11, cc), (v11, v01, cc), (v01, v00, cc)]
+        pts = np.concatenate([pts, centers], axis=0)
+    else:
+        left = {"left": np.ones_like(I, dtype=bool), "right": np.zeros_like(I, dtype=bool),
+                "left/right": (I + J) % 2 == 0, "right/left": (I + J) % 2 == 1}[diagonal]
+        # left: diagonal from (i, j+1) to (i+1, j); right: (i, j) to (i+1, j+1)
+        tris = [(v00, v10, np.where(left, v01, v11)),
+                (np.where(left, v10, v00), v11, v01)]
+    cells = np.stack([np.stack(t, axis=1) for t in tris], axis=1).reshape(-1, 3)
+    mesh = Mesh(pts, cells, dtype=dtype, device=device)
+    if diagonal in ("left", "right"):
+        mesh.grid_shape = (nx + 1, ny + 1)
+        mesh.grid_spacing = ((x1 - x0) / nx, (y1 - y0) / ny)
+    return mesh
+
+
+def unit_square_mesh(n, diagonal="right", dtype=None, device=None):
+    """dolfin UnitSquareMesh(n, n, diagonal) equivalent."""
+    return rectangle_mesh((0.0, 0.0), (1.0, 1.0), n, n, diagonal=diagonal,
+                          dtype=dtype, device=device)
 
 
 def refine_uniform(mesh: Mesh, snap_boundary=None):

@@ -1,10 +1,12 @@
-# Structured-grid P1 Laplacian. Port of flow_tpu/ops/structured.py (3-D).
+# Structured-grid P1 Laplacian. Port of flow_tpu/ops/structured.py.
 #
-# On a uniform box mesh the P1 stiffness operator is translation-invariant in
-# the interior, so its action is a 3x3x3 stencil plus an O(surface)
-# correction on the grid-boundary vertices, whose assembled rows differ from
-# the interior stencil. The stencil runs through ops/stencil.py: the CUDA
-# kernel for every grid size on the card, the plain version on the CPU.
+# On a uniform rectangle ('left'/'right' diagonal) or box mesh the P1
+# stiffness operator is translation-invariant in the interior, so its action
+# is a 3x3 (2-D) or 3x3x3 (3-D) stencil plus an O(surface) correction on the
+# grid-boundary vertices, whose assembled rows differ from the interior
+# stencil. The stencil runs through ops/stencil.py: the CUDA kernels (K2 in
+# 2-D, K1 in 3-D) for every grid size on the card, the plain version on the
+# CPU.
 from __future__ import annotations
 
 import numpy as np
@@ -14,47 +16,57 @@ from ..fem import assembly
 from ..fem.assembly import geometry
 from ..fem.spaces import FunctionSpace
 from ..mesh3d import _device
-from .stencil import stencil_apply_3d
+from .stencil import stencil_apply_2d, stencil_apply_3d
 
 __all__ = ["supports", "StructuredLaplacian"]
 
 
 def supports(mesh):
-    return hasattr(mesh, "grid_shape") and getattr(mesh, "dim", 2) == 3
+    return hasattr(mesh, "grid_shape")
 
 
 def _interior_kernel(mesh):
-    """Extract the interior stencil by probing a small same-spacing mesh."""
-    from ..mesh3d import box_mesh
-
+    """Extract the interior stencil by probing a small same-spacing mesh
+    (a 'right' rectangle in 2-D, as the JAX package does for either
+    diagonal)."""
+    dim = getattr(mesh, "dim", 2)
     sp = mesh.grid_spacing
     # host-only probe: its arrays never leave numpy
-    probe = box_mesh((0, 0, 0), (6 * sp[0], 6 * sp[1], 6 * sp[2]), 6, 6, 6,
-                     device="cpu")
-    shape = (7, 7, 7)
+    if dim == 2:
+        from ..mesh import rectangle_mesh
+
+        probe = rectangle_mesh((0, 0), (6 * sp[0], 6 * sp[1]), 6, 6,
+                               diagonal="right", device="cpu")
+    else:
+        from ..mesh3d import box_mesh
+
+        probe = box_mesh((0, 0, 0), (6 * sp[0], 6 * sp[1], 6 * sp[2]), 6, 6, 6,
+                         device="cpu")
+    shape = (7,) * dim
     S = FunctionSpace(probe, 1)
     e = np.zeros(S.n_dofs)
-    e[np.ravel_multi_index((3, 3, 3), shape)] = 1.0
+    e[np.ravel_multi_index((3,) * dim, shape)] = 1.0
     y = assembly.stiffness_apply(S, geometry(probe), e)
-    return y.reshape(shape)[2:5, 2:5, 2:5].copy()
+    return y.reshape(shape)[(slice(2, 5),) * dim].copy()
 
 
 class StructuredLaplacian:
-    """y = K_stiffness x on a uniform structured box mesh, as stencil +
-    boundary correction: the P1 stiffness apply on the mesh's vertex grid.
+    """y = K_stiffness x on a uniform structured rectangle or box mesh, as
+    stencil + boundary correction: the P1 stiffness apply on the mesh's
+    vertex grid.
     Tables live on `device` (default: the mesh's) in `dtype` (default: the
     mesh's)."""
 
     def __init__(self, mesh, device=None, dtype=None):
         assert supports(mesh)
         self.mesh = mesh
-        self.dim = 3
+        self.dim = getattr(mesh, "dim", 2)
         self.grid = tuple(mesh.grid_shape)
         self.dtype = mesh.dtype if dtype is None else dtype
         self.device = _device(mesh.device if device is None else device)
         n = int(np.prod(self.grid))
 
-        Kst = _interior_kernel(mesh)  # [3,3,3]
+        Kst = _interior_kernel(mesh)  # [3,3(,3)]
         self.kernel = torch.as_tensor(Kst, dtype=self.dtype, device=self.device)
 
         # ---- boundary correction (host setup) ------------------------------
@@ -111,7 +123,8 @@ class StructuredLaplacian:
 
     def __call__(self, x):
         xg = x.reshape(self.grid).contiguous()
-        y = stencil_apply_3d(xg, self.kernel).reshape(self.n)
+        apply = stencil_apply_3d if self.dim == 3 else stencil_apply_2d
+        y = apply(xg, self.kernel).reshape(self.n)
         corr = torch.sum(self.tbl_val * x[self.tbl_idx], dim=1)
         # bverts are unique, so index_add_ is deterministic; y is a fresh
         # buffer owned by this call, updated in place

@@ -1,8 +1,8 @@
-# Geometric multigrid on structured vertex grids. Port of
-# flow_tpu/solvers/structured_mg.py (3-D).
+# Geometric multigrid on structured vertex grids (2-D rectangles, 3-D
+# boxes). Port of flow_tpu/solvers/structured_mg.py.
 #
 # Level operators are the stencil-based StructuredLaplacian; grid transfers
-# are separable [1/2, 1, 1/2] trilinear interpolation convolutions (plain
+# are separable [1/2, 1, 1/2] (bi/tri)linear interpolation convolutions (plain
 # PyTorch convolutions, as the JAX package left them to XLA); smoothing is
 # Chebyshev; the coarsest level is a dense inverse applied with a matmul.
 from __future__ import annotations
@@ -22,13 +22,20 @@ __all__ = ["StructuredHierarchy"]
 
 
 def _coarsen_mesh(mesh):
-    from ..mesh3d import box_mesh
-
+    """The next coarser grid; every 2-D level is a 'right' rectangle, as in
+    the JAX package, whatever the fine mesh's diagonal."""
     dims = [g - 1 for g in mesh.grid_shape]
     assert all(d % 2 == 0 for d in dims), f"grid {dims} not coarsenable"
     p = mesh.points_np
     lo = p.min(axis=0)
     hi = p.max(axis=0)
+    if len(dims) == 2:
+        from ..mesh import rectangle_mesh
+
+        return rectangle_mesh(lo, hi, dims[0] // 2, dims[1] // 2, diagonal="right",
+                              dtype=mesh.dtype, device=mesh.device)
+    from ..mesh3d import box_mesh
+
     return box_mesh(lo, hi, dims[0] // 2, dims[1] // 2, dims[2] // 2,
                     dtype=mesh.dtype, device=mesh.device)
 
@@ -38,7 +45,8 @@ class _Level:
 
 
 class StructuredHierarchy:
-    """V-cycle preconditioner for the P1 Laplacian on a structured box mesh.
+    """V-cycle preconditioner for the P1 Laplacian on a structured rectangle
+    ('left'/'right' diagonal) or box mesh.
 
     Levels are generated by grid coarsening (each grid dimension must be a
     multiple of 2^(n_levels-1)). bc_mask: finest-level Dirichlet mask or
@@ -70,6 +78,7 @@ class StructuredHierarchy:
             if all(d % 2**n_levels == 0 for d in dims):
                 n_levels += 1
         self.nlevels = n_levels
+        self.dim = dim = len(dims)
         self.neumann = bc_mask is None
         self.dtype = dtype = mesh.dtype if dtype is None else dtype
         self.device = device = _device(mesh.device if device is None else device)
@@ -81,14 +90,14 @@ class StructuredHierarchy:
         meshes = meshes[::-1]  # coarse -> fine
         self.meshes = meshes
 
-        # Dirichlet masks per level: coarse vertex (i,j,k) is fine (2i,2j,2k)
+        # Dirichlet masks per level: coarse vertex (i,j(,k)) is fine (2i,2j(,2k))
         masks = [None] * n_levels
         if bc_mask is not None:
             cur = torch.as_tensor(bc_mask, dtype=dtype, device=device)
             cur = cur.reshape(mesh.grid_shape)
             masks[-1] = cur.reshape(-1)
             for l in range(n_levels - 2, -1, -1):
-                cur = cur[::2, ::2, ::2]
+                cur = cur[(slice(None, None, 2),) * dim]
                 masks[l] = cur.reshape(-1)
 
         self.levels = []
@@ -120,10 +129,14 @@ class StructuredHierarchy:
 
         # transfer kernel: separable [1/2, 1, 1/2] per dimension
         k1 = np.array([0.5, 1.0, 0.5])
-        kern = np.multiply.outer(np.multiply.outer(k1, k1), k1)
+        kern = k1
+        for _ in range(dim - 1):
+            kern = np.multiply.outer(kern, k1)
         self.tkern = torch.as_tensor(
             kern, dtype=dtype, device=device
-        ).reshape((1, 1, 3, 3, 3))
+        ).reshape((1, 1) + (3,) * dim)
+        self._conv_t = F.conv_transpose2d if dim == 2 else F.conv_transpose3d
+        self._conv = F.conv2d if dim == 2 else F.conv3d
 
         # coarsest dense inverse
         L0 = self.levels[0]
@@ -153,16 +166,17 @@ class StructuredHierarchy:
 
     # ---- transfers -----------------------------------------------------------
     def prolong(self, l, xc):
-        """level l -> l+1: trilinear interpolation (transposed stride-2
-        convolution; the kernel is symmetric, so no flip is needed)."""
+        """level l -> l+1: (bi/tri)linear interpolation (transposed
+        stride-2 convolution; the kernel is symmetric, so no flip is
+        needed)."""
         xg = xc.reshape((1, 1) + self.levels[l].grid)
-        y = F.conv_transpose3d(xg, self.tkern, stride=2, padding=1)
+        y = self._conv_t(xg, self.tkern, stride=2, padding=1)
         return y.reshape(self.levels[l + 1].n)
 
     def restrict(self, l, xf):
         """level l+1 -> l: adjoint of prolong (stride-2 conv, same kernel)."""
         xg = xf.reshape((1, 1) + self.levels[l + 1].grid)
-        y = F.conv3d(xg, self.tkern, stride=2, padding=1)
+        y = self._conv(xg, self.tkern, stride=2, padding=1)
         return y.reshape(self.levels[l].n)
 
     # ---- smoother / cycle ----------------------------------------------------

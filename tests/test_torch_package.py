@@ -44,7 +44,8 @@ def test_port_imports_no_jax_and_turns_tf32_off():
     for mod in ("navier_stokes.boxfast", "navier_stokes.fast", "interop",
                 "attic.winmom", "attic.winkernel", "attic.window",
                 "solvers.multigrid", "models.karman", "models.cavity3d",
-                "native", "mesh"):
+                "native", "mesh", "fem.formlang", "attic.winform", "ops.stencil",
+                "ops.structured", "solvers.structured_mg"):
         assert f"flow_tpu_torch.{mod}" in out["modules"], mod
     assert out["foreign"] == []
     assert out["tf32"] == [False, False]

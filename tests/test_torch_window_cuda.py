@@ -5,8 +5,10 @@
 # block whose cells do not fit in shared memory; their 3-D variants
 # (csrc/winmom3d.cu, winstiff.cu's winstiff_p1_3d) the same on box_mesh
 # tet layouts, taking a block of any size (their local results live in a
-# device scratch) and refusing inputs they do not take. Skips without a
-# CUDA device. Imports
+# device scratch) and refusing inputs they do not take; the window mass
+# kernel (K4a, csrc/winmass.cu), the element-matrix kernel (K5,
+# csrc/winform.cu) and K4b's P2 variants on P1/P2 triangle and tet layouts
+# (NL = 3, 6, 4, 10), the same. Skips without a CUDA device. Imports
 # no JAX, so it runs on the machine with the card:
 #   python -m pytest --noconftest -q tests/test_torch_window_cuda.py
 # (tests/conftest.py imports JAX). Tolerance: float32 in both, another
@@ -15,8 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from flow_tpu_torch.attic import winkernel, winmom
+from flow_tpu_torch.attic import winform, winkernel, winmom
+from flow_tpu_torch.fem import assembly, formlang
 from flow_tpu_torch.fem.spaces import FunctionSpace, VectorFunctionSpace
+from flow_tpu_torch.mesh import unit_square_mesh
 from flow_tpu_torch.mesh3d import box_mesh
 from flow_tpu_torch.models.karman import KarmanProblem
 
@@ -278,3 +282,135 @@ def test_3d_kernels_take_blocks_beyond_shared_memory_and_refuse_bad_inputs(box):
             S, W, (torch.zeros((1, W + 1), dtype=torch.int32, **z),
                    torch.zeros((1, 10 * C), dtype=torch.int32, **z)))
     assert winmom.WINMOM3D.launches == before + 1
+
+
+_SPACES = {
+    "tri P1": (lambda: unit_square_mesh(12, "crossed", dtype=torch.float32, device="cuda"), 1),
+    "tri P2": (lambda: unit_square_mesh(12, "crossed", dtype=torch.float32, device="cuda"), 2),
+    "tet P1": (lambda: box_mesh((0, 0, 0), (1, 1, 1), 4, 4, 4, dtype=torch.float32,
+                                device="cuda"), 1),
+    "tet P2": (lambda: box_mesh((0, 0, 0), (1, 1, 1), 4, 4, 4, dtype=torch.float32,
+                                device="cuda"), 2),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(_SPACES))
+def scalar_space(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc (CUDA kernel has no CPU mode)")
+    mesh_fn, degree = _SPACES[request.param]
+    return FunctionSpace(mesh_fn(), degree)
+
+
+def _padded(op, seed):
+    x_pad = torch.zeros(op.wl.n_pad, device="cuda")
+    x_pad[:op.wl.n] = torch.as_tensor(np.random.default_rng(seed).standard_normal(op.wl.n),
+                                      dtype=torch.float32)
+    return x_pad
+
+
+def _field(x):
+    # a rotating field in 2-D, the position vector in 3-D
+    if x.shape[-1] == 2:
+        return torch.stack([-x[..., 1], x[..., 0]], dim=-1)
+    return x
+
+
+def _convection_diffusion(V):
+    u, v = formlang.TrialFunction(V), formlang.TestFunction(V)
+    b = formlang.Coefficient(_field, vector=True)
+    form = u * v + 0.01 * (formlang.dot(formlang.grad(u), formlang.grad(v))
+                           + formlang.dot(b, formlang.grad(u)) * v)
+    return formlang.compile_form(form, assembly.geometry(V.mesh), 2 * V.degree + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [128, None])
+def test_mass_kernel_matches_plain(scalar_space, S):
+    op = winkernel.WindowMassOperator(scalar_space, S=S)
+    x_pad = _padded(op, 8)
+    before = winkernel.WINMASS.launches
+    y = op.windows(x_pad)
+    y2 = op.windows(x_pad)
+    torch.cuda.synchronize()
+    assert winkernel.WINMASS.launches == before + 2
+    assert torch.equal(y, y2)
+    y_plain = winkernel.mass_windows_plain(x_pad, op.lidx, op.valid, op.detj, op.mref,
+                                           op.wl.S, op.wl.W)
+    assert _rel(y, y_plain) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [128, None])
+def test_element_kernel_matches_plain(scalar_space, S):
+    form = _convection_diffusion(scalar_space)
+    op = winform.window_operator(form, S=S)
+    assert op.aloc.is_contiguous() and op.aloc.dtype == torch.float32
+    x_pad = _padded(op, 9)
+    before = winform.WINFORM.launches
+    y = op.windows(x_pad)
+    y2 = op.windows(x_pad)
+    torch.cuda.synchronize()
+    assert winform.WINFORM.launches == before + 2
+    assert torch.equal(y, y2)
+    y_plain = winform.element_windows_plain(x_pad, op.lidx, op.valid, op.aloc,
+                                            op.wl.S, op.wl.W)
+    assert _rel(y, y_plain) <= TOL
+    # the whole apply against the compiled form's own einsum apply
+    x = x_pad[:op.wl.n][op.inv]
+    assert _rel(op.apply(x), form.apply(x)) <= TOL
+
+
+@pytest.mark.cuda
+def test_stiffness_p2_kernels_match_plain(scalar_space):
+    if scalar_space.degree != 2:
+        pytest.skip("the P1 variants have their own tests above")
+    op = winkernel.WindowStiffnessOperator(scalar_space, S=128)
+    counter = winkernel.WINSTIFF_P2 if op.Cg.shape[1] == 4 else winkernel.WINSTIFF3D_P2
+    x_pad = _padded(op, 10)
+    before = counter.launches
+    y = op.windows(x_pad)
+    y2 = op.windows(x_pad)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    assert torch.equal(y, y2)
+    y_plain = winkernel.stiffness_windows_plain(x_pad, op.lidx, op.valid, op.Cg,
+                                                op.kref, op.wl.S, op.wl.W)
+    assert _rel(y, y_plain) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NL", [3, 4, 6, 10])
+def test_mass_and_element_kernels_take_large_blocks_and_refuse_bad_inputs(NL):
+    # one block of C = 40,000 cells (its local results far past shared
+    # memory): one real cell whose window dofs 0..NL-1 hold x = 1, all other
+    # cells masked
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc (CUDA kernel has no CPU mode)")
+    S = W = 128
+    z = dict(device="cuda")
+    C = 40000
+    lidx = torch.arange(NL, dtype=torch.int32, **z)[None, :, None].expand(1, NL, C).contiguous()
+    valid = torch.zeros((1, C), **z)
+    valid[0, 0] = 1.0
+    rowptr = torch.full((1, W + 1), NL, dtype=torch.int32, **z)
+    rowptr[0, :NL + 1] = torch.arange(NL + 1, dtype=torch.int32, **z)
+    ent = torch.zeros((1, NL * C), dtype=torch.int32, **z)
+    ent[0, :NL] = torch.arange(NL, dtype=torch.int32, **z)
+    scatter = (rowptr, ent)
+    x = torch.zeros(S + W, **z)
+    x[:NL] = 1.0
+    y = winkernel.mass_windows(x, lidx, valid, torch.full((1, C), 2.0, **z),
+                               torch.ones((NL, NL), **z), S, W, scatter)
+    aloc = torch.ones((1, NL * NL, C), **z)
+    ye = winform.element_windows(x, lidx, valid, aloc, S, W, scatter)
+    torch.cuda.synchronize()
+    assert y[0, :NL].tolist() == [2.0 * NL] * NL and float(y[0, NL:].abs().max()) == 0.0
+    assert ye[0, :NL].tolist() == [float(NL)] * NL and float(ye[0, NL:].abs().max()) == 0.0
+    with pytest.raises(TypeError, match="float32"):
+        winform.element_windows(x, lidx, valid, aloc.double(), S, W, scatter)
+    with pytest.raises(ValueError, match="inconsistent layout shapes"):
+        winform.element_windows(x, lidx, valid, aloc[:, 1:].contiguous(), S, W, scatter)
+    with pytest.raises(ValueError, match="NL in"):
+        winkernel.mass_windows(x, lidx[:, :2].contiguous(), valid, valid,
+                               torch.ones((2, 2), **z), S, W, scatter)
