@@ -6,9 +6,9 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. device and build: the card's name and power limit from nvidia-smi, then
-   the seven CUDA sources (csrc/stencil3d.cu, stencil2d.cu, winstiff.cu,
-   winmom.cu, winmom3d.cu, winmass.cu, winform.cu), one nvcc each, started
-   together, and the meshkit library (g++) beside them;
+   the eight CUDA sources (csrc/stencil3d.cu, stencil2d.cu, winstiff.cu,
+   winmom.cu, winmom3d.cu, winmass.cu, winform.cu, ell.cu), one nvcc each,
+   started together, and the meshkit library (g++) beside them;
 2. stencils against plain: the 27-point kernel (K1) on the 3-D cavity
    path's grids and the 9-point kernel (K2) on the 2-D multigrid levels of
    2,049^2 down, plus ragged grids, against their plain PyTorch versions, in
@@ -94,9 +94,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    each operator then against its plain version at its layout (2-D P2,
    NL = 6; 3-D P2, NL = 10); then K4a and K5 at NL = 10 on the tet layout
    against their plain versions;
-19. device times (torch.profiler, last, since profiling slows later host
-   code) of K3 2-D Newton, the three 3-D kernels, K2, K4a, K5 and K4b 2-D
-   and 3-D P2.
+19. big blocks: K4b 2-D P1 and K3 2-D lagged and Newton on
+   unit_square_mesh(128) layouts with S=16,384, whose blocks hold more cells
+   than shared memory could (C=32,318 and 8,158), against their plain
+   versions (the local results live in a device scratch);
+20. einsum parity: run_karman_fast(winkernel=False) at its defaults on
+   KarmanProblem(lcar=0.2, n_refine=2) in float64 for 3 steps on the card
+   (the ELL kernels) and on the CPU (plain versions), lambda_max carried
+   across: equal per-step iteration counts, U, P and the forces within 1e-8;
+21. einsum main path: run_karman_fast(winkernel=False) at its defaults (the
+   JAX driver's route: Newton, backward Euler, consistent force probe,
+   P1Hierarchy with ELL on every level) at lcar=0.02, n_refine=5, 1,905,056
+   DoF, float32, one step per chunk: 1 warm-up step and 5 timed steps, then
+   one step with its substeps timed. Fails on a non-finite state or force,
+   a last drag <= 0, an unconverged solve, no launch of either ELL kernel
+   (direct: the pressure operator and the finest level; windowed: the
+   levels whose windows fit shared memory) or any window-kernel launch;
+22. 3-D einsum path: run_cavity3d_fast(winkernel=False, n=64), 6,714,692
+   DoF, float32, tangent_mode CAVITY3D_TANGENT, 1 warm-up and 3 timed steps,
+   with its peak memory; fails on a non-finite state, an unconverged solve,
+   or no ELL or K1 launch;
+23. ELL kernels against plain: the direct kernel (P1) and, where the
+   windows fit, the windowed kernel (P2) at every ELL operator of the two
+   einsum drivers and at the TPU probes' shapes (131,072 x 8 and
+   1,048,576 x 8, banded within +-64), float32, <= 1e-6 relative, bitwise
+   repeat; wall times, the plain versions' times, a torch.sparse CSR matvec
+   as the yardstick and the bound from the matrix's bytes;
+24. device times (torch.profiler, last, since profiling slows later host
+   code) of the ELL kernels at every shape of 23 (with the L2 cache warm,
+   and cold: after a 64 MB write), K3 2-D lagged and Newton,
+   K4b 2-D, the three 3-D kernels, K2, K4a, K5 and K4b 2-D and 3-D P2.
 
 The line before the last holds the kernel report, the one before it the
 card; the last line is {"ok": true, "device": {...}}. Imports neither jax
@@ -147,6 +174,13 @@ KARMAN_DOFS = 1905056  # 2 n_V + n_Q of the JAX package's mesh at these args
 CAVITY3D_MAIN = 64  # run_cavity3d_fast's n on the 3-D window route
 CAVITY3D_DOFS = 6714692  # 3 n_V + n_Q at n=64
 CAVITY3D_STEPS = 4  # 1 warm-up + 3 timed
+# the einsum 3-D route's Newton tangent: "linearize" keeps x's quadrature
+# tables for a Newton iteration (the JAX default; JAX needed "jvp" where
+# linearize's storage did not fit)
+CAVITY3D_TANGENT = "linearize"
+EINSUM_PARITY = dict(lcar=0.2, n_refine=2)  # the einsum CUDA-vs-CPU parity mesh
+# the TPU probes' ELL shapes (rows, band, entries a row): P1's and P2's
+ELL_PROBES = {"probe P1": (131072, 64, 8), "probe P2": (1048576, 64, 8)}
 STRUCTURED2D_N = 2048  # unit_square_mesh(2048, "right"): the Poisson solves
 STRUCTURED2D_DOFS = 4198401  # P1: 2049^2
 FORMWIN_N = 1024  # unit_square_mesh(1024, "right") P2: the formwin2d steps
@@ -200,8 +234,9 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps):
-    """Device time per call from torch.profiler's kernel events."""
+def device_ms(fn, reps, kernel=None):
+    """Device time per call from torch.profiler's kernel events (with
+    `kernel`, only the events whose name holds it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -211,7 +246,9 @@ def device_ms(fn, reps):
             fn()
         torch.cuda.synchronize()
     events = prof.events()
-    cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and (kernel is None or kernel in e.name)]
+    check(kernel is None or cuda, f"the profiler shows no event of {kernel}")
     us = (sum(e.device_time_total for e in cuda) if cuda
           else sum(e.self_device_time_total for e in events))
     return us / reps / 1e3
@@ -253,7 +290,7 @@ def phase_build():
     th = threading.Thread(target=build_meshkit)
     th.start()
     names = ["stencil3d", "stencil2d", "winstiff", "winmom", "winmom3d", "winmass",
-             "winform"]
+             "winform", "ell"]
     _build.build_all(names)
     th.join()
     check("error" not in meshkit, f"meshkit build failed: {meshkit.get('error')}")
@@ -575,12 +612,16 @@ def _check_kernel(name, fn, plain, tol=1e-5):
 
 
 def phase_window_kernels(st, hier):
+    """K4b and K3 lagged against their plain versions on small ragged
+    layouts and at the Karman main path's layouts, with the CSR yardsticks.
+    Returns the report of the main layouts and, to time their device times
+    later, a call of each kernel there."""
     import torch
     from flow_tpu_torch.attic import winkernel, winmom
     from flow_tpu_torch.models.karman import KarmanProblem
 
     rng = np.random.default_rng(1)
-    report = {}
+    report, jobs = {}, {}
 
     # ragged small layouts: S=128 and auto
     small = KarmanProblem(lcar=0.1, n_refine=1, dtype=torch.float32, device="cuda")
@@ -639,9 +680,10 @@ def phase_window_kernels(st, hier):
             f"rel_err={rel_err:.3e} kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
             f"csr_ms={lib_ms:.5f} (nnz {A.values().numel()}) bytes={nbytes} ops={nops} "
             f"bound_ms={b_ms:.6f} ({b_by})")
-        report.setdefault("winstiff", dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                                           bound_ms=b_ms, bound_by=b_by,
-                                           library_ms=lib_ms))
+        if "winstiff" not in report:
+            report["winstiff"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            jobs["winstiff"] = (lambda op=op, x=x: op.windows(x))
         del A
 
     op = st.winmom
@@ -681,9 +723,10 @@ def phase_window_kernels(st, hier):
         f"bound_ms={b_ms:.6f} ({b_by})")
     report["winmom"] = dict(max_abs_err=err_main, ms=ms, plain_ms=plain_ms,
                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    jobs["winmom"] = lambda: op.windows(xp, Tq, *w)
     del A
     torch.cuda.empty_cache()
-    return report
+    return report, jobs
 
 
 def phase_karman_parity(settings, tag):
@@ -721,21 +764,25 @@ def _timed_step(st, U, P, dt):
     times = {}
 
     def timed(name, fn):
-        def wrapper(*args):
+        def wrapper(*args, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*args)
+            out = fn(*args, **kw)
             torch.cuda.synchronize()
             times[name] = 1e3 * (time.perf_counter() - t0)
             return out
         return wrapper
 
+    # the correction substep: the window route's, or NSContext's on the
+    # einsum route
+    owner, name = (st, "_correction") if st.winkernel else (st.ctx, "velocity_correction")
     st._pressure_solve = timed("pressure", st._pressure_solve)
-    st._correction = timed("correction", st._correction)
+    setattr(owner, name, timed("correction", getattr(owner, name)))
     try:
         timed("step", st._step_impl)(U, P, dt)
     finally:
-        del st._pressure_solve, st._correction
+        del st._pressure_solve
+        delattr(owner, name)
     times["momentum"] = times["step"] - times["pressure"] - times["correction"]
     return times
 
@@ -1533,6 +1580,266 @@ def phase_window_p2():
 
 
 
+def phase_window_bigblock():
+    """K4b 2-D P1 and K3 2-D lagged and Newton on layouts whose blocks hold
+    more cells than one block's shared memory could (unit_square_mesh(128),
+    S=16,384: C=32,318 P1 and 8,158 P2 cells), against their plain
+    versions: the local results live in a device scratch."""
+    import torch
+    from flow_tpu_torch.attic import winkernel, winmom
+    from flow_tpu_torch.fem.spaces import FunctionSpace, VectorFunctionSpace
+    from flow_tpu_torch.mesh import unit_square_mesh
+
+    rng = np.random.default_rng(4)
+    mesh = unit_square_mesh(128, "right", dtype=torch.float32, device="cuda")
+    op = winkernel.WindowStiffnessOperator(FunctionSpace(mesh, 1), S=16384)
+    check(op.wl.C * 3 * 4 > 232448, "bigblock: the K4b block fits shared memory")
+    x = torch.zeros(op.wl.n_pad, device="cuda")
+    x[:op.wl.n] = torch.as_tensor(rng.standard_normal(op.wl.n), dtype=torch.float32)
+    err = _check_kernel("winstiff big block", lambda: op.windows(x),
+                        lambda: winkernel.stiffness_windows_plain(
+                            x, op.lidx, op.valid, op.Cg, op.kref, op.wl.S, op.wl.W))
+    mo = winmom.WindowLaggedMomentum(VectorFunctionSpace(mesh, 2), S=16384)
+    check(mo.wl.C * 12 * 4 > 232448, "bigblock: the K3 block fits shared memory")
+    T = torch.as_tensor(rng.standard_normal((mo.wl.n, 2)), dtype=torch.float32,
+                        device="cuda")
+    Tq, Uq, Gu = mo.state_qp(T)
+    xp = torch.zeros((2, mo.wl.n_pad), device="cuda")
+    xp[:, :mo.wl.n] = torch.as_tensor(rng.standard_normal((2, mo.wl.n)),
+                                      dtype=torch.float32)
+    w = (1.0, 0.37, 0.021)
+    errs = []
+    for extra in ((), (Uq, Gu)):
+        errs.append(_check_kernel(
+            "winmom big block", lambda: mo.windows(xp, Tq, *w, *extra),
+            lambda: winmom.momentum_windows_plain(
+                xp, mo.lidx, mo.valid, mo.detj, mo.G4, mo.Cg4, Tq, mo.tabs,
+                mo._scal(*w), mo.wl.S, mo.wl.W, *extra)))
+    log(f"[bigblock] winstiff P1 2-D nb={op.wl.nb} C={op.wl.C} rel_err={err[1]:.3e}; "
+        f"winmom 2-D nb={mo.wl.nb} C={mo.wl.C} lagged rel_err={errs[0][1]:.3e} "
+        f"newton rel_err={errs[1][1]:.3e}")
+
+
+def phase_einsum_parity():
+    """run_karman_fast on the einsum route (its defaults: Newton, backward
+    Euler, consistent probe, P1Hierarchy with ELL on every level) at
+    KarmanProblem(lcar=0.2, n_refine=2) in float64, 3 steps on the card (the
+    ELL kernels) and on the CPU (their plain versions), lambda_max carried
+    across: equal per-step iteration counts, U, P and the forces within
+    1e-8 (absolute; of max|F| for the forces)."""
+    import torch
+    from flow_tpu_torch.models.karman import run_karman_fast
+
+    runs, lmax = {}, None
+    for device in ("cpu", "cuda"):
+        out = run_karman_fast(num_steps=3, winkernel=False, device=device,
+                              dtype=torch.float64, lmax=lmax, **EINSUM_PARITY)
+        lmax = [L.lmax for L in out["stepper"].pressure_precond.__self__.levels]
+        _check_solves(out["telemetry"], f"einsum-parity ({device})")
+        runs[device] = (out["u"].cpu(), out["p"].cpu(), out["telemetry"])
+    (U_c, P_c, tel_c), (U_g, P_g, tel_g) = runs["cpu"], runs["cuda"]
+    for key in ("newton_iters", "linear_iters", "pressure_iters", "correction_iters"):
+        a, b = tel_g[key].tolist(), tel_c[key].tolist()
+        log(f"[einsum-parity] {key}: cuda={a} cpu={b}")
+        check(a == b, f"einsum parity: {key} differ (cuda {a}, cpu {b})")
+    du = float((U_g - U_c).abs().max())
+    dp = float((P_g - P_c).abs().max())
+    F_c, F_g = tel_c["forces"], tel_g["forces"]
+    df = float(np.abs(F_g - F_c).max() / np.abs(F_c).max())
+    log(f"[einsum-parity] max|dU|={du:.3e} (max|U| {float(U_c.abs().max()):.3e}) "
+        f"max|dP|={dp:.3e} (max|P| {float(P_c.abs().max()):.3e}) forces rel {df:.3e}")
+    check(du <= 1e-8 and dp <= 1e-8 and df <= 1e-8,
+          f"einsum parity: U, P or the forces differ by more than 1e-8 "
+          f"({du}, {dp}, {df})")
+
+
+def _ell_counters():
+    from flow_tpu_torch.fem import ell
+
+    return {"ell_direct": ell.ELL_DIRECT, "ell_window": ell.ELL_WINDOW}
+
+
+def phase_einsum_main():
+    """run_karman_fast at its defaults on the einsum route (the JAX
+    driver's) at 1.9M DoF, one step per chunk: the first chunk is the
+    warm-up, the next five are timed. The pressure operator and the
+    finest P1Hierarchy level take the direct ELL kernel, the levels whose
+    windows fit shared memory the windowed one."""
+    import torch
+    from flow_tpu_torch.attic.winkernel import WINSTIFF
+    from flow_tpu_torch.attic.winmom import WINMOM, WINMOM_NEWTON
+    from flow_tpu_torch.models.karman import run_karman_fast
+
+    counters = {**_ell_counters(), "winmom": WINMOM, "winmom_newton": WINMOM_NEWTON,
+                "winstiff": WINSTIFF}
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = run_karman_fast(num_steps=6, chunk_size=1, winkernel=False,
+                          dtype=torch.float32, device="cuda", **KARMAN_MAIN)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    prob, st, tel = out["problem"], out["stepper"], out["telemetry"]
+    hier = st.pressure_precond.__self__
+    timed = sum(out["chunk_seconds"][1:])
+    setup = total - sum(out["chunk_seconds"])
+    log(f"[einsum] run_karman_fast {KARMAN_MAIN} n_dofs={prob.n_dofs} float32 "
+        f"winkernel=False convection={'lagged' if st.lagged else 'newton'} "
+        f"theta={st.theta} tangent_mode={st.tangent_mode}")
+    log(f"[einsum] pressure operator n={st.K_Q.n} K={st.K_Q.width} kernel={st.K_Q.kernel}; "
+        "levels: " + ", ".join(f"n={L.n} K={L.ell.width} W={L.ell.W} {L.ell.kernel}"
+                               for L in hier.levels))
+    log(f"[einsum] steps/s={5 / timed:.4f} (5 steps in {timed:.3f} s, after 1 warm-up "
+        f"step of {out['chunk_seconds'][0]:.3f} s; setup {setup:.1f} s)")
+    for k in ("dt", "newton_iters", "linear_iters", "pressure_iters", "correction_iters"):
+        log(f"[einsum] {k}: {tel[k].tolist()}")
+    log(f"[einsum] drag: {tel['forces'][:, 0].tolist()}")
+    log(f"[einsum] lift: {tel['forces'][:, 1].tolist()}")
+    log(f"[einsum] peak_mem_bytes={peak} launches={launches} (per step: "
+        + ", ".join(f"{k} {v / 6:.1f}" for k, v in launches.items()) + ")")
+    check(prob.n_dofs == KARMAN_DOFS, f"einsum: unexpected n_dofs {prob.n_dofs}")
+    check(not st.winkernel and not st.lagged and st.theta == (0.0, 1.0),
+          "einsum: not the driver's defaults")
+    U, P = out["u"], out["p"]
+    check(tuple(U.shape) == (prob.V.n_dofs, 2) and tuple(P.shape) == (prob.Q.n_dofs,),
+          "einsum: state of the wrong shape")
+    check(bool(torch.isfinite(U).all()) and bool(torch.isfinite(P).all()),
+          "einsum: non-finite state")
+    check(np.isfinite(tel["forces"]).all(), "einsum: non-finite forces")
+    check(tel["forces"][-1, 0] > 0, "einsum: the last step's drag is not positive")
+    _check_solves(tel, "einsum")
+    check(bool((tel["newton_iters"] >= 1).all() and (tel["linear_iters"] >= 1).all()),
+          "einsum: a step without a Newton iteration")
+    check(launches["ell_direct"] > 0, "einsum: the direct ELL kernel was never launched")
+    check(launches["ell_window"] > 0, "einsum: the windowed ELL kernel was never launched")
+    check(launches["winmom"] == launches["winmom_newton"] == launches["winstiff"] == 0,
+          "einsum: a window kernel was launched on the einsum route")
+    umax = float(U.abs().max())
+    check(0.0099 <= umax <= 0.1, f"einsum: max |u| {umax} out of range")
+    times = _timed_step(st, U, P, st._scalar(out["dt"]))
+    log("[einsum] substeps ms (one synchronised step): "
+        + ", ".join(f"{k}={v:.2f}" for k, v in times.items()))
+    return out, launches
+
+
+def phase_cavity3d_einsum():
+    """run_cavity3d_fast on the einsum route at N=64 (the JAX driver's
+    route), one step per chunk: 1 warm-up and 3 timed steps. The pressure
+    operator is the ELL stiffness of 274,625 rows, the V-cycle K1's; the
+    tangent is kept per Newton iteration (tangent_mode "linearize"), and the
+    peak memory says whether that fits."""
+    import torch
+    from flow_tpu_torch.models.cavity3d import run_cavity3d_fast
+    from flow_tpu_torch.ops.stencil import STENCIL_3D
+
+    counters = {**_ell_counters(), "stencil3d": STENCIL_3D}
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters.values():
+        k.launches = 0
+    out = run_cavity3d_fast(num_steps=CAVITY3D_STEPS, n=CAVITY3D_MAIN, winkernel=False,
+                            tangent_mode=CAVITY3D_TANGENT, chunk_size=1,
+                            dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    prob, st, tel = out["problem"], out["stepper"], out["telemetry"]
+    n_dofs = 3 * prob.V.n_dofs + prob.Q.n_dofs
+    timed = sum(out["chunk_seconds"][1:])
+    n_timed = CAVITY3D_STEPS - 1
+    log(f"[cavity3d-einsum] run_cavity3d_fast n={CAVITY3D_MAIN} n_dofs={n_dofs} float32 "
+        f"winkernel=False tangent_mode={st.tangent_mode} pressure operator "
+        f"n={st.K_Q.n} K={st.K_Q.width} W={st.K_Q.W} kernel={st.K_Q.kernel}")
+    log(f"[cavity3d-einsum] setup {out['setup_seconds']:.1f} s; steps/s="
+        f"{n_timed / timed:.4f} ({n_timed} steps in {timed:.3f} s, after 1 warm-up step "
+        f"of {out['chunk_seconds'][0]:.3f} s)")
+    for k in ("dt", "newton_iters", "linear_iters", "pressure_iters", "correction_iters"):
+        log(f"[cavity3d-einsum] {k}: {tel[k].tolist()}")
+    log(f"[cavity3d-einsum] peak_mem_bytes={peak} launches={launches}")
+    check(n_dofs == CAVITY3D_DOFS, f"cavity3d-einsum: unexpected n_dofs {n_dofs}")
+    U, P = out["U"], out["P"]
+    check(bool(torch.isfinite(U).all()) and bool(torch.isfinite(P).all()),
+          "cavity3d-einsum: non-finite state")
+    _check_solves(tel, "cavity3d-einsum")
+    check(sum(launches[k] for k in ("ell_direct", "ell_window")) > 0,
+          "cavity3d-einsum: no ELL kernel was launched")
+    check(launches["stencil3d"] > 0, "cavity3d-einsum: the stencil kernel was never launched")
+    umax = float(U.abs().max())
+    check(abs(umax - 1.0) < 1e-6, f"cavity3d-einsum: max |u| {umax} is not the lid speed")
+    times = _timed_step(st, U, P, st._scalar(out["dt"]))
+    log("[cavity3d-einsum] substeps ms (one synchronised step): "
+        + ", ".join(f"{k}={v:.2f}" for k, v in times.items()))
+    return out, launches
+
+
+def _banded_ell(n, band, K, seed):
+    """The TPU probes' inputs: K entries a row within +-band of it."""
+    import torch
+    from flow_tpu_torch.fem.ell import ELLMatrix
+
+    rng = np.random.default_rng(seed)
+    cols = np.clip(np.arange(n)[:, None] + rng.integers(-band, band, size=(n, K)),
+                   0, n - 1)
+    return ELLMatrix(cols, rng.standard_normal((n, K)), torch.float32, "cuda")
+
+
+_FLUSH = []
+
+
+def _l2_flush():
+    """A 64 MB buffer whose zero_() evicts the L2 cache (50 MB)."""
+    import torch
+
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(16 << 20, dtype=torch.float32, device="cuda"))
+    return _FLUSH[0]
+
+
+def _ell_report(name, A, report, jobs):
+    """Each ELL kernel that can serve A (the direct one always, the
+    windowed one where A's windows fit) against its plain version (<= 1e-6
+    relative in float32), bitwise repeat, wall time; the plain versions'
+    times; a torch.sparse CSR matvec of A as the yardstick; the bound from
+    A's bytes (vals, int32 indices, x, y) and flops (2 n K). Adds a row
+    per kernel to `report` and a job to `jobs` for the device times."""
+    import torch
+    from flow_tpu_torch.fem import ell
+
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal(A.n), dtype=A.dtype, device="cuda")
+    item = A.vals.element_size()
+    nbytes = A.n * A.width * (item + 4) + 2 * A.n * item
+    b_ms, b_by = bound_ms(nbytes, 2 * A.n * A.width)
+    rows = torch.arange(A.n, device="cuda").repeat_interleave(A.width)
+    csr = _csr(rows, A.cols.reshape(-1), A.vals.reshape(-1), A.n)
+    lib_ms = cuda_time_ms(lambda: csr @ x, 200)
+    _, csr_err = _rel(csr @ x, ell.ell_apply_plain(A.vals, A.cols, x))
+    check(csr_err <= 1e-6, f"ell {name}: the CSR yardstick differs ({csr_err})")
+    kernels = {"direct": (A.apply_direct, lambda: ell.ell_apply_plain(A.vals, A.cols, x))}
+    if A.kernel == "window":
+        kernels["window"] = (A.apply_window, lambda: ell.ell_apply_window_plain(
+            A.vals, A.lidx, A.w0, x, A.W))
+    for kernel, (fn, plain) in kernels.items():
+        abs_err, rel_err = _check_kernel(f"ell {kernel} {name}", lambda: fn(x), plain,
+                                         tol=1e-6)
+        ms = cuda_time_ms(lambda: fn(x), 200)
+        plain_ms = cuda_time_ms(plain, 50)
+        row = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib_ms)
+        report[(kernel, name)] = row
+        jobs[(kernel, name)] = (lambda fn=fn: fn(x))
+        # the same call after a write of 64 MB, more than the 50 MB L2:
+        # the kernel then reads the matrix from device memory
+        jobs[(kernel, name, "cold")] = (lambda fn=fn: (_l2_flush().zero_(), fn(x)))
+        log(f"[ell] {kernel:6s} {name}: n={A.n} K={A.width} W={A.W} "
+            f"(serves: {A.kernel}) rel_err={rel_err:.3e} kernel_ms={ms:.5f} "
+            f"plain_ms={plain_ms:.5f} csr_ms={lib_ms:.5f} bytes={nbytes} "
+            f"bound_ms={b_ms:.6f} ({b_by})")
+    del csr
+
+
 def main():
     # a workspace setting under which cuBLAS is deterministic, for the
     # references run under deterministic() (read when cuBLAS starts)
@@ -1564,7 +1871,7 @@ def main():
         phase_cavity_parity()
         k1["launches"] = phase_cavity_main()
         prob, st, hier, setup = phase_karman_setup()
-        kwin = phase_window_kernels(st, hier)
+        kwin, win_jobs = phase_window_kernels(st, hier)
         phase_karman_parity(KARMAN_SETTINGS, "karman-parity")
         lagged = phase_karman_main(prob, st, setup)
         del prob, st, hier
@@ -1583,8 +1890,33 @@ def main():
         k2["launches"] = phase_structured2d_main()
         k4a, k5, jobs2 = phase_formwin2d()
         (k4b_p2, k4b_p2_job), (k4b3_p2, k4b3_p2_job) = phase_window_p2()
+        phase_window_bigblock()
+        # the einsum routes and the ELL kernels (P1 direct, P2 windowed) at
+        # every ELL operator of the two drivers and at the probes' shapes
+        phase_einsum_parity()
+        oute, einsum = phase_einsum_main()
+        kell, ell_jobs = {}, {}
+        ste = oute["stepper"]
+        for L in ste.pressure_precond.__self__.levels:
+            _ell_report(f"karman level n={L.n}", L.ell, kell, ell_jobs)
+        del oute, ste
+        torch.cuda.empty_cache()
+        out3e, einsum3 = phase_cavity3d_einsum()
+        _ell_report("cavity3d pressure n=274625", out3e["stepper"].K_Q, kell, ell_jobs)
+        del out3e
+        torch.cuda.empty_cache()
+        for name, (n, band, K) in ELL_PROBES.items():
+            _ell_report(name, _banded_ell(n, band, K, seed=0), kell, ell_jobs)
         # device times from the profiler, last: a profiler session slows
         # later host code in the process
+        for (kernel, name, *cold), job in ell_jobs.items():
+            key = "device_cold_ms" if cold else "device_ms"
+            kell[(kernel, name)][key] = device_ms(job, 100, kernel=f"ell_{kernel}_kernel")
+        log("[profile] ell device ms per call, L2 warm / cold: "
+            + ", ".join(f"{k[0]} {k[1]}={v['device_ms']:.6f}/{v['device_cold_ms']:.6f}"
+                        for k, v in kell.items()))
+        kwin["winmom"]["device_ms"] = device_ms(win_jobs["winmom"], 50)
+        kwin["winstiff"]["device_ms"] = device_ms(win_jobs["winstiff"], 100)
         knewton["device_ms"] = device_ms(newton_job, 50)
         for name, job in jobs3.items():
             k3d[name]["device_ms"] = device_ms(job, 20)
@@ -1595,7 +1927,8 @@ def main():
         k4b3_p2["device_ms"] = device_ms(k4b3_p2_job, 50)
         log("[profile] device ms per call: "
             + ", ".join(f"{k}={v['device_ms']:.5f}" for k, v in
-                        (("winmom newton", knewton), *k3d.items(), ("stencil2d", k2),
+                        (("winmom lagged", kwin["winmom"]), ("winstiff", kwin["winstiff"]),
+                         ("winmom newton", knewton), *k3d.items(), ("stencil2d", k2),
                          ("winmass", k4a), ("winform", k5), ("winstiff_p2 tri", k4b_p2),
                          ("winstiff3d_p2 tets", k4b3_p2))))
     except SmokeFailure as e:
@@ -1619,7 +1952,11 @@ def main():
              "winmass": {"formwin2d": k4a["launches"]},
              "winform": {"formwin2d": k5["launches"]},
              "winstiff_p2": {"p2_poisson_2d": k4b_p2["launches"]},
-             "winstiff3d_p2": {"p2_poisson_3d": k4b3_p2["launches"]}}
+             "winstiff3d_p2": {"p2_poisson_3d": k4b3_p2["launches"]},
+             "ell_direct": {"karman_einsum": einsum["ell_direct"],
+                            "cavity3d_einsum": einsum3["ell_direct"]},
+             "ell_window": {"karman_einsum": einsum["ell_window"],
+                            "cavity3d_einsum": einsum3["ell_window"]}}
     rows = [
         dict(name="stencil_apply_3d", route="cuda",
              source="flow_tpu_torch/csrc/stencil3d.cu",
@@ -1657,6 +1994,17 @@ def main():
         dict(name="element_windows", route="cuda",
              source="flow_tpu_torch/csrc/winform.cu",
              replaces="flow_tpu/attic/winform.py:92", **k5),
+        # the ELL kernels' launches on the einsum Karman path; their numbers
+        # at its largest operator each takes: the pressure operator (direct)
+        # and the 53,392-row level (window)
+        dict(name="ell_apply direct", route="cuda",
+             source="flow_tpu_torch/csrc/ell.cu",
+             replaces="scripts/pallas_gather_probe.py:76",
+             launches=einsum["ell_direct"], **kell[("direct", "karman level n=212256")]),
+        dict(name="ell_apply window", route="cuda",
+             source="flow_tpu_torch/csrc/ell.cu",
+             replaces="scripts/onehot_window_probe.py:125",
+             launches=einsum["ell_window"], **kell[("window", "karman level n=53392")]),
     ]
     log(f"[done] launches by path: {json.dumps(paths)}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -36,28 +36,27 @@ __all__ = ["WindowStiffnessOperator", "stiffness_windows",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# every variant takes a device scratch for the local results
 WINSTIFF = Kernel("winstiff", {
-    "winstiff_p1_2d": [_P] * 8 + [_I] * 4 + [_P],
+    "winstiff_p1_2d": [_P] * 9 + [_I] * 4 + [_P],
 })
-# the 3-D variant: the same library, its own entry point and count; it
-# takes a device scratch for the local results
+# the 3-D variant: the same library, its own entry point and count
 WINSTIFF3D = Kernel("winstiff", {
     "winstiff_p1_3d": [_P] * 9 + [_I] * 4 + [_P],
 })
-# the P2 variants (NL = 6 triangles, 10 tets), each with a scratch and its
-# own count
+# the P2 variants (NL = 6 triangles, 10 tets), each with its own count
 WINSTIFF_P2 = Kernel("winstiff", {
     "winstiff_p2_2d": [_P] * 9 + [_I] * 4 + [_P],
 })
 WINSTIFF3D_P2 = Kernel("winstiff", {
     "winstiff_p2_3d": [_P] * 9 + [_I] * 4 + [_P],
 })
-# (DIM^2, NL) -> (kernel, entry point, takes a scratch)
+# (DIM^2, NL) -> (kernel, entry point)
 _ENTRIES = {
-    (4, 3): (WINSTIFF, "winstiff_p1_2d", False),
-    (9, 4): (WINSTIFF3D, "winstiff_p1_3d", True),
-    (4, 6): (WINSTIFF_P2, "winstiff_p2_2d", True),
-    (9, 10): (WINSTIFF3D_P2, "winstiff_p2_3d", True),
+    (4, 3): (WINSTIFF, "winstiff_p1_2d"),
+    (9, 4): (WINSTIFF3D, "winstiff_p1_3d"),
+    (4, 6): (WINSTIFF_P2, "winstiff_p2_2d"),
+    (9, 10): (WINSTIFF3D_P2, "winstiff_p2_3d"),
 }
 WINMASS = Kernel("winmass", {"winmass": [_P] * 9 + [_I] * 5 + [_P]})
 # the local-dof counts the window kernels are instantiated for
@@ -116,11 +115,9 @@ def stiffness_windows_plain(x_pad, lidx, valid, cg, kref, S, W):
 def stiffness_windows(x_pad, lidx, valid, cg, kref, S, W, scatter=None):
     """Per-block output windows [nb, W] of the scalar stiffness apply (see
     stiffness_windows_plain). CPU tensors take the plain version; CUDA
-    tensors launch the kernel, which sums each window dof along the
-    layout's scatter lists `scatter` = (rowptr, ent) tensors. The 2-D P1
-    kernel holds a block's C cells in shared memory at once and raises
-    (RuntimeError) when they do not fit; the others write them to a
-    device scratch [nb, C*NL] and take any C."""
+    tensors launch the kernel, which writes a block's local results to a
+    device scratch [nb, C*NL], so any C fits, and sums each window dof along
+    the layout's scatter lists `scatter` = (rowptr, ent) tensors."""
     if x_pad.device.type == "cpu":
         return stiffness_windows_plain(x_pad, lidx, valid, cg, kref, S, W)
     if x_pad.device.type != "cuda":
@@ -132,17 +129,15 @@ def stiffness_windows(x_pad, lidx, valid, cg, kref, S, W, scatter=None):
             f"stiffness_windows: the kernels take P1 and P2 on triangles and "
             f"tets (DIM^2, NL) in {sorted(_ENTRIES)}, got ({d2}, {NL})"
         )
-    kernel, entry, scratched = _ENTRIES[(d2, NL)]
+    kernel, entry = _ENTRIES[(d2, NL)]
     check_window_args("stiffness_windows", x_pad, lidx, valid, (cg, kref), scatter, S, W)
     if tuple(cg.shape) != (nb, d2, C) or kref.numel() != d2 * NL * NL:
         raise ValueError("stiffness_windows: inconsistent layout shapes")
     rowptr, ent = scatter
     out = torch.empty((nb, W), dtype=torch.float32, device=x_pad.device)
+    scratch = torch.empty((nb, C * NL), dtype=torch.float32, device=x_pad.device)
     args = [x_pad.data_ptr(), lidx.data_ptr(), valid.data_ptr(), cg.data_ptr(),
-            kref.data_ptr(), rowptr.data_ptr(), ent.data_ptr()]
-    if scratched:
-        scratch = torch.empty((nb, C * NL), dtype=torch.float32, device=x_pad.device)
-        args.append(scratch.data_ptr())
+            kref.data_ptr(), rowptr.data_ptr(), ent.data_ptr(), scratch.data_ptr()]
     with torch.cuda.device(x_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
         kernel.launch(entry, *args, out.data_ptr(), nb, S, W, C, stream)

@@ -47,14 +47,15 @@ __all__ = ["WindowLaggedMomentum", "momentum_windows", "momentum_windows_plain",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# every variant takes a device scratch for the local results
 WINMOM = Kernel("winmom", {
-    "winmom_p2_2d_lagged": [_P] * 12 + [_I] * 5 + [_P],
+    "winmom_p2_2d_lagged": [_P] * 13 + [_I] * 5 + [_P],
 })
 # the Newton variant: the same library, its own entry point and count
 WINMOM_NEWTON = Kernel("winmom", {
-    "winmom_p2_2d_newton": [_P] * 13 + [_I] * 5 + [_P],
+    "winmom_p2_2d_newton": [_P] * 14 + [_I] * 5 + [_P],
 })
-# the 3-D variants, which take a device scratch for the local results
+# the 3-D variants
 WINMOM3D = Kernel("winmom3d", {
     "winmom_p2_3d_lagged": [_P] * 13 + [_I] * 5 + [_P],
 })
@@ -63,13 +64,12 @@ WINMOM3D_NEWTON = Kernel("winmom3d", {
 })
 
 # the configurations the kernels are built for, P2 with the degree-5 rule:
-# (DIM, NL, NQ) -> ((lagged kernel, entry), (Newton kernel, entry), takes a
-# scratch)
+# (DIM, NL, NQ) -> ((lagged kernel, entry), (Newton kernel, entry))
 _ENTRIES = {
     (2, 6, 7): ((WINMOM, "winmom_p2_2d_lagged"),
-                (WINMOM_NEWTON, "winmom_p2_2d_newton"), False),
+                (WINMOM_NEWTON, "winmom_p2_2d_newton")),
     (3, 10, 27): ((WINMOM3D, "winmom_p2_3d_lagged"),
-                  (WINMOM3D_NEWTON, "winmom_p2_3d_newton"), True),
+                  (WINMOM3D_NEWTON, "winmom_p2_3d_newton")),
 }
 
 
@@ -163,11 +163,10 @@ def momentum_windows(x_pad, lidx, valid, detj, g4, cg4, Tq, tabs, scal, S, W,
                      scatter=None, Uq=None, Gu=None):
     """Per-block output windows [DIM, nb, W] of the momentum apply (see
     momentum_windows_plain). CPU tensors take the plain version; CUDA
-    tensors launch the kernel, which sums each window dof along the
-    layout's scatter lists `scatter` = (rowptr, ent). The 2-D kernel holds
-    a block's C cells in shared memory at once and raises (RuntimeError)
-    when they do not fit; the 3-D kernel writes them to a device scratch
-    [nb, DIM, C*NL] and takes any C. The Newton kernels read the state
+    tensors launch the kernel, which writes a block's local results to a
+    device scratch [nb, DIM, C*NL], so any C fits, and sums each window dof
+    along the layout's scatter lists `scatter` = (rowptr, ent). The Newton
+    kernels read the state
     values from Tq, so they take only Uq that is Tq (as state_qp returns
     them)."""
     if x_pad.device.type == "cpu":
@@ -183,7 +182,7 @@ def momentum_windows(x_pad, lidx, valid, detj, g4, cg4, Tq, tabs, scal, S, W,
             f"momentum_windows: the kernels take (DIM, NL, NQ) = (2, 6, 7) or "
             f"(3, 10, 27), got ({DIM}, {NL}, {NQ})"
         )
-    lagged, newton_entry, scratched = _ENTRIES[(DIM, NL, NQ)]
+    lagged, newton_entry = _ENTRIES[(DIM, NL, NQ)]
     newton = Uq is not None
     if newton and (Uq is not Tq or Gu is None):
         raise ValueError("momentum_windows: the Newton kernel takes Uq that is "
@@ -216,11 +215,10 @@ def momentum_windows(x_pad, lidx, valid, detj, g4, cg4, Tq, tabs, scal, S, W,
     out = torch.empty((DIM, nb, W), dtype=torch.float32, device=x_pad.device)
     head = (x_pad.data_ptr(), lidx.data_ptr(), valid.data_ptr(),
             detj.data_ptr(), g4.data_ptr(), cg4.data_ptr(), Tq.data_ptr())
-    tail = [tabs.data_ptr(), scal.data_ptr(), rowptr.data_ptr(), ent.data_ptr()]
-    if scratched:
-        scratch = torch.empty((nb, DIM, C * NL), dtype=torch.float32,
-                              device=x_pad.device)
-        tail.append(scratch.data_ptr())
+    scratch = torch.empty((nb, DIM, C * NL), dtype=torch.float32,
+                          device=x_pad.device)
+    tail = [tabs.data_ptr(), scal.data_ptr(), rowptr.data_ptr(), ent.data_ptr(),
+            scratch.data_ptr()]
     kernel, entry = newton_entry if newton else lagged
     with torch.cuda.device(x_pad.device):
         stream = torch.cuda.current_stream().cuda_stream

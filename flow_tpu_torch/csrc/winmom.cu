@@ -27,22 +27,23 @@
 // apply reads 6 indices, detJ, 4 G, 4 C, a mask, 14 transport values and
 // 12 window values (~47 values) and does ~3,600 flops; the Newton apply
 // reads 28 gradient values more and does ~900 flops more. Both write 12
-// local results to shared memory. The scatter lists, which only this design
-// needs, add one index per (cell, local dof) and one row pointer per window
-// dof on top of the function's own bytes.
+// local results to the scratch and read them back. The scatter lists and
+// the scratch, which only this design needs, add one index per (cell, local
+// dof), one row pointer per window dof and two floats per local result on
+// top of the function's own bytes.
 //
 // Design: one block per window block b. The small tables (phi, dphi, w,
 // Mref, Kref: 313 floats) and the three weights are staged in shared
-// memory. Threads take cells in turn, gather the 12 window values through
+// memory and read through volatile pointers. Threads take cells in turn, gather the 12 window values through
 // L1/L2 (a block's window is a few thousand contiguous floats per
-// component), and write the 12 local results to shared memory. Then each
-// thread takes window dofs in turn and sums, per component, the local
-// results of its dof along the block's scatter list (rowptr, ent), built on
-// the host in ascending (cell, local dof) order: a fixed order, so the
-// result is bitwise repeatable (no atomics). All C cells of a block are in
-// shared memory at once (48 B each, with S <= 4096 far below the opt-in
-// limit of ~4,800 cells); the launcher refuses a layout whose C does not
-// fit. The Newton variant is the same kernel with the reaction term added
+// component), and write the 12 local results to a device scratch
+// [nb, DIM, C*NL] that the wrapper allocates, as the 3-D kernel
+// (csrc/winmom3d.cu) does, so a block of any C cells fits. After
+// __syncthreads(), which makes the block's global writes visible to the
+// block, each thread takes window dofs in turn and sums, per component, the
+// local results of its dof along the block's scatter list (rowptr, ent),
+// built on the host in ascending (cell, local dof) order: a fixed order, so
+// the result is bitwise repeatable (no atomics). The Newton variant is the same kernel with the reaction term added
 // after the lagged terms (template parameter NEWTON; the lagged
 // instantiation is unchanged). It needs the direction values of both
 // components at every quadrature point, so it loops over quadrature points
@@ -76,23 +77,25 @@ winmom_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
               const float* __restrict__ tq, const float* __restrict__ gu,
               const float* __restrict__ tabs,
               const float* __restrict__ scal, const int* __restrict__ rowptr,
-              const int* __restrict__ ent, float* __restrict__ out, int nb,
-              int S, int W, int C, int n_pad) {
+              const int* __restrict__ ent, float* __restrict__ scratch,
+              float* __restrict__ out, int nb, int S, int W, int C, int n_pad) {
   using T = Tables<DIM, NL, NQ>;
   constexpr int D2 = DIM * DIM;
-  extern __shared__ float smem[];
-  float* tab = smem;                      // T::kSize tables, then 3 weights
-  float* loc_s = smem + T::kSmem;         // [DIM, C, NL]
+  __shared__ float tab[T::kSmem];         // T::kSize tables, then 3 weights
 
   const int b = blockIdx.x;
   for (int t = threadIdx.x; t < T::kSize; t += blockDim.x) tab[t] = tabs[t];
   for (int t = threadIdx.x; t < 3; t += blockDim.x) tab[T::kSize + t] = scal[t];
 
-  const float* phi = tab + T::kPhi;
-  const float* dphi = tab + T::kDphi;
-  const float* wq = tab + T::kW;
-  const float* mref = tab + T::kMref;
-  const float* kref = tab + T::kKref;
+  // volatile: every use reads shared memory. With the local results in
+  // global memory nothing in the cell loop can alias the tables, and nvcc
+  // then hoists their loop-invariant reads into registers and spills
+  // (~1 KB a thread; scripts/torch_ptxas_report.py), as in winmom3d.cu
+  const volatile float* phi = tab + T::kPhi;
+  const volatile float* dphi = tab + T::kDphi;
+  const volatile float* wq = tab + T::kW;
+  const volatile float* mref = tab + T::kMref;
+  const volatile float* kref = tab + T::kKref;
 
   const long long boff = static_cast<long long>(b) * S;
   const int* lidx_b = lidx + static_cast<long long>(b) * NL * C;
@@ -103,6 +106,7 @@ winmom_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
   const float* tq_b = tq + static_cast<long long>(b) * DIM * NQ * C;
   const int* rp = rowptr + static_cast<long long>(b) * (W + 1);
   const int* en = ent + static_cast<long long>(b) * C * NL;
+  float* loc_g = scratch + static_cast<long long>(b) * DIM * C * NL;  // [DIM, C, NL]
   __syncthreads();
   const float mass_w = tab[T::kSize];
   const float s_rho = tab[T::kSize + 1];
@@ -281,7 +285,7 @@ winmom_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
     for (int m = 0; m < DIM; ++m)
 #pragma unroll
       for (int i = 0; i < NL; ++i)
-        loc_s[(m * C + c) * NL + i] = loc[m][i] * v;
+        loc_g[(static_cast<long long>(m) * C + c) * NL + i] = loc[m][i] * v;
   }
   __syncthreads();
   for (int w = threadIdx.x; w < W; w += blockDim.x) {
@@ -291,7 +295,7 @@ winmom_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
     for (int p = rp[w]; p < rp[w + 1]; ++p) {
       const int e = en[p];
 #pragma unroll
-      for (int m = 0; m < DIM; ++m) acc[m] += loc_s[m * C * NL + e];
+      for (int m = 0; m < DIM; ++m) acc[m] += loc_g[static_cast<long long>(m) * C * NL + e];
     }
 #pragma unroll
     for (int m = 0; m < DIM; ++m)
@@ -299,30 +303,14 @@ winmom_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
   }
 }
 
-// Shared memory of a block: the tables and weights plus the local results
-// of its C cells. A layout that needs more than the device grants one block
-// is refused with cudaErrorInvalidValue.
 template <int DIM, int NL, int NQ, bool NEWTON>
 int launch(const void* x, const void* lidx, const void* valid,
            const void* detj, const void* g4, const void* cg4, const void* tq,
            const void* gu, const void* tabs, const void* scal, const void* rowptr,
-           const void* ent, void* out, int nb, int S, int W, int C,
-           int n_pad, void* stream) {
+           const void* ent, void* scratch, void* out, int nb, int S, int W,
+           int C, int n_pad, void* stream) {
   if (nb <= 0 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int table = Tables<DIM, NL, NQ>::kSmem * static_cast<int>(sizeof(float));
-  const int per_cell = DIM * NL * static_cast<int>(sizeof(float));
-  if (C > (optin - table) / per_cell) return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = table + C * per_cell;
-  err = cudaFuncSetAttribute(winmom_kernel<DIM, NL, NQ, NEWTON>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  winmom_kernel<DIM, NL, NQ, NEWTON><<<nb, kThreads, bytes,
+  winmom_kernel<DIM, NL, NQ, NEWTON><<<nb, kThreads, 0,
                                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const int*>(lidx),
       static_cast<const float*>(valid), static_cast<const float*>(detj),
@@ -330,8 +318,8 @@ int launch(const void* x, const void* lidx, const void* valid,
       static_cast<const float*>(tq), static_cast<const float*>(gu),
       static_cast<const float*>(tabs),
       static_cast<const float*>(scal), static_cast<const int*>(rowptr),
-      static_cast<const int*>(ent), static_cast<float*>(out), nb, S, W, C,
-      n_pad);
+      static_cast<const int*>(ent), static_cast<float*>(scratch),
+      static_cast<float*>(out), nb, S, W, C, n_pad);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -342,11 +330,12 @@ extern "C" int winmom_p2_2d_lagged(const void* x, const void* lidx,
                                    const void* g4, const void* cg4,
                                    const void* tq, const void* tabs,
                                    const void* scal, const void* rowptr,
-                                   const void* ent, void* out, int nb, int S,
-                                   int W, int C, int n_pad, void* stream) {
+                                   const void* ent, void* scratch, void* out,
+                                   int nb, int S, int W, int C, int n_pad,
+                                   void* stream) {
   return launch<2, 6, 7, false>(x, lidx, valid, detj, g4, cg4, tq, nullptr,
-                                tabs, scal, rowptr, ent, out, nb, S, W, C,
-                                n_pad, stream);
+                                tabs, scal, rowptr, ent, scratch, out, nb, S,
+                                W, C, n_pad, stream);
 }
 
 extern "C" int winmom_p2_2d_newton(const void* x, const void* lidx,
@@ -355,9 +344,9 @@ extern "C" int winmom_p2_2d_newton(const void* x, const void* lidx,
                                    const void* tq, const void* gu,
                                    const void* tabs, const void* scal,
                                    const void* rowptr, const void* ent,
-                                   void* out, int nb, int S, int W, int C,
-                                   int n_pad, void* stream) {
+                                   void* scratch, void* out, int nb, int S,
+                                   int W, int C, int n_pad, void* stream) {
   return launch<2, 6, 7, true>(x, lidx, valid, detj, g4, cg4, tq, gu, tabs,
-                               scal, rowptr, ent, out, nb, S, W, C, n_pad,
-                               stream);
+                               scal, rowptr, ent, scratch, out, nb, S, W, C,
+                               n_pad, stream);
 }

@@ -17,9 +17,10 @@
 //
 // Bound: memory bandwidth. Per cell it reads NL indices, DIM^2 geometry
 // factors, a mask and NL window values and does ~100 (2-D P1), ~370 (3-D
-// P1), ~360 (2-D P2) or ~1,900 (3-D P2) flops. The scatter lists, which only this design needs, add one index
-// per (cell, local dof) and one row pointer per window dof on top of the
-// function's own bytes.
+// P1), ~360 (2-D P2) or ~1,900 (3-D P2) flops. The scatter lists and the
+// scratch, which only this design needs, add one index per (cell, local
+// dof), one row pointer per window dof and two floats per local result on
+// top of the function's own bytes.
 //
 // Design: one block per window block b. The Kref table is staged in shared
 // memory. Threads take cells in turn, gather the NL window values (the
@@ -27,15 +28,11 @@
 // gathers hit L1/L2), and write the NL local results. Then the block sums
 // them into its window along the host-built scatter lists, in a fixed order
 // and with no atomics (scatter_window, csrc/winscatter.cuh, as in
-// winmass.cu and winform.cu). Where the local results live:
-// - 2-D P1: all C cells of a block in shared memory at once (12 B each,
-//   with S <= 4096 far below the opt-in limit of ~19,000 cells); the
-//   launcher refuses a layout whose C does not fit;
-// - 3-D P1 and P2 (both dims): a device scratch [nb, C*NL] that the wrapper
-//   allocates, so any C fits (C = 23,958 at the cavity's N=64, 383 KB a
-//   block); __syncthreads() makes the block's global writes visible to the
-//   block before the sums. The 3-D layouts have few blocks (68 at N=64),
-//   so a 3-D block has 1,024 threads; a 2-D P2 block 256.
+// winmass.cu and winform.cu). The local results live in a device scratch
+// [nb, C*NL] that the wrapper allocates, so any C fits (C = 23,958 at the
+// cavity's N=64, 383 KB a block); __syncthreads() makes the block's global
+// writes visible to the block before the sums. The 3-D layouts have few
+// blocks (68 at N=64), so a 3-D block has 1,024 threads; a 2-D block 256.
 //
 // Plain C interface (loaded with ctypes): the entry launches on the given
 // stream and returns the cudaError_t of the launch (0 on success).
@@ -47,7 +44,7 @@
 
 namespace {
 
-template <int DIM, int NL, int THREADS, bool SCRATCH>
+template <int DIM, int NL, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 winstiff_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
                 const float* __restrict__ valid, const float* __restrict__ cg,
@@ -61,14 +58,13 @@ winstiff_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
   // otherwise the compiler hoists them out of the cell loop and spills them
   // to local memory; the 2-D P1 table (36 floats) stays in registers
   using KrefPtr = std::conditional_t<(KT > 64), const volatile float*, const float*>;
-  extern __shared__ float smem[];
-  float* kref_s = smem;  // [D2*NL, NL]
+  __shared__ float kref_s[KT];  // [D2*NL, NL]
 
   const int b = blockIdx.x;
   for (int t = threadIdx.x; t < KT; t += blockDim.x) kref_s[t] = kref[t];
 
-  // [C, NL] local results: shared memory, or the block's rows of scratch
-  float* loc_s = SCRATCH ? scratch + static_cast<long long>(b) * C * NL : smem + KT;
+  // [C, NL] local results: the block's rows of the scratch
+  float* loc_s = scratch + static_cast<long long>(b) * C * NL;
   const float* xw = x + static_cast<long long>(b) * S;
   const int* lidx_b = lidx + static_cast<long long>(b) * NL * C;
   const float* valid_b = valid + static_cast<long long>(b) * C;
@@ -104,33 +100,14 @@ winstiff_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
   scatter_window(loc_s, rp, en, out_b, W);
 }
 
-// Shared memory of a block: the Kref table, plus in the shared variant the
-// local results of its C cells; a layout that needs more than the device
-// grants one block is refused with cudaErrorInvalidValue.
-template <int DIM, int NL, int THREADS, bool SCRATCH>
+template <int DIM, int NL, int THREADS>
 int launch(const void* x, const void* lidx, const void* valid, const void* cg,
            const void* kref, const void* rowptr, const void* ent,
            void* scratch, void* out, int nb, int S, int W, int C,
            void* stream) {
   if (nb <= 0 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int table = DIM * DIM * NL * NL * static_cast<int>(sizeof(float));
-  int bytes = table;
-  if (!SCRATCH) {
-    int dev = 0, optin = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                 dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int per_cell = NL * static_cast<int>(sizeof(float));
-    if (C > (optin - table) / per_cell) return static_cast<int>(cudaErrorInvalidValue);
-    bytes = table + C * per_cell;
-    err = cudaFuncSetAttribute(winstiff_kernel<DIM, NL, THREADS, SCRATCH>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  winstiff_kernel<DIM, NL, THREADS, SCRATCH>
-      <<<nb, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+  winstiff_kernel<DIM, NL, THREADS>
+      <<<nb, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const float*>(x), static_cast<const int*>(lidx),
           static_cast<const float*>(valid), static_cast<const float*>(cg),
           static_cast<const float*>(kref), static_cast<const int*>(rowptr),
@@ -144,10 +121,10 @@ int launch(const void* x, const void* lidx, const void* valid, const void* cg,
 extern "C" int winstiff_p1_2d(const void* x, const void* lidx,
                               const void* valid, const void* cg,
                               const void* kref, const void* rowptr,
-                              const void* ent, void* out, int nb, int S, int W,
-                              int C, void* stream) {
-  return launch<2, 3, 256, false>(x, lidx, valid, cg, kref, rowptr, ent,
-                                   nullptr, out, nb, S, W, C, stream);
+                              const void* ent, void* scratch, void* out,
+                              int nb, int S, int W, int C, void* stream) {
+  return launch<2, 3, 256>(x, lidx, valid, cg, kref, rowptr, ent, scratch,
+                           out, nb, S, W, C, stream);
 }
 
 extern "C" int winstiff_p1_3d(const void* x, const void* lidx,
@@ -155,7 +132,7 @@ extern "C" int winstiff_p1_3d(const void* x, const void* lidx,
                               const void* kref, const void* rowptr,
                               const void* ent, void* scratch, void* out,
                               int nb, int S, int W, int C, void* stream) {
-  return launch<3, 4, 1024, true>(x, lidx, valid, cg, kref, rowptr, ent,
+  return launch<3, 4, 1024>(x, lidx, valid, cg, kref, rowptr, ent,
                                    scratch, out, nb, S, W, C, stream);
 }
 
@@ -164,7 +141,7 @@ extern "C" int winstiff_p2_2d(const void* x, const void* lidx,
                               const void* kref, const void* rowptr,
                               const void* ent, void* scratch, void* out,
                               int nb, int S, int W, int C, void* stream) {
-  return launch<2, 6, 256, true>(x, lidx, valid, cg, kref, rowptr, ent,
+  return launch<2, 6, 256>(x, lidx, valid, cg, kref, rowptr, ent,
                                   scratch, out, nb, S, W, C, stream);
 }
 
@@ -173,6 +150,6 @@ extern "C" int winstiff_p2_3d(const void* x, const void* lidx,
                               const void* kref, const void* rowptr,
                               const void* ent, void* scratch, void* out,
                               int nb, int S, int W, int C, void* stream) {
-  return launch<3, 10, 1024, true>(x, lidx, valid, cg, kref, rowptr, ent,
+  return launch<3, 10, 1024>(x, lidx, valid, cg, kref, rowptr, ent,
                                     scratch, out, nb, S, W, C, stream);
 }

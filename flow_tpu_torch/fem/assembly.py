@@ -197,29 +197,47 @@ def ref_mixed(deg_test, deg_trial, dim=2):
 # ---------------------------------------------------------------------------
 # Exact constant-coefficient operators (applies + diagonals), host numpy
 # ---------------------------------------------------------------------------
-def stiffness_apply(space: FunctionSpace, geom: Geometry, U):
-    """y = K U with K_ij = int grad(phi_i).grad(phi_j): host numpy, or
-    torch on U's device for a tensor U (geom then a geometry_on view)."""
+def _scaled(factor, coeff):
+    """A per-cell geometry factor times coeff (None, a constant or per-cell
+    [nc]), broadcast over the factor's trailing axes."""
+    if coeff is None:
+        return factor
+    if isinstance(factor, torch.Tensor):
+        coeff = torch.as_tensor(coeff, dtype=factor.dtype, device=factor.device)
+        return factor * coeff.reshape(coeff.shape + (1,) * (factor.dim() - coeff.dim()))
+    coeff = np.asarray(coeff, dtype=np.float64)
+    return factor * coeff.reshape(coeff.shape + (1,) * (factor.ndim - coeff.ndim))
+
+
+def stiffness_apply(space: FunctionSpace, geom: Geometry, U, coeff=None):
+    """y = K U with K_ij = int c grad(phi_i).grad(phi_j), c = coeff (None:
+    1, a constant or per-cell [nc]), for scalar U [n] or vector U [n, m]:
+    host numpy, or torch on U's device for a tensor U (geom then a
+    geometry_on view)."""
     Kref = ref_stiffness(space.degree, _dim(space))
+    C = _scaled(geom.C, coeff)
     if isinstance(U, torch.Tensor):
         Kt = torch.as_tensor(Kref, dtype=U.dtype, device=U.device)
         eq = "ekl,klij,ej->ei" if U.dim() == 1 else "ekl,klij,ejm->eim"
-        return space.dof_sum(torch.einsum(eq, geom.C, Kt, space.gather(U)))
+        return space.dof_sum(torch.einsum(eq, C, Kt, space.gather(U)))
     Uloc = space.gather(np.asarray(U, dtype=np.float64))
     if Uloc.ndim == 2:
-        loc = np.einsum("ekl,klij,ej->ei", geom.C, Kref, Uloc)
+        loc = np.einsum("ekl,klij,ej->ei", C, Kref, Uloc)
     else:
-        loc = np.einsum("ekl,klij,ejm->eim", geom.C, Kref, Uloc)
+        loc = np.einsum("ekl,klij,ejm->eim", C, Kref, Uloc)
     return space.dof_sum(loc)
 
 
-def mass_apply(space: FunctionSpace, geom, U):
-    """y = M U with M_ij = int phi_i phi_j for a scalar tensor U [n], on
-    U's device (geom a geometry_on view): the window mass kernel's
-    reference."""
+def mass_apply(space: FunctionSpace, geom, U, coeff=None):
+    """y = M U with M_ij = int c phi_i phi_j, c = coeff (None: 1, a constant
+    or per-cell [nc]), for a scalar tensor U [n] or a vector one [n, m], on
+    U's device (geom a geometry_on view): the window mass kernel's reference
+    and the velocity correction's operator."""
     Mref = torch.as_tensor(ref_mass(space.degree, _dim(space)), dtype=U.dtype,
                            device=U.device)
-    return space.dof_sum(torch.einsum("ij,ej,e->ei", Mref, space.gather(U), geom.detJ))
+    scale = _scaled(geom.detJ, coeff)
+    eq = "ij,ej,e->ei" if U.dim() == 1 else "ij,ejm,e->eim"
+    return space.dof_sum(torch.einsum(eq, Mref, space.gather(U), scale))
 
 
 def mass_diag(space, geom):
@@ -271,10 +289,12 @@ def integrate_rhs(space, tab, geom, val=None, grad=None):
     return space.dof_sum(loc)
 
 
-def stiffness_local(space, geom):
-    """Explicit element stiffness matrices [nc, nl, nl]."""
+def stiffness_local(space, geom, coeff=None):
+    """Explicit element stiffness matrices [nc, nl, nl] of
+    int c grad(phi_i).grad(phi_j), c = coeff (None: 1, a constant or
+    per-cell [nc])."""
     Kref = ref_stiffness(space.degree, _dim(space))
-    return np.einsum("ekl,klij->eij", geom.C, Kref)
+    return np.einsum("ekl,klij->eij", _scaled(geom.C, coeff), Kref)
 
 
 # ---------------------------------------------------------------------------

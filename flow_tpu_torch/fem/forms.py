@@ -1,7 +1,7 @@
 # Weak-form operators of the incompressible-flow forms. Port of
-# flow_tpu/fem/forms.py, cut to what the window routes (2-D Karman, 3-D
-# cavity) call (forms.py:59-222 of the JAX package); every form takes
-# triangles and tets alike.
+# flow_tpu/fem/forms.py, cut to what FastStepper's window and einsum routes
+# (2-D Karman, 3-D cavity) call (forms.py:59-298 of the JAX package); every
+# form takes triangles and tets alike.
 #
 # Torch on the state's device: `geom` is an assembly.geometry_on view
 # (detJ, G, C tensors), tabulations come from assembly.Tab.on. Vector fields
@@ -21,6 +21,10 @@ __all__ = [
     "sym_grad_loc",
     "pressure_grad_loc",
     "skew_convection_lagged_loc",
+    "skew_convection_tangent_loc",
+    "stiffness_scalar_loc",
+    "sym_grad_transpose_loc",
+    "conv_lagged_jacobian_loc",
     "div_rhs",
     "grad_div_ustar",
     "grad_div_ustar_rhs",
@@ -95,6 +99,57 @@ def skew_convection_lagged_loc(V, geom, Tloc, Uloc, rule_degree=5):
     loc = torch.einsum("eqm,eq,qi->eim", val, wd, tab.phi)
     loc = loc + torch.einsum("eqmd,eq,qik,edk->eim", grad, wd, tab.dphi, geom.G)
     return loc
+
+
+def skew_convection_tangent_loc(V, geom, Vloc, Xq, gradX, rule_degree=5):
+    """Directional derivative at x of the skew convection c(x; x) in the
+    direction v: c(x; v) + c(v; x), from x's values Xq [nc, nq, dim] and
+    physical gradients gradX [nc, nq, dim, dim] at the quadrature points
+    (the tangent of the Newton residual's convection)."""
+    tab = assembly.tabulation(V, rule_degree).on(Vloc.dtype, Vloc.device)
+    Vq = assembly.values_at_qp(tab, Vloc)  # [e,q,a]
+    gradV = assembly.grads_at_qp(tab, geom, Vloc)  # [e,q,a,d]
+    val = 0.5 * (torch.einsum("eqd,eqad->eqa", Xq, gradV)
+                 + torch.einsum("eqd,eqad->eqa", Vq, gradX))
+    grad = -0.5 * (torch.einsum("eqd,eqa->eqad", Xq, Vq)
+                   + torch.einsum("eqd,eqa->eqad", Vq, Xq))
+    wd = tab.w[None, :] * geom.detJ[:, None]
+    loc = torch.einsum("eqm,eq,qi->eim", val, wd, tab.phi)
+    loc = loc + torch.einsum("eqmd,eq,qik,edk->eim", grad, wd, tab.dphi, geom.G)
+    return loc
+
+
+def stiffness_scalar_loc(V, geom):
+    """The component-diagonal scalar element tensor of the stress form,
+    Kscal[e, i, j] = C[e, k, l] Kref[k, l, i, j]: the grad(u):grad(v) half
+    of 2 eps(u):eps(v) as a per-cell [nl, nl] matrix (exact, affine
+    geometry), in geom's dtype on its device. The transpose half couples
+    components and stays factored (sym_grad_transpose_loc)."""
+    return torch.einsum("ekl,klij->eij", geom.C, _Kref(V, geom.C))
+
+
+def sym_grad_transpose_loc(V, geom, Xloc):
+    """loc[e,i,a] = detJ[e] G[e,a,k] G[e,b,l] Kref[k,l,j,i] X[e,j,b]: the
+    component-coupling grad(u)^T:grad(v) half of the stress form, through
+    its factored reference tensor."""
+    w = torch.einsum("ebl,ejb->elj", geom.G, Xloc)
+    u = torch.einsum("klji,elj->eki", _Kref(V, Xloc), w)
+    return torch.einsum("e,eak,eki->eia", geom.detJ, geom.G, u)
+
+
+def conv_lagged_jacobian_loc(V, geom, Tloc, rule_degree=5):
+    """Element Jacobian of skew_convection_lagged_loc with respect to the
+    velocity dofs at the transport T, frozen: the component-diagonal scalar
+    [nc, nl, nl]
+
+        J[e, i, j] = 0.5 int [ phi_i (T.grad phi_j) - phi_j (T.grad phi_i) ].
+    """
+    tab = assembly.tabulation(V, rule_degree).on(Tloc.dtype, Tloc.device)
+    Tq = assembly.values_at_qp(tab, Tloc)  # [e,q,d]
+    wd = tab.w[None, :] * geom.detJ[:, None]
+    A = torch.einsum("eqd,qmk,edk->eqm", Tq, tab.dphi, geom.G)  # T.grad phi_m
+    s = torch.einsum("eq,qi,eqj->eij", wd, tab.phi, A)
+    return 0.5 * (s - s.transpose(1, 2))
 
 
 def div_rhs(V, Q, geom, U):

@@ -1,8 +1,8 @@
 # 3-D lid-driven cavity on a structured box: the pure Navier-Stokes
-# throughput workload of the box path and of the 3-D window route. Port of
-# flow_tpu/models/cavity3d.py: Cavity3DProblem, and run_cavity3d_fast on
-# FastStepper's window-kernel route with the structured multigrid as the
-# pressure preconditioner.
+# throughput workload of the box path and of FastStepper's 3-D routes. Port
+# of flow_tpu/models/cavity3d.py: Cavity3DProblem, and run_cavity3d_fast on
+# FastStepper's einsum route (the JAX driver's) or its window-kernel route,
+# with the structured multigrid as the pressure preconditioner.
 from __future__ import annotations
 
 import time
@@ -52,6 +52,7 @@ def run_cavity3d_fast(
     use_structured_mg=True,
     winkernel=False,
     winkernel_S=None,
+    tangent_mode="linearize",
     chunk_size=None,
     lmax=None,
     device=None,
@@ -62,8 +63,11 @@ def run_cavity3d_fast(
     pressure_rtol 1e-4, correction 1e-5, CFL 1 with dt_max 0.1), the
     pure-Neumann pressure preconditioned by StructuredHierarchy's V-cycle.
 
-    winkernel=True is the window-kernel route, the only one ported
-    (winkernel_S pins the velocity window stride). `device` and `dtype` are
+    winkernel=False is the einsum route, the JAX driver's: the pressure
+    operator is the assembled ELL stiffness, and tangent_mode sets the
+    Newton tangent's storage ("linearize" or "jvp", FastStepper).
+    winkernel=True is the window-kernel route (winkernel_S pins the
+    velocity window stride). `device` and `dtype` are
     the problem's (defaults: the card, torch's default dtype). The steps
     run in chunks of `chunk_size` (default: one chunk), each ending in a
     copy of its telemetry to the host. lmax: the hierarchy's per-level
@@ -72,15 +76,9 @@ def run_cavity3d_fast(
 
     Returns the state as tensors (U [n_V, 3], P [n_Q]), the last dt, the
     telemetry as numpy arrays, the host seconds of setup (with the window
-    layouts' share) and of each chunk."""
+    layouts' share, 0 on the einsum route) and of each chunk."""
     from ..navier_stokes.fast import FastStepper
 
-    if not winkernel:
-        raise NotImplementedError(
-            "run_cavity3d_fast: only the window-kernel route (winkernel=True) "
-            "is ported; the einsum route is not (ROADMAP queue 1 item 7: "
-            "navier_stokes/fast.py)"
-        )
     t0 = time.perf_counter()
     prob = Cavity3DProblem(n=n, mu=mu, dtype=dtype, device=device)
     stepper = FastStepper(
@@ -88,7 +86,7 @@ def run_cavity3d_fast(
         rotational_form=True, newton_tol=0.0, newton_rtol=newton_rtol,
         newton_maxiter=3, linear_rtol=1.0e-4, pressure_rtol=pressure_rtol,
         correction_rtol=1.0e-5, cfl_target=1.0, dt_max=0.1,
-        winkernel=winkernel, winkernel_S=winkernel_S,
+        winkernel=winkernel, winkernel_S=winkernel_S, tangent_mode=tangent_mode,
     )
     if use_structured_mg:
         from ..solvers.structured_mg import StructuredHierarchy
@@ -124,6 +122,7 @@ def run_cavity3d_fast(
         "dt": float(dt),
         "telemetry": telemetry,
         "setup_seconds": setup,
-        "layout_seconds": stepper.winmom.layout_seconds + stepper.K_Q.layout_seconds,
+        "layout_seconds": (stepper.winmom.layout_seconds + stepper.K_Q.layout_seconds
+                           if winkernel else 0.0),
         "chunk_seconds": chunk_seconds,
     }

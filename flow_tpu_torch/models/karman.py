@@ -3,9 +3,9 @@
 # flow_tpu/models/karman.py: KarmanProblem (the geometry, the refine_uniform
 # mesh hierarchy for multigrid, the P2/P1 spaces, the boundary conditions,
 # the drag/lift probes), schafer_turek_problem, strouhal_number and the
-# high-throughput driver run_karman_fast on FastStepper's window route. The
-# Stokes bootstrap, the host-stepped run_karman and the packed backend are
-# not ported.
+# high-throughput driver run_karman_fast on FastStepper's einsum route (the
+# JAX driver's) or its window route. The Stokes bootstrap, the host-stepped
+# run_karman and the packed backend are not ported.
 from __future__ import annotations
 
 import os
@@ -219,6 +219,8 @@ def run_karman_fast(
     backend="fast",
     winkernel=False,
     winkernel_S=None,
+    tangent_mode="linearize",
+    lmax=None,
     device=None,
     dtype=None,
 ):
@@ -229,8 +231,14 @@ def run_karman_fast(
     every chunk; resume=True continues from it. The checkpoint is the JAX
     package's npz format, so a JAX-written one resumes here.
 
-    The route is FastStepper's (winkernel=True: the window-kernel route, the
-    only one ported; winkernel_S pins the window stride). `device` and
+    The route is FastStepper's. The default, winkernel=False, is the einsum
+    route with the assembled-ELL pressure operator, which is what the JAX
+    driver runs (it never sets FLOW_WINKERNEL), so the two drivers take the
+    same steps; winkernel=True is the window-kernel route (winkernel_S pins
+    the window stride). tangent_mode is the einsum Newton tangent's
+    ("linearize" or "jvp", FastStepper). lmax: the multigrid hierarchy's
+    per-level lambda_max (coarse to fine), e.g. the JAX package's, instead
+    of the power iteration's estimate. `device` and
     `dtype` are those of the problem built here (defaults: the card,
     torch's default dtype); a given `problem` brings its own. Pass
     problem= (e.g. schafer_turek_problem(...)) for another channel.
@@ -269,13 +277,20 @@ def run_karman_fast(
         ew_forcing=ew_forcing, pressure_rtol=pressure_rtol,
         correction_rtol=correction_rtol, cfl_target=cfl_target, dt_max=dt_max,
         forces_probe=forces_probe, winkernel=winkernel, winkernel_S=winkernel_S,
+        tangent_mode=tangent_mode,
     )
     if use_multigrid and n_refine > 0:
         from ..solvers.multigrid import P1Hierarchy
 
+        # every level ELL on the einsum route; the window route's finest
+        # level reuses the pressure operator
         hier = P1Hierarchy(problem.mesh_hierarchy, bc_mask=stepper.mask_p,
                            smoother_degree=3, winkernel=winkernel,
-                           fine_window=stepper.K_Q)
+                           fine_window=stepper.K_Q if winkernel else None)
+        if lmax is not None:
+            from ..interop import load_hierarchy_lmax
+
+            load_hierarchy_lmax(hier, lmax)
         stepper.pressure_precond = hier.v_cycle
 
     if initial_state is not None:

@@ -1,24 +1,38 @@
 # The projection stepper of the Karman benchmark path and of the 3-D cavity
-# driver on the window-kernel route, on triangles or tets. Port of
-# flow_tpu/navier_stokes/fast.py::FastStepper, cut to the route that runs
-# the window kernels (the JAX package's FLOW_WINKERNEL=1, BiCGStab momentum,
-# packed=False; the JAX stepper never packs in 3-D):
+# driver, on triangles or tets. Port of
+# flow_tpu/navier_stokes/fast.py::FastStepper, cut to two routes (BiCGStab
+# momentum, packed=False; the JAX stepper never packs in 3-D):
 #
-#   1. tentative velocity, in the window layout's permuted row order:
+# - the einsum route (winkernel=False, the JAX package's default):
+#   1. tentative velocity:
 #      - Newton (the default): a Newton loop on the nonlinear residual; each
 #        iteration solves with BiCGStab whose matvec is the exact tangent,
-#        the window momentum kernel in Newton mode (attic/winmom.py, K3 with
-#        the reaction term) plus the exact tangents of the O(surface)
-#        ds-terms;
-#      - lagged: the transport frozen at the initial guess, so the residual
-#        is affine and one BiCGStab solve (K3, lagged) is the step;
-#   2. pressure Poisson in increment form: CG on the window stiffness
-#      operator (attic/winkernel.py, K4b) preconditioned by the caller's
-#      V-cycle (solvers/multigrid.P1Hierarchy in 2-D,
-#      solvers/structured_mg.StructuredHierarchy on a box mesh), or, without
-#      one, Jacobi CG on the exact stiffness (NSContext.pressure_solve);
+#        written out (mass, c(x; v) + c(v; x), stress, ds-terms) in place of
+#        jax.linearize / jax.jvp: tangent_mode="linearize" keeps x's
+#        quadrature-point values and gradients for the whole iteration,
+#        "jvp" recomputes them in every matvec (no storage);
+#      - lagged: the transport frozen at the initial guess; one BiCGStab
+#        solve whose matvec is the element-matrix (EMA) tangent, a scalar
+#        [nc, nl, nl] tensor (mass + viscous + lagged convection) built once
+#        per step plus the factored stress coupling and the ds-terms;
+#   2. pressure Poisson in increment form: CG on the assembled ELL
+#      stiffness (fem/ell.py, the P1/P2 kernels of csrc/ell.cu on the card);
+#   3. velocity correction, Jacobi CG on the consistent vector mass;
+# - the window-kernel route (winkernel=True, the JAX package's
+#   FLOW_WINKERNEL=1):
+#   1. tentative velocity in the window layout's permuted row order, Newton
+#      with the window momentum kernel in Newton mode as the tangent
+#      (attic/winmom.py, K3 with the reaction term) plus the exact tangents
+#      of the O(surface) ds-terms, or lagged with K3 lagged;
+#   2. pressure Poisson on the window stiffness operator (attic/winkernel.py,
+#      K4b);
 #   3. velocity correction, CG on the consistent mass through the window
 #      momentum kernel with zero convection and stress weights.
+#
+# The pressure solve on either route is preconditioned by the caller's
+# V-cycle (solvers/multigrid.P1Hierarchy in 2-D,
+# solvers/structured_mg.StructuredHierarchy on a box mesh), or, without one,
+# is Jacobi CG on the exact stiffness (NSContext.pressure_solve).
 #
 # Time schemes: backward Euler, Crank-Nicolson and variable-step BDF2, which
 # runs as a backward-Euler step from u_hat = ((1+r)^2 u_n - r^2 u_{n-1}) /
@@ -35,21 +49,24 @@ from __future__ import annotations
 
 import torch
 
-from ..fem import forms
+from ..fem import assembly, forms
 from ..fem.bc import combine_bcs
 from ..mesh3d import _device
 from ..solvers import krylov
 from .boxfast import StepStats
-from .pressure_correction import NSContext
+from .pressure_correction import CONV_RULE, NSContext
 
 __all__ = ["FastStepper"]
 
-_TODO = "not ported (ROADMAP queue 1 item 7: navier_stokes/fast.py)"
+_TODO = "not ported (ROADMAP queue 1 item 5: navier_stokes/fast.py)"
 _THETA = {
     "backward euler": (0.0, 1.0),
     "bdf2": (0.0, 1.0),
     "crank-nicolson": (0.5, 0.5),
 }
+# 2 n_V + n_Q from which the JAX stepper's packed="auto" takes the
+# lane-packed layout in 2-D (flow_tpu/navier_stokes/fast.py:420-451)
+PACKED_MIN_DOFS = 3000000
 
 
 class FastStepper:
@@ -66,7 +83,13 @@ class FastStepper:
     StructuredHierarchy.v_cycle on a box mesh) before stepping, or leave it
     None for Jacobi CG. forces_probe: a callable (U1, P1) -> [2], or with
     needs_history (U1, P1, U0, dt) -> [2] (navier_stokes/forces.py), whose
-    values run() reports as telemetry["forces"].
+    values run() reports as telemetry["forces"]. winkernel selects the
+    route (module header); K_Q is the pressure operator, an ELLMatrix on the
+    einsum route and a WindowStiffnessOperator on the window route.
+    tangent_mode ("linearize" or "jvp", the JAX package's
+    FLOW_TANGENT_MODE) sets whether the einsum Newton tangent keeps the
+    state's quadrature-point tables for a Newton iteration or recomputes
+    them in every matvec.
     """
 
     def __init__(
@@ -91,34 +114,50 @@ class FastStepper:
         cfl_target=1.0,
         dt_max=1.0,
         forces_probe=None,
+        assembled_jacobian="auto",
+        momentum_precond=None,
         packed="auto",
         convection="newton",
         momentum_solver="bicgstab",
         winkernel=False,
         winkernel_S=None,
+        tangent_mode="linearize",
         device=None,
         dtype=None,
     ):
-        if not winkernel:
-            raise NotImplementedError(
-                f"FastStepper: only the window-kernel route (winkernel=True) "
-                f"is ported; the einsum, element-matrix and assembled-ELL "
-                f"momentum routes are {_TODO}"
-            )
         if convection not in ("newton", "lagged"):
             raise ValueError(f"FastStepper: unknown convection {convection!r}")
+        if tangent_mode not in ("linearize", "jvp"):
+            raise ValueError(f"FastStepper: unknown tangent_mode {tangent_mode!r}")
         if time_step_method not in _THETA:
             raise NotImplementedError(
                 f"FastStepper: time_step_method {time_step_method!r} is {_TODO}"
             )
         if momentum_solver != "bicgstab":
             raise NotImplementedError(f"FastStepper: GMRES momentum is {_TODO}")
-        if packed is True:
+        if assembled_jacobian not in ("auto", False):
             raise NotImplementedError(
-                "FastStepper: the lane-packed layout is not ported (ROADMAP "
-                "queue 1 item 7: fem/packed.py)"
+                f"FastStepper: the assembled-ELL momentum Jacobian is {_TODO}"
+            )
+        if momentum_precond is not None:
+            raise NotImplementedError(
+                f"FastStepper: the vertex momentum preconditioner is {_TODO}"
             )
         mesh = V.mesh
+        # packed="auto" as the JAX stepper resolves it: the lane-packed
+        # layout for 2-D Taylor-Hood from PACKED_MIN_DOFS, never with the
+        # window kernels
+        can_pack = getattr(mesh, "dim", 2) == 2 and V.degree == 2 and Q.degree == 1
+        if packed is True and not can_pack:
+            raise ValueError("FastStepper: packed mode unavailable for this "
+                             "configuration")
+        big = (2 * V.n_dofs + Q.n_dofs >= PACKED_MIN_DOFS) and not winkernel
+        if (can_pack and big) if packed == "auto" else packed:
+            raise NotImplementedError(
+                "FastStepper: the lane-packed layout (packed=True, or "
+                f"packed='auto' from {PACKED_MIN_DOFS} DoF on the einsum route) "
+                "is not ported (ROADMAP queue 1 item 5: fem/packed.py)"
+            )
         self.V, self.Q = V, Q
         self.device = mesh.device if device is None else _device(device)
         self.dtype = dtype = mesh.dtype if dtype is None else dtype
@@ -141,6 +180,8 @@ class FastStepper:
         self.dt_max = dt_max
         self.forces_probe = forces_probe
         self.hmax = mesh.hmax
+        self.winkernel = winkernel
+        self.tangent_mode = tangent_mode
 
         self.ctx = ctx = NSContext(V, Q, dtype, self.device)
 
@@ -156,6 +197,18 @@ class FastStepper:
         else:
             self.mask_p = torch.zeros(Q.n_dofs, dtype=dtype, device=self.device)
             self.val_p = self.mask_p
+
+        if not winkernel:
+            from ..fem.ell import ell_stiffness
+
+            self.K_Q = ell_stiffness(Q, assembly.geometry(mesh), dtype=dtype,
+                                     device=self.device)
+            if self.lagged:
+                # EMA tables: the constant scalar stiffness tensor and the
+                # reference mass matrix
+                self._ema_kscal = forms.stiffness_scalar_loc(V, ctx.geom)
+                self._ema_mref = dev(assembly.ref_mass(V.degree, assembly._dim(V)))
+            return
 
         from ..attic.winkernel import WindowStiffnessOperator
         from ..attic.winmom import WindowLaggedMomentum
@@ -196,7 +249,7 @@ class FastStepper:
         # second-order extrapolated initial guess
         return self._step_impl(uhat, P, dt_eff, x0=(1.0 + r) * U - r * Um1)
 
-    # -- substep 1: tentative velocity, window route ---------------------------
+    # -- substep 1: tentative velocity -----------------------------------------
     def _step_impl(self, U, P, dt, x0=None):
         ctx = self.ctx
         rho, mu = self.rho, self.mu
@@ -211,77 +264,180 @@ class FastStepper:
             r = ctx.residual(x, U, P, rho, mu, dt, self.theta, transport)
             return free * r + mask * (x - val)
 
+        if self.winkernel:
+            solve_lagged, solve_newton = self._window_solves(s, diag)
+        else:
+            solve_lagged, solve_newton = self._einsum_solves(dt, diag)
+        if self.lagged:
+            # transport with x0 (u^n for the theta methods, the BDF2
+            # extrapolation): the residual is affine in x, so one linear
+            # solve to the Newton target is the step
+            dx, sinfo = solve_lagged(x0, res_bc(x0, transport=x0))
+            Ui = x0 + dx
+            niters, nres, lin, mconv = 1, sinfo.resnorm, sinfo.iters, sinfo.converged
+        else:
+            Ui, niters, nres, lin, mconv = self._newton(res_bc, x0, solve_newton)
+        P1, pinfo = self._pressure_solve(Ui, P, dt)
+        if self.winkernel:
+            U1, cinfo = self._correction(Ui, P1, P, dt)
+        else:
+            U1, cinfo = ctx.velocity_correction(
+                Ui, P1, P, rho, mu, dt, mask, val, self.correction_rtol,
+                rotational=self.rotational,
+            )
+        stats = StepStats(niters, nres, lin, pinfo.iters, cinfo.iters,
+                          pinfo.converged, cinfo.converged, mconv)
+        return U1, P1, stats
+
+    def _bicgstab(self, Jv, b, M, rtol):
+        return krylov.bicgstab(Jv, b, M=M, rtol=rtol,
+                               atol=0.05 * self.newton_tol, maxiter=300)
+
+    def _bnd_tangent(self, x, vtab=None):
+        """v -> the dof-level tangent at x of the x-dependent ds-terms: the
+        stress term mu (grad v)^T n is linear; the do-nothing term
+        -(rho/2)(T.n)+ v is linear with T = x frozen (lagged), and
+        differentiates into -(rho/2)[(x.n)+ v + H(x.n)(v.n) x] with T = x
+        (Newton). x is in the spaces' numbering; v is read through the
+        facet tables vtab (default: the context's; the window route passes
+        its permuted ones, so v and the result are in permuted rows)."""
+        bt, rho, mu = self.ctx.btab, self.rho, self.mu
+        vtab = bt if vtab is None else vtab
+        tb = bt.values(x)
+        tn = torch.einsum("bqm,bm->bq", tb, bt.normals)
+        tnp = torch.clamp(tn, min=0.0)
+        pos = None if self.lagged else (tn > 0.0).to(tb.dtype)
+
+        def bnd(v):
+            val_b = mu * torch.einsum("bqma,bm->bqa", vtab.grads(v), bt.normals)
+            wb = vtab.values(v)
+            t = tnp[:, :, None] * wb
+            if pos is not None:
+                wn = torch.einsum("bqm,bm->bq", wb, bt.normals)
+                t = t + (pos * wn)[:, :, None] * tb
+            return vtab.integrate_rhs(val_b - 0.5 * rho * t)
+
+        return bnd
+
+    def _ema_S(self, x0, dt):
+        """The lagged tangent's scalar element tensor [nc, nl, nl] at the
+        frozen transport x0: mass + viscous (component-diagonal half) +
+        lagged skew convection, built once per step."""
+        V, geom = self.V, self.ctx.geom
+        s = (dt / self.rho) * self.theta[1]
+        conv = forms.conv_lagged_jacobian_loc(V, geom, V.gather(x0),
+                                              rule_degree=CONV_RULE)
+        return (geom.detJ[:, None, None] * self._ema_mref
+                + (s * self.mu) * self._ema_kscal + (s * self.rho) * conv)
+
+    def _ema_Jv(self, S, x0, dt):
+        """The lagged residual's tangent v -> J v (BC rows included) through
+        the element matrices S (_ema_S): one gather, one [nl, nl] product per
+        cell, the factored stress coupling, one dof sum, and the ds-term
+        tangents with the transport x0."""
+        V, geom, mu = self.V, self.ctx.geom, self.mu
+        mask, free = self.mask_u, 1.0 - self.mask_u
+        s = (dt / self.rho) * self.theta[1]
+        bnd = self._bnd_tangent(x0)
+
+        def Jv(v):
+            vloc = V.gather(v)
+            loc = torch.einsum("eij,eja->eia", S, vloc)
+            loc = loc + (s * mu) * forms.sym_grad_transpose_loc(V, geom, vloc)
+            av = V.dof_sum(loc) - s * bnd(v)
+            return free * av + mask * v
+
+        return Jv
+
+    def _newton_Jv(self, x, dt):
+        """The Newton residual's exact tangent at x, v -> J v (BC rows
+        included): mass + s [rho (c(x; v) + c(v; x)) + stress] minus the
+        ds-term tangents. tangent_mode "linearize" keeps x's quadrature-point
+        values and gradients for every matvec; "jvp" recomputes them."""
+        V, geom, rho, mu = self.V, self.ctx.geom, self.rho, self.mu
+        mask, free = self.mask_u, 1.0 - self.mask_u
+        s = (dt / rho) * self.theta[1]
+        bnd = self._bnd_tangent(x)
+        tab = assembly.tabulation(V, CONV_RULE).on(x.dtype, x.device)
+
+        def state_qp():
+            xloc = V.gather(x)
+            return (assembly.values_at_qp(tab, xloc),
+                    assembly.grads_at_qp(tab, geom, xloc))
+
+        cached = state_qp() if self.tangent_mode == "linearize" else None
+
+        def Jv(v):
+            Xq, gX = state_qp() if cached is None else cached
+            vloc = V.gather(v)
+            conv = forms.skew_convection_tangent_loc(V, geom, vloc, Xq, gX,
+                                                     rule_degree=CONV_RULE)
+            loc = forms.mass_loc(V, geom, vloc)
+            loc = loc + s * (rho * conv + forms.sym_grad_loc(V, geom, vloc, mu))
+            av = V.dof_sum(loc) - s * bnd(v)
+            return free * av + mask * v
+
+        return Jv
+
+    def _einsum_solves(self, dt, diag):
+        """The einsum route's momentum solves: (x0, r0) -> (dx, info) with
+        the EMA tangent at the frozen transport x0 (lagged), and (x, r, eta)
+        -> (dx, info) with the exact Newton tangent at x."""
+
+        def M(t):
+            return t / diag
+
+        def solve_lagged(x0, r0):
+            Jv = self._ema_Jv(self._ema_S(x0, dt), x0, dt)
+            return self._bicgstab(Jv, -r0, M, self.newton_rtol)
+
+        def solve_newton(x, r, eta):
+            return self._bicgstab(self._newton_Jv(x, dt), -r, M, eta)
+
+        return solve_lagged, solve_newton
+
+    def _window_solves(self, s, diag):
+        """The window route's momentum solves (see _einsum_solves), in the
+        layout's permuted rows: K3 lagged, or K3 in Newton mode, plus the
+        ds-term tangents on the permuted facet tables."""
+        rho, mu = self.rho, self.mu
         op = self.winmom
         perm, inv = op.perm, op.inv
         maskp = self.mask_up
         freep = 1.0 - maskp
         diagp = diag[perm]
-        bt = ctx.btab
 
-        def bnd_p(vp, tnp, pos=None, tb=None):
-            # tangents of the x-dependent ds-terms, in permuted rows: the
-            # stress term is linear; the do-nothing term -(rho/2)(T.n)+ x is
-            # linear in x with T frozen (lagged), and differentiates into
-            # (x.n)+ v + H(x.n)(v.n) x with T = x (Newton)
-            btp = self.btab_perm
-            val_b = mu * torch.einsum("bqma,bm->bqa", btp.grads(vp), bt.normals)
-            wb = btp.values(vp)
-            if pos is None:
-                t = -0.5 * rho * tnp[:, :, None] * wb
-            else:
-                wn = torch.einsum("bqm,bm->bq", wb, bt.normals)
-                t = -0.5 * rho * (tnp[:, :, None] * wb + (pos * wn)[:, :, None] * tb)
-            return btp.integrate_rhs(val_b + t)
+        def solve(x, r, rtol, Tq, Uq=None, Gu=None):
+            bnd = self._bnd_tangent(x, self.btab_perm)
 
-        def solve(Tq, r, rtol, tnp, pos=None, tb=None, Uq=None, Gu=None):
             def Jv_p(vp):
                 av = op.apply_perm_rows(vp, Tq, 1.0, s * rho, s * mu, Uq, Gu)
-                av = av - s * bnd_p(vp, tnp, pos, tb)
-                return freep * av + maskp * vp
+                return freep * (av - s * bnd(vp)) + maskp * vp
 
-            dxp, sinfo = krylov.bicgstab(
-                Jv_p, -r[perm], M=lambda t: t / diagp, rtol=rtol,
-                atol=0.05 * self.newton_tol, maxiter=300,
-            )
+            dxp, sinfo = self._bicgstab(Jv_p, -r[perm], lambda t: t / diagp, rtol)
             return dxp[inv], sinfo
 
-        if self.lagged:
-            # transport with x0 (u^n for the theta methods, the BDF2
-            # extrapolation): the residual is affine in x, so one linear
-            # solve to the Newton target is the step
-            r0 = res_bc(x0, transport=x0)
-            tnp = torch.clamp(
-                torch.einsum("bqm,bm->bq", bt.values(x0), bt.normals), min=0.0
-            )
-            dx, sinfo = solve(op.transport_qp(x0), r0, self.newton_rtol, tnp)
-            Ui = x0 + dx
-            niters, nres, lin, mconv = 1, sinfo.resnorm, sinfo.iters, sinfo.converged
-        else:
-            Ui, niters, nres, lin, mconv = self._newton(res_bc, x0, solve)
-        P1, pinfo = self._pressure_solve(Ui, P, dt)
-        U1, cinfo = self._correction(Ui, P1, P, dt)
-        stats = StepStats(niters, nres, lin, pinfo.iters, cinfo.iters,
-                          pinfo.converged, cinfo.converged, mconv)
-        return U1, P1, stats
+        def solve_lagged(x0, r0):
+            return solve(x0, r0, self.newton_rtol, op.transport_qp(x0))
+
+        def solve_newton(x, r, eta):
+            return solve(x, r, eta, *op.state_qp(x))
+
+        return solve_lagged, solve_newton
 
     def _newton(self, res_bc, x, solve):
-        """Newton on res_bc from x: each iteration one BiCGStab solve with
-        the exact tangent (K3 in Newton mode) to the inner rtol eta
+        """Newton on res_bc from x: each iteration one BiCGStab solve
+        solve(x, r, eta) with the exact tangent to the inner rtol eta
         (linear_rtol, or Eisenstat-Walker). Stops on |r| <= max(newton_tol,
         newton_rtol |r0|) or newton_maxiter iterations -> (x, iterations,
         |r|, linear iterations, converged)."""
-        bt, op = self.ctx.btab, self.winmom
         r = res_bc(x)
         rnorm = torch.sqrt(torch.sum(r * r))
         target = torch.clamp(self.newton_rtol * rnorm, min=self.newton_tol)
         eta = self._scalar(self.linear_rtol)
         k = lin = 0
         while k < self.newton_maxiter and bool(rnorm > target):
-            Tq, Uq, Gu = op.state_qp(x)
-            tb = bt.values(x)
-            tn = torch.einsum("bqm,bm->bq", tb, bt.normals)
-            dx, sinfo = solve(Tq, r, eta, torch.clamp(tn, min=0.0),
-                              (tn > 0.0).to(tb.dtype), tb, Uq, Gu)
+            dx, sinfo = solve(x, r, eta)
             x = x + dx
             r = res_bc(x)
             rnorm_new = torch.sqrt(torch.sum(r * r))

@@ -1,11 +1,12 @@
 # The momentum residual and the setup tables of the pressure-correction
 # (projection) step on a P2/P1 pair, on triangles or tets. Port of the
 # pieces of flow_tpu/navier_stokes/pressure_correction.py::_Context that the
-# window route of navier_stokes/fast.py reads: the theta-weighted residual
-# (Newton or with a lagged transport), its boundary (ds) terms, the pressure
-# solve without a preconditioner, the Jacobi diagonals and the boundary
-# tabulations (BoundaryTab on edges in 2-D, BoundaryFaceTab on faces in
-# 3-D). The Chorin/IPCS/Rotational scheme drivers are not ported.
+# window and einsum routes of navier_stokes/fast.py read: the theta-weighted
+# residual (Newton or with a lagged transport), its boundary (ds) terms, the
+# pressure solve without a preconditioner, the velocity correction on the
+# consistent mass, the Jacobi diagonals and the boundary tabulations
+# (BoundaryTab on edges in 2-D, BoundaryFaceTab on faces in 3-D). The
+# Chorin/IPCS/Rotational scheme drivers are not ported.
 #
 # The residual of the tentative velocity, theta = (w_ex, w_im):
 #   F1(ui) = (ui - u0, v) - dt/rho * [w_ex rhs_weak(u0, v; p0, u0)
@@ -142,3 +143,26 @@ class NSContext:
                 maxiter=1000,
             )
         return P0 + phi, sinfo
+
+    def velocity_correction(self, Ui, P1, P0, rho, mu, dt, mask, gvals, tol,
+                            rotational):
+        """Velocity correction in increment form: M d = -(dt/rho)
+        grad(p1 - p0) (with the rotational form's grad(div u*) part), Jacobi
+        CG on the consistent vector mass, for d = u1 - u*: the JAX package's
+        _velocity_correction_impl. Returns (u1, SolveInfo)."""
+        V, Q, geom = self.V, self.Q, self.geom
+        div_part = mu * forms.grad_div_ustar(V, geom, Ui) if rotational else None
+        free = 1.0 - mask
+
+        def M_bc(u):
+            return free * assembly.mass_apply(V, geom, free * u) + mask * u
+
+        diag = free * self.mass_diag_V + mask
+        L3 = -(dt / rho) * forms.grad_phi_rhs(
+            V, Q, geom, P1 - P0, div_part=div_part, rule_degree=4
+        )
+        dmask = mask * (gvals - Ui)
+        rhs = free * (L3 - assembly.mass_apply(V, geom, dmask)) + dmask
+        d, sinfo = krylov.cg(M_bc, rhs, M=lambda r: r / diag, rtol=tol,
+                             maxiter=500)
+        return Ui + d, sinfo

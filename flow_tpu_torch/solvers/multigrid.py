@@ -6,9 +6,10 @@
 # prolongation is index arithmetic with no interpolation matrix. V-cycle
 # with Chebyshev smoothing (Jacobi-scaled), a dense inverse on the coarsest
 # level, and the constant-nullspace projection for the pure-Neumann system.
-# Level operators: assembled padded-ELL (fem/ell.py), or, with
-# winkernel=True, the window stiffness kernel (attic/winkernel.py) on every
-# level of at least winkernel_min_dofs dofs. The window apply computes in
+# Level operators: assembled padded-ELL (fem/ell.py: the P1/P2 kernels of
+# csrc/ell.cu on the card), or, with winkernel=True, the window stiffness
+# kernel (attic/winkernel.py) on every level of at least winkernel_min_dofs
+# dofs. The window apply computes in
 # float32 even in float64 runs; that is preconditioner-side only, as in the
 # JAX package.
 from __future__ import annotations
@@ -42,7 +43,8 @@ class P1Hierarchy:
     fine_window: optional WindowStiffnessOperator of the finest mesh's P1
     space (the stepper's pressure operator), used as the finest level's
     operator when that level is a window level, instead of building the
-    same layout and tables a second time.
+    same layout and tables a second time. Each level keeps its operator as
+    L.ell (an ELLMatrix) or L.win (a WindowStiffnessOperator).
     """
 
     def __init__(
@@ -81,7 +83,7 @@ class P1Hierarchy:
             geom = geometry(mesh)
             L.n = mesh.n_points
             L.mask = mask = masks[l]
-            L.win = None
+            L.win = L.ell = None
             if winkernel and L.n >= winkernel_min_dofs:
                 from ..attic.winkernel import WindowStiffnessOperator
 
@@ -97,8 +99,8 @@ class P1Hierarchy:
                     L.win = WindowStiffnessOperator(space, device=device)
                 base_apply = L.win.apply
             else:
-                base_apply = ell_stiffness(space, geom, dtype=dtype,
-                                           device=device).apply
+                L.ell = ell_stiffness(space, geom, dtype=dtype, device=device)
+                base_apply = L.ell.apply
 
             if mask is None:
                 L.K = base_apply

@@ -95,12 +95,17 @@ def test_state_round_trip_through_interop():
 
 
 @pytest.mark.parametrize("route", [
-    dict(winkernel=False),
+    # the einsum route itself is ported (tests/test_torch_fast_einsum.py);
+    # its assembled-ELL momentum Jacobian and vertex preconditioner are not
+    dict(winkernel=False, assembled_jacobian=True),
+    dict(winkernel=False, momentum_precond="vertex"),
+    dict(time_step_method="forward euler"),
     dict(momentum_solver="gmres"),
     dict(packed=True),
     dict(driver=True, backend="packed"),
     dict(driver=True, from_rest=False),
-], ids=["einsum", "gmres", "packed", "driver-packed", "driver-stokes"])
+], ids=["einsum", "einsum-vertex", "forward-euler", "gmres", "packed",
+        "driver-packed", "driver-stokes"])
 def test_unported_routes_raise(route):
     tp = KarmanProblem(lcar=0.2, dtype=torch.float64, device="cpu")
     route = dict(route)

@@ -1,8 +1,8 @@
 # The window kernels of flow_tpu_torch on the card: K3 (csrc/winmom.cu,
 # lagged and Newton) and K4b (csrc/winstiff.cu) against their plain PyTorch
 # versions on small Karman layouts, bitwise repeatable, the Newton kernel
-# equal to the lagged one where its reaction term vanishes, and refusing a
-# block whose cells do not fit in shared memory; their 3-D variants
+# equal to the lagged one where its reaction term vanishes, and taking a
+# block of more cells than shared memory would hold; their 3-D variants
 # (csrc/winmom3d.cu, winstiff.cu's winstiff_p1_3d) the same on box_mesh
 # tet layouts, taking a block of any size (their local results live in a
 # device scratch) and refusing inputs they do not take; the window mass
@@ -130,34 +130,41 @@ def test_newton_kernel_without_reaction_is_the_lagged_kernel(problem):
 
 
 @pytest.mark.cuda
-def test_kernels_refuse_cells_beyond_shared_memory(problem):
-    # one block of C cells: 12 B (K4b) and 48 B (K3) of shared memory each,
-    # beyond the 227 KB a Hopper block can opt in to (313 floats: the small
-    # tables of P2 with the 7-point rule)
-    S = W = 128
-    z = dict(device="cuda")
-    C = 20000
-    scatter = (torch.zeros((1, W + 1), dtype=torch.int32, **z),
-               torch.zeros((1, 3 * C), dtype=torch.int32, **z))
+def test_kernels_take_cells_beyond_shared_memory(problem):
+    # blocks of more cells than 227 KB of shared memory would hold at once
+    # (K4b P1: 12 B a cell, K3: 48 B): the local results go to the device
+    # scratch, so the kernels take them and agree with their plain versions
+    mesh = unit_square_mesh(128, "right", dtype=torch.float32, device="cuda")
+    S = 16384
+    op = winkernel.WindowStiffnessOperator(FunctionSpace(mesh, 1), S=S)
+    assert op.wl.C > 19000
+    g = torch.Generator().manual_seed(3)
+    x_pad = torch.zeros(op.wl.n_pad)
+    x_pad[:op.wl.n] = torch.randn(op.wl.n, generator=g)
+    x_pad = x_pad.cuda()
     before = winkernel.WINSTIFF.launches
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        winkernel.stiffness_windows(
-            torch.zeros(S + W, **z), torch.zeros((1, 3, C), dtype=torch.int32, **z),
-            torch.zeros((1, C), **z), torch.zeros((1, 4, C), **z),
-            torch.zeros((12, 3), **z), S, W, scatter)
-    assert winkernel.WINSTIFF.launches == before
-    C = 5000
-    scatter = (torch.zeros((1, W + 1), dtype=torch.int32, **z),
-               torch.zeros((1, 6 * C), dtype=torch.int32, **z))
-    before = winmom.WINMOM.launches
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        winmom.momentum_windows(
-            torch.zeros((2, S + W), **z), torch.zeros((1, 6, C), dtype=torch.int32, **z),
-            torch.zeros((1, C), **z), torch.zeros((1, C), **z),
-            torch.zeros((1, 4, C), **z), torch.zeros((1, 4, C), **z),
-            torch.zeros((1, 14, C), **z), torch.zeros(313, **z), torch.zeros(3, **z),
-            S, W, scatter)
-    assert winmom.WINMOM.launches == before
+    y = op.windows(x_pad)
+    torch.cuda.synchronize()
+    assert winkernel.WINSTIFF.launches == before + 1
+    assert _rel(y, winkernel.stiffness_windows_plain(
+        x_pad, op.lidx, op.valid, op.Cg, op.kref, op.wl.S, op.wl.W)) <= TOL
+    mo = winmom.WindowLaggedMomentum(VectorFunctionSpace(mesh, 2), S=S)
+    assert mo.wl.C > 4800
+    x = torch.randn((mo.wl.n, 2), generator=g).cuda()
+    Tq, Uq, Gu = mo.state_qp(x)
+    xp = torch.zeros((2, mo.wl.n_pad), device="cuda")
+    xp[:, :mo.wl.n] = torch.randn((2, mo.wl.n), generator=g).cuda()
+    weights = (1.0, 0.37, 0.021)
+    for newton, counter in ((False, winmom.WINMOM), (True, winmom.WINMOM_NEWTON)):
+        extra = (Uq, Gu) if newton else ()
+        before = counter.launches
+        y = mo.windows(xp, Tq, *weights, *extra)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        plain = winmom.momentum_windows_plain(
+            xp, mo.lidx, mo.valid, mo.detj, mo.G4, mo.Cg4, Tq, mo.tabs,
+            mo._scal(*weights), mo.wl.S, mo.wl.W, *extra)
+        assert _rel(y, plain) <= TOL
 
 
 @pytest.fixture(scope="module")
