@@ -66,9 +66,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    state: K3 3-D lagged and Newton (velocity, nb=525, C=3,063) and K4b 3-D
    (pressure, nb=68, C=23,958) against their plain versions (<= 1e-5
    relative), bitwise repeat, wall times and the plain versions' times;
-   the CSR yardstick of K4b at N=64 and of K3 3-D at N=32, beside the
-   kernel's time at N=32 (the assembled N=64 tangent has ~1.4G element
-   entries before coalescing);
+   K4b 3-D's cluster launch (blocks per cluster, threads, passes, the
+   clusters the card holds at once), every cluster size and block size of
+   the sweep against it bitwise, and a layout of stride 16,384 on the same
+   mesh, which runs in more than one pass, against its plain version; the
+   CSR yardstick of K4b at N=64 and of K3 3-D at N=32, beside the kernel's
+   time at N=32 (the assembled N=64 tangent has ~1.4G element entries
+   before coalescing);
 15. 2-D structured parity: the MG-preconditioned CG Poisson solves of
    unit_square_mesh(32) (Neumann and Dirichlet) in float64 on the card (K2)
    and on the CPU, lambda_max carried across: equal iterations, solutions
@@ -107,23 +111,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    P1Hierarchy with ELL on every level) at lcar=0.02, n_refine=5, 1,905,056
    DoF, float32, one step per chunk: 1 warm-up step and 5 timed steps, then
    one step with its substeps timed. Fails on a non-finite state or force,
-   a last drag <= 0, an unconverged solve, no launch of either ELL kernel
-   (direct: the pressure operator and the finest level; windowed: the
-   levels whose windows fit shared memory) or any window-kernel launch;
+   a last drag <= 0, an unconverged solve, no launch of the direct ELL
+   kernel, an ELL operator (the pressure operator, each P1Hierarchy level)
+   that did not launch the kernel its rule names, and only that one, or any
+   window-kernel launch;
 22. 3-D einsum path: run_cavity3d_fast(winkernel=False, n=64), 6,714,692
    DoF, float32, tangent_mode CAVITY3D_TANGENT, 1 warm-up and 3 timed steps,
    with its peak memory; fails on a non-finite state, an unconverged solve,
-   or no ELL or K1 launch;
-23. ELL kernels against plain: the direct kernel (P1) and, where the
-   windows fit, the windowed kernel (P2) at every ELL operator of the two
-   einsum drivers and at the TPU probes' shapes (131,072 x 8 and
-   1,048,576 x 8, banded within +-64), float32, <= 1e-6 relative, bitwise
-   repeat; wall times, the plain versions' times, a torch.sparse CSR matvec
-   as the yardstick and the bound from the matrix's bytes;
+   a pressure operator whose rule does not name the windowed ELL kernel or
+   that launched another, or no K1 launch;
+23. ELL kernels against plain: the direct kernel (P1) and, wherever the
+   segmented window tables exist, the windowed kernel (P2), whichever one
+   the rule picks, at every ELL operator of the two einsum drivers and at
+   the TPU probes' shapes (131,072 x 8 and 1,048,576 x 8, banded within
+   +-64), float32, <= 1e-6 relative, the windowed kernel bitwise equal to
+   the direct one, bitwise repeat; the rule's choice and its two byte
+   counts; wall times, the plain versions' times, a torch.sparse CSR matvec
+   as the yardstick and each kernel's bound from the bytes of the index
+   width it reads; at the 3-D pressure operator, the 53,392-row level and
+   the P2 probe, the windowed kernel also at every tile size and merge gap
+   of the sweep;
 24. device times (torch.profiler, last, since profiling slows later host
-   code) of the ELL kernels at every shape of 23 (with the L2 cache warm,
-   and cold: after a 64 MB write), K3 2-D lagged and Newton,
-   K4b 2-D, the three 3-D kernels, K2, K4a, K5 and K4b 2-D and 3-D P2.
+   code) of the ELL kernels at every shape and sweep point of 23 (with the
+   L2 cache warm, and cold: after a 64 MB write), K3 2-D lagged and Newton,
+   K4b 2-D, the three 3-D kernels (K4b 3-D also cold and at every point of
+   its sweep), K2, K4a, K5 and K4b 2-D and 3-D P2.
 
 The line before the last holds the kernel report, the one before it the
 card; the last line is {"ok": true, "device": {...}}. Imports neither jax
@@ -235,20 +247,28 @@ def cuda_time_ms(fn, reps):
 
 
 def device_ms(fn, reps, kernel=None):
-    """Device time per call from torch.profiler's kernel events (with
-    `kernel`, only the events whose name holds it)."""
+    """Device time per call from torch.profiler's kernel events. With
+    `kernel` (one launch of it per call), the mean over the events whose
+    name holds it: the profiler drops some events of a long session, so the
+    mean is taken over the events it kept, and a session that kept none is
+    run again (at most three times)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.events()
-    cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-            and (kernel is None or kernel in e.name)]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                and (kernel is None or kernel in e.name)]
+        if kernel is None or cuda:
+            break
     check(kernel is None or cuda, f"the profiler shows no event of {kernel}")
+    if kernel is not None:
+        return sum(e.device_time_total for e in cuda) / len(cuda) / 1e3
     us = (sum(e.device_time_total for e in cuda) if cuda
           else sum(e.self_device_time_total for e in events))
     return us / reps / 1e3
@@ -1036,6 +1056,98 @@ def phase_cavity3d_main():
     return out, launches
 
 
+# the window stride of a K4b 3-D layout of the main path's mesh whose local
+# results exceed one cluster's shared memory
+WINSTIFF3D_CHUNKED_S = 16384
+
+
+def _cluster_passes(op):
+    """Passes of K4b 3-D's cluster launch over a layout: the kernel's rule
+    (whole rows, at most CLUSTER_3D * cluster_plan staged values a pass)
+    walked on the host over every window block's rowptr; the most of any
+    block."""
+    from flow_tpu_torch.attic import winkernel
+
+    nb, NL, C = op.lidx.shape
+    room = winkernel.CLUSTER_3D * winkernel.cluster_plan(C, NL)
+    most = 0
+    for rp in op.positions[0].cpu().numpy():
+        passes, r0 = 0, 0
+        while r0 < len(rp) - 1:
+            e0 = rp[r0]
+            r0 = (len(rp) - 1 if rp[-1] - e0 <= room
+                  else int(np.searchsorted(rp, e0 + room, side="right")) - 1)
+            passes += 1
+        most = max(most, passes)
+    return most
+
+
+def _winstiff3d_report(kq, rng):
+    """K4b 3-D at the pressure layout of the 3-D main path: against its
+    plain version (<= 1e-5 relative), bitwise repeat, wall time, the plain
+    version's time, the CSR yardstick of the same assembled operator, the
+    bound; the chosen cluster launch, its plan and how many such clusters
+    the card holds at once (cudaOccupancyMaxActiveClusters); and a layout
+    of stride WINSTIFF3D_CHUNKED_S on the same mesh, which runs in more
+    than one pass, against its plain version. Returns the report and its device-time jobs
+    {tag: call}."""
+    import torch
+    from flow_tpu_torch.attic import winkernel
+
+    def inputs(op):
+        x = torch.zeros(op.wl.n_pad, device="cuda")
+        x[:op.wl.n] = torch.as_tensor(rng.standard_normal(op.wl.n), dtype=torch.float32)
+        return x
+
+    def plain_of(op, x):
+        return lambda: winkernel.stiffness_windows_plain(x, op.lidx, op.valid, op.Cg,
+                                                         op.kref, op.wl.S, op.wl.W)
+
+    x = inputs(kq)
+    nb, NL, C = kq.lidx.shape
+
+    def kernel_q():
+        return kq.windows(x)
+
+    plain_q = plain_of(kq, x)
+    abs_err, rel_err = _check_kernel("winstiff3d pressure", kernel_q, plain_q)
+    ms = cuda_time_ms(kernel_q, 100)
+    plain_ms = cuda_time_ms(plain_q, 10)
+    A = _stiffness_csr(kq)
+    _, csr_err = _rel((A @ x)[:kq.wl.n], kq.wl.overlap_add(kernel_q()))
+    check(csr_err <= 1e-5, f"winstiff3d: the CSR yardstick differs ({csr_err})")
+    lib_ms = cuda_time_ms(lambda: A @ x, 100)
+    nnz = A.values().numel()
+    del A
+    nbytes, nops = _winstiff_work(kq)
+    b_ms, b_by = bound_ms(nbytes, nops)
+    chosen = (winkernel.CLUSTER_3D, winkernel.THREADS_3D)
+    resident = winkernel.max_active_clusters(nb, kq.wl.W, C)
+    log(f"[window3d] winstiff3d pressure: n={kq.wl.n} nb={nb} S={kq.wl.S} W={kq.wl.W} "
+        f"C={C} cluster={chosen[0]} threads={chosen[1]} staged_per_block="
+        f"{winkernel.cluster_plan(C, NL)} passes={_cluster_passes(kq)} "
+        f"max_active_clusters={resident} max_abs_err={abs_err:.3e} "
+        f"rel_err={rel_err:.3e} kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+        f"csr_ms={lib_ms:.5f} (N=64, nnz {nnz}) bytes={nbytes} ops={nops} "
+        f"bound_ms={b_ms:.6f} ({b_by})")
+    row = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms, cluster=chosen[0], threads=chosen[1])
+    jobs = {"warm": kernel_q, "cold": lambda: (_l2_flush().zero_(), kernel_q())}
+    big = winkernel.WindowStiffnessOperator(kq.space, S=WINSTIFF3D_CHUNKED_S)
+    xb = inputs(big)
+    nbb, _, Cb = big.lidx.shape
+    passes_b = _cluster_passes(big)
+    check(passes_b > 1, f"winstiff3d: the S={big.wl.S} layout fits one pass")
+    abs_b, rel_b = _check_kernel("winstiff3d chunked", lambda: big.windows(xb),
+                                 plain_of(big, xb))
+    ms_b = cuda_time_ms(lambda: big.windows(xb), 20)
+    log(f"[window3d] winstiff3d chunked layout: S={big.wl.S} nb={nbb} W={big.wl.W} "
+        f"C={Cb} passes={passes_b} max_abs_err={abs_b:.3e} rel_err={rel_b:.3e} "
+        f"kernel_ms={ms_b:.5f}")
+    jobs["chunked"] = lambda: big.windows(xb)
+    return row, jobs
+
+
 def phase_window3d_kernels(st, U):
     """K3 3-D lagged and Newton and K4b 3-D at the 3-D main path's layouts,
     with the tables of its final state; the CSR yardsticks of K4b at N=64
@@ -1093,35 +1205,7 @@ def phase_window3d_kernels(st, U):
     del Uq, Gu
     torch.cuda.empty_cache()
 
-    kq = st.K_Q
-    x = torch.zeros(kq.wl.n_pad, device="cuda")
-    x[:kq.wl.n] = torch.as_tensor(rng.standard_normal(kq.wl.n), dtype=torch.float32)
-
-    def kernel_q():
-        return kq.windows(x)
-
-    def plain_q():
-        return winkernel.stiffness_windows_plain(x, kq.lidx, kq.valid, kq.Cg, kq.kref,
-                                                 kq.wl.S, kq.wl.W)
-
-    abs_err, rel_err = _check_kernel("winstiff3d pressure", kernel_q, plain_q)
-    ms = cuda_time_ms(kernel_q, 100)
-    plain_ms = cuda_time_ms(plain_q, 10)
-    A = _stiffness_csr(kq)
-    _, csr_err = _rel((A @ x)[:kq.wl.n], kq.wl.overlap_add(kernel_q()))
-    check(csr_err <= 1e-5, f"winstiff3d: the CSR yardstick differs ({csr_err})")
-    lib_ms = cuda_time_ms(lambda: A @ x, 100)
-    nnz = A.values().numel()
-    del A
-    nbytes, nops = _winstiff_work(kq)
-    b_ms, b_by = bound_ms(nbytes, nops)
-    log(f"[window3d] winstiff3d pressure: n={kq.wl.n} nb={kq.wl.nb} S={kq.wl.S} "
-        f"W={kq.wl.W} C={kq.wl.C} max_abs_err={abs_err:.3e} rel_err={rel_err:.3e} "
-        f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} csr_ms={lib_ms:.5f} (N=64, nnz {nnz}) "
-        f"bytes={nbytes} ops={nops} bound_ms={b_ms:.6f} ({b_by})")
-    report["winstiff3d"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    jobs["winstiff3d"] = kernel_q
+    report["winstiff3d"], jobs["winstiff3d"] = _winstiff3d_report(st.K_Q, rng)
 
     # K3's CSR yardstick at N=32, where its assembly fits: the kernel and
     # the CSR matvec of the same assembled operator on the same input
@@ -1662,9 +1746,9 @@ def _ell_counters():
 def phase_einsum_main():
     """run_karman_fast at its defaults on the einsum route (the JAX
     driver's) at 1.9M DoF, one step per chunk: the first chunk is the
-    warm-up, the next five are timed. The pressure operator and the
-    finest P1Hierarchy level take the direct ELL kernel, the levels whose
-    windows fit shared memory the windowed one."""
+    warm-up, the next five are timed. Each ELL operator (the pressure
+    operator, every P1Hierarchy level) launches the kernel its rule names
+    (fem/ell.py): the direct one on every level but the two coarsest."""
     import torch
     from flow_tpu_torch.attic.winkernel import WINSTIFF
     from flow_tpu_torch.attic.winmom import WINMOM, WINMOM_NEWTON
@@ -1689,9 +1773,10 @@ def phase_einsum_main():
     log(f"[einsum] run_karman_fast {KARMAN_MAIN} n_dofs={prob.n_dofs} float32 "
         f"winkernel=False convection={'lagged' if st.lagged else 'newton'} "
         f"theta={st.theta} tangent_mode={st.tangent_mode}")
-    log(f"[einsum] pressure operator n={st.K_Q.n} K={st.K_Q.width} kernel={st.K_Q.kernel}; "
-        "levels: " + ", ".join(f"n={L.n} K={L.ell.width} W={L.ell.W} {L.ell.kernel}"
-                               for L in hier.levels))
+    ells = {"pressure operator": st.K_Q, **{f"level n={L.n}": L.ell for L in hier.levels}}
+    log("[einsum] ELL operators (the rule's kernel, this run's launches): "
+        + ", ".join(f"{k} n={A.n} K={A.width} {A.kernel} {A.launches}"
+                    for k, A in ells.items()))
     log(f"[einsum] steps/s={5 / timed:.4f} (5 steps in {timed:.3f} s, after 1 warm-up "
         f"step of {out['chunk_seconds'][0]:.3f} s; setup {setup:.1f} s)")
     for k in ("dt", "newton_iters", "linear_iters", "pressure_iters", "correction_iters"):
@@ -1714,7 +1799,10 @@ def phase_einsum_main():
     check(bool((tel["newton_iters"] >= 1).all() and (tel["linear_iters"] >= 1).all()),
           "einsum: a step without a Newton iteration")
     check(launches["ell_direct"] > 0, "einsum: the direct ELL kernel was never launched")
-    check(launches["ell_window"] > 0, "einsum: the windowed ELL kernel was never launched")
+    for k, A in ells.items():
+        other = "direct" if A.kernel == "window" else "window"
+        check(A.launches[A.kernel] > 0 and A.launches[other] == 0,
+              f"einsum: the {k} launched {A.launches}, not its rule's {A.kernel} kernel")
     check(launches["winmom"] == launches["winmom_newton"] == launches["winstiff"] == 0,
           "einsum: a window kernel was launched on the einsum route")
     umax = float(U.abs().max())
@@ -1751,7 +1839,8 @@ def phase_cavity3d_einsum():
     n_timed = CAVITY3D_STEPS - 1
     log(f"[cavity3d-einsum] run_cavity3d_fast n={CAVITY3D_MAIN} n_dofs={n_dofs} float32 "
         f"winkernel=False tangent_mode={st.tangent_mode} pressure operator "
-        f"n={st.K_Q.n} K={st.K_Q.width} W={st.K_Q.W} kernel={st.K_Q.kernel}")
+        f"n={st.K_Q.n} K={st.K_Q.width} staged_max={st.K_Q.staged_max} "
+        f"kernel={st.K_Q.kernel} launches={st.K_Q.launches}")
     log(f"[cavity3d-einsum] setup {out['setup_seconds']:.1f} s; steps/s="
         f"{n_timed / timed:.4f} ({n_timed} steps in {timed:.3f} s, after 1 warm-up step "
         f"of {out['chunk_seconds'][0]:.3f} s)")
@@ -1763,8 +1852,10 @@ def phase_cavity3d_einsum():
     check(bool(torch.isfinite(U).all()) and bool(torch.isfinite(P).all()),
           "cavity3d-einsum: non-finite state")
     _check_solves(tel, "cavity3d-einsum")
-    check(sum(launches[k] for k in ("ell_direct", "ell_window")) > 0,
-          "cavity3d-einsum: no ELL kernel was launched")
+    check(st.K_Q.kernel == "window" and launches["ell_window"] > 0
+          and launches["ell_direct"] == 0,
+          f"cavity3d-einsum: the pressure operator's rule is {st.K_Q.kernel}, launches "
+          f"{launches}: not the windowed kernel alone")
     check(launches["stencil3d"] > 0, "cavity3d-einsum: the stencil kernel was never launched")
     umax = float(U.abs().max())
     check(abs(umax - 1.0) < 1e-6, f"cavity3d-einsum: max |u| {umax} is not the lid speed")
@@ -1797,47 +1888,80 @@ def _l2_flush():
     return _FLUSH[0]
 
 
+def _ell_bytes(A, kernel):
+    """Bytes one apply must move with `kernel`'s index width: vals, the
+    indices (int32 columns; or 16-bit window indices and the segment
+    tables), x and y."""
+    item = A.vals.element_size()
+    nk = A.n * A.width
+    if kernel == "direct":
+        return nk * (item + 4) + 2 * A.n * item
+    return nk * (item + 2) + 3 * 4 * A.seg_start.numel() + 2 * A.n * item
+
+
 def _ell_report(name, A, report, jobs):
-    """Each ELL kernel that can serve A (the direct one always, the
-    windowed one where A's windows fit) against its plain version (<= 1e-6
-    relative in float32), bitwise repeat, wall time; the plain versions'
-    times; a torch.sparse CSR matvec of A as the yardstick; the bound from
-    A's bytes (vals, int32 indices, x, y) and flops (2 n K). Adds a row
-    per kernel to `report` and a job to `jobs` for the device times."""
+    """Both ELL kernels at A, whichever one the rule picks (the windowed one
+    where A has window tables): each against its plain version (<= 1e-6
+    relative in float32), the windowed one against the direct one bitwise
+    (the same products summed in the same k order), bitwise repeat, wall
+    time; the plain versions' times; a torch.sparse CSR matvec of A as the
+    yardstick; each kernel's bound from the bytes of the index width it
+    reads (_ell_bytes) and 2 n K flops. Adds a row per kernel to `report`
+    and its device-time jobs (L2 warm and cold) to `jobs`."""
     import torch
     from flow_tpu_torch.fem import ell
 
     rng = np.random.default_rng(5)
     x = torch.as_tensor(rng.standard_normal(A.n), dtype=A.dtype, device="cuda")
-    item = A.vals.element_size()
-    nbytes = A.n * A.width * (item + 4) + 2 * A.n * item
-    b_ms, b_by = bound_ms(nbytes, 2 * A.n * A.width)
     rows = torch.arange(A.n, device="cuda").repeat_interleave(A.width)
     csr = _csr(rows, A.cols.reshape(-1), A.vals.reshape(-1), A.n)
     lib_ms = cuda_time_ms(lambda: csr @ x, 200)
     _, csr_err = _rel(csr @ x, ell.ell_apply_plain(A.vals, A.cols, x))
     check(csr_err <= 1e-6, f"ell {name}: the CSR yardstick differs ({csr_err})")
-    kernels = {"direct": (A.apply_direct, lambda: ell.ell_apply_plain(A.vals, A.cols, x))}
-    if A.kernel == "window":
-        kernels["window"] = (A.apply_window, lambda: ell.ell_apply_window_plain(
-            A.vals, A.lidx, A.w0, x, A.W))
-    for kernel, (fn, plain) in kernels.items():
+    del csr
+    y_direct = A.apply_direct(x)
+
+    variants = {"direct": (A.apply_direct,
+                           lambda: ell.ell_apply_plain(A.vals, A.cols, x))}
+    if A.tables is not None:
+        variants["window"] = (A.apply_window, lambda: ell.ell_apply_window_plain(
+            A.vals, A.lidx, A.seg_start, A.seg_len, A.seg_off, x, A.tables.rows))
+    log(f"[ell] {name}: n={A.n} K={A.width} rule={A.kernel} saved_bytes={A.saved_bytes} "
+        f"staged_bytes={A.staged_bytes} (factor {ell.WINDOW_FACTOR}, rows "
+        f"{ell.WINDOW_ROWS}, gap {ell.WINDOW_GAP})")
+    for kernel, (fn, plain) in variants.items():
         abs_err, rel_err = _check_kernel(f"ell {kernel} {name}", lambda: fn(x), plain,
                                          tol=1e-6)
+        if kernel == "window":
+            check(torch.equal(fn(x), y_direct),
+                  f"ell window {name}: differs from the direct kernel")
+        nbytes = _ell_bytes(A, kernel)
+        b_ms, b_by = bound_ms(nbytes, 2 * A.n * A.width)
         ms = cuda_time_ms(lambda: fn(x), 200)
         plain_ms = cuda_time_ms(plain, 50)
-        row = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=lib_ms)
-        report[(kernel, name)] = row
-        jobs[(kernel, name)] = (lambda fn=fn: fn(x))
+        report[(kernel, name)] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        kname = f"ell_{kernel}_kernel"
+        jobs[(kernel, name, "warm")] = (lambda fn=fn: fn(x), kname)
         # the same call after a write of 64 MB, more than the 50 MB L2:
         # the kernel then reads the matrix from device memory
-        jobs[(kernel, name, "cold")] = (lambda fn=fn: (_l2_flush().zero_(), fn(x)))
-        log(f"[ell] {kernel:6s} {name}: n={A.n} K={A.width} W={A.W} "
-            f"(serves: {A.kernel}) rel_err={rel_err:.3e} kernel_ms={ms:.5f} "
-            f"plain_ms={plain_ms:.5f} csr_ms={lib_ms:.5f} bytes={nbytes} "
+        jobs[(kernel, name, "cold")] = (lambda fn=fn: (_l2_flush().zero_(), fn(x)), kname)
+        extra = ("" if kernel == "direct" else
+                 f" tiles={A.seg_start.shape[0]} G={A.seg_start.shape[1]} "
+                 f"staged_max={A.staged_max} staged_bytes={A.staged_bytes}")
+        log(f"[ell] {kernel:6s} {name}:{extra} rel_err={rel_err:.3e} kernel_ms={ms:.5f}"
+            f" plain_ms={plain_ms:.5f} csr_ms={lib_ms:.5f} bytes={nbytes} "
             f"bound_ms={b_ms:.6f} ({b_by})")
-    del csr
+
+
+def _ell_device_times(kell, ell_jobs):
+    """Device ms per call of every ELL job, L2 warm and cold, into kell."""
+    for (kernel, name, temp), (job, kname) in ell_jobs.items():
+        key = "device_cold_ms" if temp == "cold" else "device_ms"
+        kell[(kernel, name)][key] = device_ms(job, 100, kernel=kname)
+    log("[profile] ell device ms per call, L2 warm / cold: "
+        + ", ".join(f"{k[0]} {k[1]}={v['device_ms']:.6f}/{v['device_cold_ms']:.6f}"
+                    for k, v in kell.items()))
 
 
 def main():
@@ -1909,17 +2033,21 @@ def main():
             _ell_report(name, _banded_ell(n, band, K, seed=0), kell, ell_jobs)
         # device times from the profiler, last: a profiler session slows
         # later host code in the process
-        for (kernel, name, *cold), job in ell_jobs.items():
-            key = "device_cold_ms" if cold else "device_ms"
-            kell[(kernel, name)][key] = device_ms(job, 100, kernel=f"ell_{kernel}_kernel")
-        log("[profile] ell device ms per call, L2 warm / cold: "
-            + ", ".join(f"{k[0]} {k[1]}={v['device_ms']:.6f}/{v['device_cold_ms']:.6f}"
-                        for k, v in kell.items()))
+        _ell_device_times(kell, ell_jobs)
         kwin["winmom"]["device_ms"] = device_ms(win_jobs["winmom"], 50)
         kwin["winstiff"]["device_ms"] = device_ms(win_jobs["winstiff"], 100)
         knewton["device_ms"] = device_ms(newton_job, 50)
         for name, job in jobs3.items():
-            k3d[name]["device_ms"] = device_ms(job, 20)
+            if name != "winstiff3d":
+                k3d[name]["device_ms"] = device_ms(job, 20)
+        k4b3 = {tag: device_ms(job, 20, kernel="winstiff_cluster_kernel")
+                for tag, job in jobs3["winstiff3d"].items()}
+        k3d["winstiff3d"]["device_ms"] = k4b3.pop("warm")
+        k3d["winstiff3d"]["device_cold_ms"] = k4b3.pop("cold")
+        log(f"[profile] winstiff3d device ms per call: L2 warm "
+            f"{k3d['winstiff3d']['device_ms']:.5f} cold "
+            f"{k3d['winstiff3d']['device_cold_ms']:.5f}; "
+            + ", ".join(f"{k}={v:.5f}" for k, v in k4b3.items()))
         k2["device_ms"] = device_ms(k2_job, 100)
         k4a["device_ms"] = device_ms(jobs2["winmass"], 50)
         k5["device_ms"] = device_ms(jobs2["winform"], 50)
@@ -1994,9 +2122,9 @@ def main():
         dict(name="element_windows", route="cuda",
              source="flow_tpu_torch/csrc/winform.cu",
              replaces="flow_tpu/attic/winform.py:92", **k5),
-        # the ELL kernels' launches on the einsum Karman path; their numbers
-        # at its largest operator each takes: the pressure operator (direct)
-        # and the 53,392-row level (window)
+        # the ELL kernels at the largest operator of the path each takes:
+        # the direct one on the einsum Karman path (its pressure operator),
+        # the windowed one on the 3-D einsum path (its pressure operator)
         dict(name="ell_apply direct", route="cuda",
              source="flow_tpu_torch/csrc/ell.cu",
              replaces="scripts/pallas_gather_probe.py:76",
@@ -2004,7 +2132,8 @@ def main():
         dict(name="ell_apply window", route="cuda",
              source="flow_tpu_torch/csrc/ell.cu",
              replaces="scripts/onehot_window_probe.py:125",
-             launches=einsum["ell_window"], **kell[("window", "karman level n=53392")]),
+             launches=einsum3["ell_window"],
+             **kell[("window", "cavity3d pressure n=274625")]),
     ]
     log(f"[done] launches by path: {json.dumps(paths)}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -23,7 +23,7 @@ import numpy as np
 from .. import native
 
 __all__ = ["WindowLayout", "build_window_layout", "build_scatter_lists",
-           "overlap_add_fn"]
+           "scatter_positions", "overlap_add_fn"]
 
 
 class WindowLayout:
@@ -179,3 +179,17 @@ def build_scatter_lists(wl):
     pos = np.arange(len(e)) - start[b[order], 0]
     ent[b[order], pos] = e
     return rowptr, ent
+
+
+def scatter_positions(rowptr, ent, nl):
+    """The inverse of the scatter lists (rowptr [nb, W+1], ent [nb, C*nl]):
+    pos [nb, nl*C] int32, row i*C + c the position p in block b's list of
+    entry c*nl + i (ent[b, p] == c*nl + i), -1 for a padding cell's."""
+    rowptr, ent = np.asarray(rowptr), np.asarray(ent)
+    nb, n_ent = ent.shape
+    C = n_ent // nl
+    pos = np.full((nb, n_ent), -1, dtype=np.int32)
+    for b in range(nb):
+        n = int(rowptr[b, -1])
+        pos[b, ent[b, :n]] = np.arange(n, dtype=np.int32)
+    return np.ascontiguousarray(pos.reshape(nb, C, nl).transpose(0, 2, 1)).reshape(nb, -1)

@@ -12,9 +12,15 @@
 # boundary.
 #
 # mass_windows and stiffness_windows launch their kernels for CUDA tensors
-# and take the plain versions only for CPU tensors. They count their
-# launches in WINMASS.launches (K4a) and WINSTIFF.launches (K4b 2-D P1),
-# WINSTIFF3D.launches (3-D P1), WINSTIFF_P2.launches (2-D P2) and
+# and take the plain versions only for CPU tensors. The 3-D P1 stiffness
+# (the cavity's pressure operator) runs as thread-block clusters of
+# CLUSTER_3D blocks of THREADS_3D threads per window block, which stage the
+# local results in their shared memory at their scatter-list positions
+# (cluster_plan; the lists' inverse, WindowStiffnessOperator.positions); the
+# other variants write them to a device scratch and read them back along
+# the scatter lists (WindowStiffnessOperator.scatter). They
+# count their launches in WINMASS.launches (K4a) and WINSTIFF.launches (K4b
+# 2-D P1), WINSTIFF3D.launches (3-D P1), WINSTIFF_P2.launches (2-D P2) and
 # WINSTIFF3D_P2.launches (3-D P2).
 from __future__ import annotations
 
@@ -27,22 +33,25 @@ import torch
 from .._build import Kernel
 from ..fem import assembly
 from ..mesh3d import _device
-from .window import build_scatter_lists, build_window_layout
+from .window import build_scatter_lists, build_window_layout, scatter_positions
 
 __all__ = ["WindowStiffnessOperator", "stiffness_windows",
-           "stiffness_windows_plain", "WINSTIFF", "WINSTIFF3D", "WINSTIFF_P2",
-           "WINSTIFF3D_P2",
+           "stiffness_windows_plain", "cluster_plan", "max_active_clusters",
+           "WINSTIFF", "WINSTIFF3D", "WINSTIFF_P2", "WINSTIFF3D_P2",
+           "CLUSTER_3D", "THREADS_3D", "LOC_BYTES_3D",
            "WindowMassOperator", "mass_windows", "mass_windows_plain", "WINMASS"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# every variant takes a device scratch for the local results
+# the 2-D and P2 variants take a device scratch for the local results
 WINSTIFF = Kernel("winstiff", {
     "winstiff_p1_2d": [_P] * 9 + [_I] * 4 + [_P],
 })
-# the 3-D variant: the same library, its own entry point and count
+# the 3-D variant: the same library, its own entry point and count; a
+# cluster launch with no scratch, and its occupancy query
 WINSTIFF3D = Kernel("winstiff", {
-    "winstiff_p1_3d": [_P] * 9 + [_I] * 4 + [_P],
+    "winstiff_p1_3d": [_P] * 8 + [_I] * 7 + [_P],
+    "winstiff_p1_3d_clusters": [_I] * 6 + [_P],
 })
 # the P2 variants (NL = 6 triangles, 10 tets), each with its own count
 WINSTIFF_P2 = Kernel("winstiff", {
@@ -58,6 +67,16 @@ _ENTRIES = {
     (4, 6): (WINSTIFF_P2, "winstiff_p2_2d"),
     (9, 10): (WINSTIFF3D_P2, "winstiff_p2_3d"),
 }
+# winstiff_p1_3d's launch: blocks per cluster (one cluster per window
+# block), threads per block (at most 512, the kernel's launch bounds), and
+# the local results a block stages in one pass, in bytes. Chosen on the card
+# at the cavity's N=64 pressure layout (chip_smoke.py's sweep; device us,
+# L2 warm, H100 80GB HBM3, 700 W): 8 x 512 104.1, 8 x 384 108.9, 4 x 512
+# 113.1, 8 x 256 129.4, 2 x 512 178.2 (two passes); the budget stages that
+# layout's 95,832 local results in one pass of 8 blocks.
+CLUSTER_3D = 8
+THREADS_3D = 512
+LOC_BYTES_3D = 96 * 1024
 WINMASS = Kernel("winmass", {"winmass": [_P] * 9 + [_I] * 5 + [_P]})
 # the local-dof counts the window kernels are instantiated for
 WINDOW_NL = (3, 4, 6, 10)
@@ -112,12 +131,26 @@ def stiffness_windows_plain(x_pad, lidx, valid, cg, kref, S, W):
     return scatter_windows_plain(loc, lidx, W)
 
 
-def stiffness_windows(x_pad, lidx, valid, cg, kref, S, W, scatter=None):
+def cluster_plan(C, NL):
+    """The entries one block of a cluster launch of CLUSTER_3D blocks
+    stages in a pass: all of a window block's C*NL at most, shared by the
+    blocks, and at most LOC_BYTES_3D of float32."""
+    return min(-(-C * NL // CLUSTER_3D), max(1, LOC_BYTES_3D // 4))
+
+
+def stiffness_windows(x_pad, lidx, valid, cg, kref, S, W, scatter=None,
+                      positions=None):
     """Per-block output windows [nb, W] of the scalar stiffness apply (see
     stiffness_windows_plain). CPU tensors take the plain version; CUDA
-    tensors launch the kernel, which writes a block's local results to a
-    device scratch [nb, C*NL], so any C fits, and sums each window dof along
-    the layout's scatter lists `scatter` = (rowptr, ent) tensors."""
+    tensors launch the kernel. The 3-D P1 kernel reads `positions` =
+    (rowptr, pos) tensors, pos the inverse of the layout's scatter lists
+    (window.scatter_positions): each cell stores its local results at
+    their list positions in the shared memory of a cluster of CLUSTER_3D
+    blocks of THREADS_3D threads, in passes where they exceed it
+    (cluster_plan), and each row sums its positions in order. The others
+    read `scatter` = (rowptr, ent) tensors: they write the local results to
+    a device scratch [nb, C*NL], so any C fits, and sum each window dof
+    along its list."""
     if x_pad.device.type == "cpu":
         return stiffness_windows_plain(x_pad, lidx, valid, cg, kref, S, W)
     if x_pad.device.type != "cuda":
@@ -130,18 +163,34 @@ def stiffness_windows(x_pad, lidx, valid, cg, kref, S, W, scatter=None):
             f"tets (DIM^2, NL) in {sorted(_ENTRIES)}, got ({d2}, {NL})"
         )
     kernel, entry = _ENTRIES[(d2, NL)]
-    check_window_args("stiffness_windows", x_pad, lidx, valid, (cg, kref), scatter, S, W)
+    lists = positions if kernel is WINSTIFF3D else scatter
+    check_window_args("stiffness_windows", x_pad, lidx, valid, (cg, kref), lists, S, W)
     if tuple(cg.shape) != (nb, d2, C) or kref.numel() != d2 * NL * NL:
         raise ValueError("stiffness_windows: inconsistent layout shapes")
-    rowptr, ent = scatter
+    rowptr, ent = lists
     out = torch.empty((nb, W), dtype=torch.float32, device=x_pad.device)
-    scratch = torch.empty((nb, C * NL), dtype=torch.float32, device=x_pad.device)
     args = [x_pad.data_ptr(), lidx.data_ptr(), valid.data_ptr(), cg.data_ptr(),
-            kref.data_ptr(), rowptr.data_ptr(), ent.data_ptr(), scratch.data_ptr()]
+            kref.data_ptr(), rowptr.data_ptr(), ent.data_ptr()]
+    if kernel is WINSTIFF3D:
+        tail = [out.data_ptr(), nb, S, W, C, CLUSTER_3D, THREADS_3D, cluster_plan(C, NL)]
+    else:
+        scratch = torch.empty((nb, C * NL), dtype=torch.float32, device=x_pad.device)
+        tail = [scratch.data_ptr(), out.data_ptr(), nb, S, W, C]
     with torch.cuda.device(x_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
-        kernel.launch(entry, *args, out.data_ptr(), nb, S, W, C, stream)
+        kernel.launch(entry, *args, *tail, stream)
     return out
+
+
+def max_active_clusters(nb, W, C):
+    """cudaOccupancyMaxActiveClusters of the 3-D P1 kernel's launch at a
+    layout (nb, W, C): how many of its clusters the card holds at once."""
+    out = ctypes.c_int(0)
+    err = WINSTIFF3D.lib().winstiff_p1_3d_clusters(
+        nb, W, C, CLUSTER_3D, THREADS_3D, cluster_plan(C, 4), ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"winstiff_p1_3d_clusters failed with CUDA error {err}")
+    return out.value
 
 
 class WindowStiffnessOperator:
@@ -149,8 +198,10 @@ class WindowStiffnessOperator:
     triangles or tets (the pressure-Poisson and multigrid-level operator).
     Tables live in float32 on `device` (default: the mesh's). apply(x)
     takes x [n] in the original numbering, in any float dtype, and returns
-    K x in that dtype. layout_seconds: the host seconds of the layout, its
-    tables and scatter lists."""
+    K x in that dtype. On the card the operator holds the lists its kernel
+    reads (see stiffness_windows): `positions` for 3-D P1, `scatter` for
+    the others; the other is None. layout_seconds: the host seconds of the
+    layout, its tables and scatter lists."""
 
     def __init__(self, space, S=None, device=None):
         self.space = space
@@ -177,16 +228,21 @@ class WindowStiffnessOperator:
         self.valid = dev(wl.valid)
         self.perm = dev(wl.perm, torch.int64)
         self.inv = dev(wl.inv, torch.int64)
-        self.scatter = None
+        self.scatter = self.positions = None
         if self.device.type == "cuda":
-            self.scatter = tuple(dev(a, torch.int32) for a in build_scatter_lists(wl))
+            rowptr, ent = build_scatter_lists(wl)
+            if _ENTRIES.get((dim * dim, nl), (None,))[0] is WINSTIFF3D:
+                self.positions = (dev(rowptr, torch.int32),
+                                  dev(scatter_positions(rowptr, ent, nl), torch.int32))
+            else:
+                self.scatter = (dev(rowptr, torch.int32), dev(ent, torch.int32))
         self.layout_seconds = time.perf_counter() - t0
 
     def windows(self, x_pad):
         """[nb*S + W] float32 permuted, padded input -> [nb, W] windows."""
         wl = self.wl
         return stiffness_windows(x_pad, self.lidx, self.valid, self.Cg,
-                                 self.kref, wl.S, wl.W, self.scatter)
+                                 self.kref, wl.S, wl.W, self.scatter, self.positions)
 
     def apply(self, x):
         wl = self.wl

@@ -8,19 +8,52 @@
 # On a CUDA device ELLMatrix.apply launches one of the two hand-written
 # kernels of csrc/ell.cu, chosen once by shape at construction and recorded
 # in ELLMatrix.kernel:
-#   - "window" (P2 of the TPU probes): where the columns of every 128-row
-#     block span a window that fits one block's shared memory in the
-#     matrix's dtype, the block stages x[w0 : w0 + W] there and gathers
-#     through block-local indices;
-#   - "direct" (P1): elsewhere, one thread per row gathers x through L1/L2.
+#   - "direct" (P1 of the TPU probes): one thread per row gathers x through
+#     L1/L2 with int32 column indices;
+#   - "window" (P2): a tile of WINDOW_ROWS rows stages the parts of x its
+#     columns touch, up to WINDOW_SEGMENTS 32-aligned segments merged across
+#     gaps of at most WINDOW_GAP values (ell_window_tables), into shared
+#     memory by bulk copies, and gathers through 16-bit tile-local indices.
 # Both read the column-major ("lane") copies [K, n] the matrix builds on
 # the card, in which a warp's reads of one slot are coalesced (the JAX
 # package's layout="lane", there a TPU tile-padding fix). A CPU tensor takes
-# the plain version, ell_apply_plain. The wrappers count their launches in
-# ELL_DIRECT.launches and ELL_WINDOW.launches.
+# the plain versions, ell_apply_plain and ell_apply_window_plain. The
+# wrappers count their launches in ELL_DIRECT.launches and
+# ELL_WINDOW.launches.
+#
+# The rule. x is small and sits in L2, so a staged value costs an L2 read
+# and saves nothing by itself; what the window saves is the index width:
+# 2 bytes of device memory per entry (int16 for int32). So a matrix takes
+# the window where its segmented tables exist (every tile stages at most
+# 65,536 values and at most WINDOW_SMEM_BYTES, so that two blocks share an
+# SM) and the entry bytes saved exceed the staged bytes times WINDOW_FACTOR:
+#     2 n K > WINDOW_FACTOR * sizeof(T) * sum over tiles of the staged values.
+# The constants come from the card: chip_smoke.py's ELL phase times both
+# kernels at every ELL operator of the einsum drivers and at the probes'
+# shapes (device us, L2 warm / cold; H100 80GB HBM3, 700 W, torch 2.11 +
+# CUDA 12.8; the run PERF.md's P2 findings record, which also timed tiles
+# of 128-1,024 rows and merge gaps of 0-1,024 values):
+#   - the 3-D pressure operator (274,625 x 15; 1.27 bytes saved a byte
+#     staged): window 6.63 / 16.32 against direct 9.76 / 21.59; tiles of
+#     128 rows 6.59-6.63 warm, 256 6.67-6.71, 512 6.90-6.93, 1,024
+#     8.37-8.41;
+#   - the Karman levels: at 212,256 rows (0.38) window 5.07 / 9.49 against
+#     direct 4.39 / 9.95; at 53,392 (0.45) 2.33 / 3.93 against 2.39 / 4.96;
+#     at 13,512 (0.66) 2.10 / 3.00 against 1.97 / 3.81;
+#   - the merge gap moved no time by more than the spread between runs,
+#     about 0.1 us.
+# Cold the window wins at every shape; warm, as a V-cycle applies a level
+# with its matrix in L2, it loses at 0.38 and 0.66 by 0.7 and 0.13 us, ties
+# at 0.45 (0.06 us, within the spread) and wins at 1.27 by 3.1 us. So the
+# times show no single crossing below 1.27: WINDOW_FACTOR = 1 is a round
+# value between the largest ratio at which the window lost (0.66) and the
+# smallest at which it won clearly (1.27), not a measured break-even.
+# WINDOW_SEGMENTS: the Karman levels need up to 16 segments a tile at a gap
+# of 128, the 3-D operator 3.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,20 +63,26 @@ from ..mesh3d import _device
 from . import assembly
 from .spaces import FunctionSpace
 
-__all__ = ["ELLMatrix", "ell_from_local", "ell_stiffness", "ell_apply_plain",
-           "ell_apply_window_plain", "ell_window_tables", "ELL_DIRECT",
-           "ELL_WINDOW", "WINDOW_ROWS", "SMEM_BYTES"]
+__all__ = ["ELLMatrix", "WindowTables", "ell_from_local", "ell_stiffness",
+           "ell_apply_plain", "ell_apply_window_plain", "ell_window_tables",
+           "ELL_DIRECT", "ELL_WINDOW", "WINDOW_ROWS", "WINDOW_GAP",
+           "WINDOW_SEGMENTS", "WINDOW_SMEM_BYTES", "WINDOW_FACTOR"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ELL_DIRECT = Kernel("ell", {"ell_direct_f32": [_P] * 4 + [_I] * 2 + [_P],
                             "ell_direct_f64": [_P] * 4 + [_I] * 2 + [_P]})
-ELL_WINDOW = Kernel("ell", {"ell_window_f32": [_P] * 5 + [_I] * 3 + [_P],
-                            "ell_window_f64": [_P] * 5 + [_I] * 3 + [_P]})
+ELL_WINDOW = Kernel("ell", {"ell_window_f32": [_P] * 7 + [_I] * 5 + [_P],
+                            "ell_window_f64": [_P] * 7 + [_I] * 5 + [_P]})
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
-WINDOW_ROWS = 128  # rows of a window block (the probe's R)
-WINDOW_ALIGN = 32  # window starts and widths, in elements
-SMEM_BYTES = 232448  # shared memory one H100 block may opt in to (227 KB)
+WINDOW_ALIGN = 32  # segment starts and lengths, in elements (>= 16 bytes)
+WINDOW_ROWS = 128  # rows of a tile, one thread each (the fastest tile above)
+WINDOW_GAP = 128  # a gap of at most this many values is staged, not cut
+WINDOW_SEGMENTS = 16  # segments of a tile at most (one lane of a warp each)
+WINDOW_LOCAL = 1 << 16  # values a tile may stage: its indices are 16-bit
+# dynamic shared memory of one tile, so that two blocks fit an SM's 228 KB
+WINDOW_SMEM_BYTES = 112 * 1024
+WINDOW_FACTOR = 1.0  # entry bytes saved per staged byte above which the window is taken
 
 
 def ell_apply_plain(vals, cols, x):
@@ -51,39 +90,97 @@ def ell_apply_plain(vals, cols, x):
     return (vals * x[cols]).sum(dim=1)
 
 
-def ell_window_tables(cols, valid=None, rows=WINDOW_ROWS, align=WINDOW_ALIGN):
-    """Window tables of the row layout cols [n, K] (numpy), as
-    scripts/onehot_window_probe.py builds them but aligned to `align`
-    elements: per block of `rows` rows the window start w0 [nb] (the
-    smallest column of its valid entries, rounded down), the block-local
-    indices lidx [n, K] = cols - w0 (0 on padding entries) and the width W,
-    the largest span max(cols) - w0 + 1 of a block rounded up to `align`."""
+class WindowTables(NamedTuple):
+    """Segmented window tables of a row layout [n, K] in tiles of `rows`
+    rows (nt tiles, at most G segments each). Segment g of tile t copies
+    x[start[t, g] : start[t, g] + length[t, g]] to window[offset[t, g]:];
+    unused segments have length 0 and offset staged[t]."""
+    rows: int
+    start: np.ndarray  # [nt, G] int32, 32-aligned
+    length: np.ndarray  # [nt, G] int32, values copied (clamped to x's end)
+    offset: np.ndarray  # [nt, G] int32, 32-aligned, ascending in g
+    lidx: np.ndarray  # [n, K] uint16 tile-local index of each entry (0 on padding)
+    staged: np.ndarray  # [nt] int64 values a tile's window holds
+
+
+def ell_window_tables(cols, valid=None):
+    """The segmented window tables (WindowTables) of the row layout cols
+    [n, K] (numpy) in tiles of WINDOW_ROWS rows, or None where a tile would
+    stage more than 65,536 values. A tile's valid columns, rounded out to
+    WINDOW_ALIGN-element chunks, form runs of chunks; runs at most
+    WINDOW_GAP values apart are merged, and then the smallest gaps until at
+    most WINDOW_SEGMENTS remain. Padding entries (valid False) do not widen
+    a window; a tile with none valid stages x[0 : WINDOW_ALIGN]."""
+    rows, gap, segments, align = WINDOW_ROWS, WINDOW_GAP, WINDOW_SEGMENTS, WINDOW_ALIGN
     cols = np.asarray(cols, dtype=np.int64)
     n, K = cols.shape
     valid = np.ones((n, K), dtype=bool) if valid is None else np.asarray(valid, bool)
-    nb = -(-n // rows)
-    pad = nb * rows - n
-    vpad = np.concatenate([valid, np.zeros((pad, K), dtype=bool)])
-    cpad = np.concatenate([cols, np.zeros((pad, K), dtype=np.int64)])
-    lo = np.where(vpad, cpad, n).reshape(nb, rows * K).min(axis=1)
-    hi = np.where(vpad, cpad, -1).reshape(nb, rows * K).max(axis=1)
-    w0 = (lo // align) * align
-    W = int(-(-int((hi - w0 + 1).max()) // align) * align)
-    lidx = np.where(valid, cols - np.repeat(w0, rows)[:n, None], 0)
-    return w0, lidx, W
+    nt = -(-n // rows)
+    nchk = n // align + 1
+    tile = np.arange(n, dtype=np.int64)[:, None] // rows
+    key = (tile * nchk + cols // align)[valid]
+    empty = np.ones(nt, dtype=bool)
+    empty[np.unique(np.broadcast_to(tile, (n, K))[valid])] = False
+    u = np.unique(np.concatenate([key, np.flatnonzero(empty) * nchk]))
+    ut, uc = u // nchk, u % nchk
+    same = ut[1:] == ut[:-1]
+    gaps = (uc[1:] - uc[:-1] - 1) * align
+    cut = same & (gaps > gap)
+    # keep a tile's `segments` - 1 widest gaps as cuts, merge across the rest
+    ci = np.flatnonzero(cut)
+    if len(ci):
+        order = np.lexsort((-gaps[ci], ut[ci]))
+        ts = ut[ci][order]
+        first = np.r_[True, ts[1:] != ts[:-1]]
+        rank = np.arange(len(ci)) - np.maximum.accumulate(
+            np.where(first, np.arange(len(ci)), 0))
+        cut[ci[order[rank >= segments - 1]]] = False
+    s0 = np.flatnonzero(np.r_[True, ~same | cut])
+    s1 = np.r_[s0[1:], len(u)] - 1
+    seg_t = ut[s0]
+    seg_start = uc[s0] * align
+    seg_len = (uc[s1] - uc[s0] + 1) * align
+    staged = np.bincount(seg_t, weights=seg_len, minlength=nt).astype(np.int64)
+    if staged.max() > WINDOW_LOCAL:
+        return None
+    t_first = np.searchsorted(seg_t, np.arange(nt))
+    g = np.arange(len(s0)) - t_first[seg_t]
+    seg_off = np.cumsum(seg_len) - seg_len
+    seg_off -= seg_off[t_first][seg_t]
+    G = int(g.max()) + 1
+    start = np.zeros((nt, G), dtype=np.int32)
+    length = np.zeros((nt, G), dtype=np.int32)
+    offset = np.repeat(staged[:, None], G, axis=1).astype(np.int32)
+    start[seg_t, g] = seg_start
+    length[seg_t, g] = np.minimum(seg_len, n - seg_start)
+    offset[seg_t, g] = seg_off
+    # an entry's segment: the last one of its tile that starts at or before it
+    span = n + align
+    idx = np.searchsorted(seg_t * span + seg_start,
+                          (tile * span + cols)[valid], side="right") - 1
+    lidx = np.zeros((n, K), dtype=np.uint16)
+    lidx[valid] = seg_off[idx] + cols[valid] - seg_start[idx]
+    return WindowTables(rows, start, length, offset, lidx, staged)
 
 
-def ell_apply_window_plain(vals, lidx, w0, x, W, rows=WINDOW_ROWS):
-    """The windowed apply on the row layout: block b's window
-    x[w0[b] : w0[b] + W] (zero past the end of x), gathered through the
-    block-local indices lidx [n, K]."""
+def ell_apply_window_plain(vals, lidx, start, length, offset, x, rows=WINDOW_ROWS):
+    """The windowed apply on the row layout: tile t's window is the
+    concatenation of its segments x[start[t, g] : start[t, g] + length[t, g]]
+    at offset[t, g] (zero where nothing was copied), gathered through the
+    tile-local indices lidx [n, K] (uint16 values, in any integer tensor)."""
     n, K = lidx.shape
-    nb = w0.shape[0]
-    xpad = torch.cat([x, x.new_zeros(W)])
-    win = xpad[w0.long()[:, None] + torch.arange(W, device=x.device)]  # [nb, W]
-    lpad = torch.cat([lidx.long(), lidx.new_zeros((nb * rows - n, K)).long()])
-    g = torch.gather(win, 1, lpad.view(nb, rows * K)).view(nb * rows, K)[:n]
-    return (vals * g).sum(dim=1)
+    nt, G = start.shape
+    start, length, offset = (a.long() for a in (start, length, offset))
+    width = int((offset + length).max())
+    j = torch.arange(width, device=x.device).expand(nt, width).contiguous()
+    g = torch.searchsorted(offset, j, right=True) - 1
+    off_g = offset.gather(1, g)
+    pos = start.gather(1, g) + j - off_g
+    inside = (j - off_g) < length.gather(1, g)
+    win = torch.where(inside, x[pos.clamp(0, n - 1)], x.new_zeros(()))
+    loc = lidx.long() & 0xFFFF
+    loc = torch.cat([loc, loc.new_zeros((nt * rows - n, K))]).view(nt, rows * K)
+    return (vals * torch.gather(win, 1, loc).view(nt * rows, K)[:n]).sum(dim=1)
 
 
 class ELLMatrix:
@@ -92,28 +189,43 @@ class ELLMatrix:
     val=0 (they multiply x[0] harmlessly); valid [n, K] marks the real
     entries (default: all). apply(x) takes x [n] in `dtype`.
 
-    kernel is "window" where every 128-row block's columns span a window of
-    at most SMEM_BYTES in `dtype`, else "direct": the CUDA kernel that
-    apply launches on the card. A window matrix holds its window tables
-    (ell_window_tables) as w0 [nb] and lidx [n, K] int32 with the width W.
-    On the card the matrix also holds the kernels' lane copies: vals_t
-    [K, n], cols_t [K, n] int32 and, for the window kernel, lidx_t [K, n]."""
+    tables holds the segmented window tables (ell_window_tables) where they
+    exist and a tile's window fits WINDOW_SMEM_BYTES in `dtype`, else None;
+    kernel is "window" where tables exist and the byte model of the module
+    header favours them, else "direct": the CUDA kernel that apply
+    launches on the card. saved_bytes and staged_bytes are the model's two
+    sides. On the card the matrix holds the kernels' lane copies vals_t
+    [K, n] and cols_t [K, n] int32 and, with tables, lidx_t [K, n] int16
+    and the segment tables seg_start, seg_len, seg_off [nt, G] int32.
+    launches counts this matrix's kernel launches by kernel ("direct",
+    "window")."""
 
     def __init__(self, cols, vals, dtype, device=None, valid=None):
         cols = np.asarray(cols, dtype=np.int64)
         vals = np.asarray(vals, dtype=np.float64)
         self.n, self.width = cols.shape
+        self.valid = valid
+        self.launches = {"direct": 0, "window": 0}
         self.dtype = dtype
         self.device = device = _device(device)
         self.cols = torch.as_tensor(cols, device=device)
         self.vals = torch.as_tensor(vals, dtype=dtype, device=device)
-        w0, lidx, W = ell_window_tables(cols, valid)
         itemsize = torch.finfo(dtype).bits // 8
-        self.kernel = "window" if W * itemsize <= SMEM_BYTES else "direct"
-        self.W = W
-        if self.kernel == "window":
-            self.w0 = torch.as_tensor(w0, dtype=torch.int32, device=device)
-            self.lidx = torch.as_tensor(lidx, dtype=torch.int32, device=device)
+        tabs = ell_window_tables(cols, valid)
+        if tabs is not None and int(tabs.staged.max()) * itemsize > WINDOW_SMEM_BYTES:
+            tabs = None
+        self.tables = tabs
+        self.saved_bytes = 2 * self.n * self.width
+        self.staged_bytes = None if tabs is None else int(tabs.staged.sum()) * itemsize
+        self.kernel = ("window" if tabs is not None
+                       and self.saved_bytes > WINDOW_FACTOR * self.staged_bytes
+                       else "direct")
+        if tabs is not None:
+            self.lidx = torch.as_tensor(tabs.lidx.view(np.int16), device=device)
+            self.seg_start, self.seg_len, self.seg_off = (
+                torch.as_tensor(a, device=device)
+                for a in (tabs.start, tabs.length, tabs.offset))
+            self.staged_max = int(tabs.staged.max())
         if device.type == "cuda":
             if dtype not in _SUFFIX:
                 raise TypeError(f"ELLMatrix: the kernels take float32 and float64, "
@@ -127,8 +239,8 @@ class ELLMatrix:
 
             self.vals_t = lane(vals, dtype)
             self.cols_t = lane(cols, torch.int32)
-            if self.kernel == "window":
-                self.lidx_t = lane(lidx, torch.int32)
+            if tabs is not None:
+                self.lidx_t = lane(tabs.lidx.view(np.int16), torch.int16)
 
     def _check(self, x):
         if x.device != self.vals.device:
@@ -162,27 +274,35 @@ class ELLMatrix:
             ELL_DIRECT.launch(f"ell_direct_{_SUFFIX[self.dtype]}",
                               self.vals_t.data_ptr(), self.cols_t.data_ptr(),
                               x.data_ptr(), y.data_ptr(), self.n, self.width, stream)
+        self.launches["direct"] += 1
         return y
 
     def apply_window(self, x):
         """y = A x through the windowed kernel (P2) on the card, for a matrix
-        whose kernel is "window"; the plain windowed version for a CPU
-        tensor."""
-        if self.kernel != "window":
-            raise ValueError(f"ELLMatrix: a window of {self.W} values does not fit "
-                             f"shared memory in {self.dtype}")
+        with window tables, whichever kernel the rule picked; the plain
+        windowed version for a CPU tensor."""
+        if self.tables is None:
+            raise ValueError(f"ELLMatrix: no segmented window fits shared memory in "
+                             f"{self.dtype}")
         if x.device.type == "cpu" and self.device.type == "cpu":
-            return ell_apply_window_plain(self.vals, self.lidx, self.w0, x, self.W)
+            return ell_apply_window_plain(self.vals, self.lidx, self.seg_start,
+                                          self.seg_len, self.seg_off, x,
+                                          self.tables.rows)
         if x.device.type != "cuda":
             raise ValueError(f"ELLMatrix.apply: no kernel for device {x.device}")
         x = self._check(x)
+        if x.data_ptr() % 16:
+            x = x.clone()  # the bulk copies read 16-byte-aligned addresses
         y = torch.empty_like(x)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
             ELL_WINDOW.launch(f"ell_window_{_SUFFIX[self.dtype]}",
                               self.vals_t.data_ptr(), self.lidx_t.data_ptr(),
-                              self.w0.data_ptr(), x.data_ptr(), y.data_ptr(),
-                              self.n, self.width, self.W, stream)
+                              self.seg_start.data_ptr(), self.seg_len.data_ptr(),
+                              self.seg_off.data_ptr(), x.data_ptr(), y.data_ptr(),
+                              self.n, self.width, self.tables.rows,
+                              self.seg_start.shape[1], self.staged_max, stream)
+        self.launches["window"] += 1
         return y
 
     def __call__(self, x):

@@ -138,7 +138,9 @@ def test_stepper_iterate_exact_with_jax(karman_problems, case):
     assert not js.packed and not js.winkernel
     ts = FastStepper(tp.V, tp.Q, tp.u_bcs, tp.p_bcs, tp.rho, tp.mu, **kw,
                      tangent_mode="linearize" if mg else "jvp", device="cpu")
-    assert ts.K_Q.kernel == "window"  # the ELL kernel it takes on the card
+    # the ELL kernel it takes on the card: in float64 this 425-row operator's
+    # window would stage more bytes than its 16-bit indices save
+    assert ts.K_Q.kernel == "direct"
     if mg:
         jh = JaxHierarchy(jp.mesh_hierarchy, bc_mask=js.mask_p, smoother_degree=3)
         js.pressure_precond = jh.v_cycle

@@ -4,8 +4,11 @@
 # equal to the lagged one where its reaction term vanishes, and taking a
 # block of more cells than shared memory would hold; their 3-D variants
 # (csrc/winmom3d.cu, winstiff.cu's winstiff_p1_3d) the same on box_mesh
-# tet layouts, taking a block of any size (their local results live in a
-# device scratch) and refusing inputs they do not take; the window mass
+# tet layouts, taking a block of any size (K3 3-D's local results live in a
+# device scratch; K4b 3-D, a cluster launch, stages them at their list
+# positions in the cluster's shared memory and runs in passes where they
+# exceed it, summing in one order at every cluster and block size) and
+# refusing inputs they do not take; the window mass
 # kernel (K4a, csrc/winmass.cu), the element-matrix kernel (K5,
 # csrc/winform.cu) and K4b's P2 variants on P1/P2 triangle and tet layouts
 # (NL = 3, 6, 4, 10), the same. Skips without a CUDA device. Imports
@@ -18,6 +21,7 @@ import pytest
 import torch
 
 from flow_tpu_torch.attic import winform, winkernel, winmom
+from flow_tpu_torch.attic.window import scatter_positions
 from flow_tpu_torch.fem import assembly, formlang
 from flow_tpu_torch.fem.spaces import FunctionSpace, VectorFunctionSpace
 from flow_tpu_torch.mesh import unit_square_mesh
@@ -223,26 +227,41 @@ def test_newton_3d_kernel_without_reaction_is_the_lagged_kernel(box):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [128, None])
-def test_stiffness_3d_kernel_matches_plain(box, S):
+@pytest.mark.parametrize("S", [128, 256, None, "chunked"])
+def test_stiffness_3d_kernel_matches_plain(box, S, monkeypatch):
+    # the cluster kernel at several strides; "chunked": a budget of 2 KB of
+    # local results a block, so the default layout runs in several passes,
+    # which must sum in the order of one pass (bitwise the same windows)
     _, Q = box
-    op = winkernel.WindowStiffnessOperator(Q, S=S)
+    op = winkernel.WindowStiffnessOperator(Q, S=None if S == "chunked" else S)
     x_pad = torch.zeros(op.wl.n_pad, device="cuda")
     x_pad[:op.wl.n] = torch.as_tensor(np.random.default_rng(7).standard_normal(op.wl.n),
                                       dtype=torch.float32)
+    y_one = op.windows(x_pad)
+    C = op.lidx.shape[2]
+    if S == "chunked":
+        monkeypatch.setattr(winkernel, "LOC_BYTES_3D", 2048)
+        room = winkernel.CLUSTER_3D * winkernel.cluster_plan(C, 4)
+        assert int(op.positions[0][:, -1].max()) > room
     before = winkernel.WINSTIFF3D.launches
     y = op.windows(x_pad)
     y2 = op.windows(x_pad)
     torch.cuda.synchronize()
     assert winkernel.WINSTIFF3D.launches == before + 2
-    assert torch.equal(y, y2)
+    assert torch.equal(y, y2) and torch.equal(y, y_one)
     y_plain = winkernel.stiffness_windows_plain(x_pad, op.lidx, op.valid, op.Cg,
                                                 op.kref, op.wl.S, op.wl.W)
     assert _rel(y, y_plain) <= TOL
+    assert winkernel.max_active_clusters(op.wl.nb, op.wl.W, C) > 0
+    # every cluster size and block size sums in the same order
+    for cl, threads in ((1, 64), (2, 256), (4, 512), (8, 384)):
+        monkeypatch.setattr(winkernel, "CLUSTER_3D", cl)
+        monkeypatch.setattr(winkernel, "THREADS_3D", threads)
+        assert torch.equal(op.windows(x_pad), y)
 
 
 @pytest.mark.cuda
-def test_3d_kernels_take_blocks_beyond_shared_memory_and_refuse_bad_inputs(box):
+def test_3d_kernels_take_blocks_beyond_shared_memory_and_refuse_bad_inputs(box, monkeypatch):
     # one block of C cells, past what shared memory would hold (16 B a cell
     # for K4b 3-D, 120 B for K3 3-D): the 3-D kernels take it; one real
     # cell whose window dofs 0..NL-1 hold x = 1, all other cells masked
@@ -261,14 +280,24 @@ def test_3d_kernels_take_blocks_beyond_shared_memory_and_refuse_bad_inputs(box):
     ent[0, :4] = torch.arange(4, dtype=torch.int32, **z)
     x = torch.zeros(S + W, **z)
     x[:4] = 1.0
-    y = winkernel.stiffness_windows(x, lidx, valid, cg, kref, S, W, (rowptr, ent))
+    # the cluster kernel reads the lists' inverse: entry c*4 + i at pos[i*C + c]
+    pos = torch.as_tensor(scatter_positions(rowptr.cpu().numpy(), ent.cpu().numpy(), 4),
+                          **z)
+    lists = dict(positions=(rowptr, pos))
+    y = winkernel.stiffness_windows(x, lidx, valid, cg, kref, S, W, **lists)
     torch.cuda.synchronize()
     assert y[0, :4].tolist() == [36.0] * 4 and float(y[0, 4:].abs().max()) == 0.0
+    for cl, threads in ((16, 256), (8, 1024)):  # at most 8 blocks of 512 threads
+        with monkeypatch.context() as m:
+            m.setattr(winkernel, "CLUSTER_3D", cl)
+            m.setattr(winkernel, "THREADS_3D", threads)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                winkernel.stiffness_windows(x, lidx, valid, cg, kref, S, W, **lists)
     with pytest.raises(TypeError, match="float32"):
-        winkernel.stiffness_windows(x.double(), lidx, valid, cg, kref, S, W, (rowptr, ent))
+        winkernel.stiffness_windows(x.double(), lidx, valid, cg, kref, S, W, **lists)
     with pytest.raises(ValueError, match="contiguous"):
         winkernel.stiffness_windows(x, lidx, valid, cg.transpose(1, 2).contiguous()
-                                    .transpose(1, 2), kref, S, W, (rowptr, ent))
+                                    .transpose(1, 2), kref, S, W, **lists)
     C = 5000
     before = winmom.WINMOM3D.launches
     out = winmom.momentum_windows(

@@ -4,7 +4,9 @@
 # must reproduce the plain scatter, and the plain version of the window
 # stiffness kernel (K4b) must match the JAX Pallas kernel run in interpret
 # mode at the JAX package's own tolerance (rtol 3e-5: both compute in
-# float32, in another summation order).
+# float32, in another summation order). The 3-D P1 kernel's cluster launch
+# (cluster_plan, the inverse lists of scatter_positions, the passes) is
+# replayed in numpy on a box layout and must sum every row in list order.
 import numpy as np
 import pytest
 import torch
@@ -15,12 +17,15 @@ from flow_tpu.attic.winkernel import WindowStiffnessOperator as JaxStiffness
 from flow_tpu.fem.spaces import FunctionSpace as JaxFunctionSpace
 from flow_tpu.models.karman import KarmanProblem as JaxKarman
 from flow_tpu_torch.attic.window import (build_scatter_lists,
-                                         build_window_layout, overlap_add_fn)
-from flow_tpu_torch.attic.winkernel import (WindowStiffnessOperator,
+                                         build_window_layout, overlap_add_fn,
+                                         scatter_positions)
+from flow_tpu_torch.attic import winkernel
+from flow_tpu_torch.attic.winkernel import (WindowStiffnessOperator, cluster_plan,
                                             stiffness_windows_plain)
 from flow_tpu_torch.fem import assembly
 from flow_tpu_torch.fem.ell import ell_stiffness
 from flow_tpu_torch.fem.spaces import FunctionSpace
+from flow_tpu_torch.mesh3d import box_mesh
 from flow_tpu_torch.models.karman import KarmanProblem
 
 torch.set_num_threads(1)
@@ -121,3 +126,61 @@ def test_wrapper_refuses_devices_without_a_kernel(problems):
     op = WindowStiffnessOperator(tp.Q, S=128)
     with pytest.raises(ValueError, match="no kernel for device"):
         op.windows(torch.zeros(op.wl.n_pad, device="meta"))
+
+
+@pytest.mark.parametrize("cl, loc_bytes", [(8, None), (2, 4 * 300), (3, 4 * 40)])
+def test_cluster_walk_reproduces_plain(cl, loc_bytes, monkeypatch):
+    # the 3-D P1 kernel's cluster launch replayed in numpy on a box layout
+    # (N=4): passes over whole rows of at most cl * cluster_plan staged
+    # values, each cell's local results stored at their list positions
+    # (scatter_positions) in the array of the block that stages them, each
+    # row summed along its positions in order by the block that stages its
+    # first; the windows equal a one-pass walk of the lists bitwise and the
+    # plain version within float32 rounding
+    mesh = box_mesh((0, 0, 0), (1, 1, 1), 4, 4, 4, dtype=torch.float32, device="cpu")
+    op = WindowStiffnessOperator(FunctionSpace(mesh, 1), S=128)
+    wl = op.wl
+    nb, NL, C = op.lidx.shape
+    rowptr, ent = build_scatter_lists(wl)
+    pos = scatter_positions(rowptr, ent, NL).reshape(nb, NL, C)
+    rng = np.random.default_rng(9)
+    x_pad = torch.zeros(wl.n_pad)
+    x_pad[:wl.n] = torch.as_tensor(rng.standard_normal(wl.n), dtype=torch.float32)
+    plain = stiffness_windows_plain(x_pad, op.lidx, op.valid, op.Cg, op.kref, wl.S, wl.W)
+    u = x_pad[(torch.arange(nb)[:, None, None] * wl.S + op.lidx).long()]
+    K = op.kref.view(9, NL, NL)
+    loc = (torch.einsum("bkc,kij,bjc->bic", op.Cg, K, u) * op.valid[:, None, :]).numpy()
+    monkeypatch.setattr(winkernel, "CLUSTER_3D", cl)
+    if loc_bytes is not None:
+        monkeypatch.setattr(winkernel, "LOC_BYTES_3D", loc_bytes)
+    room = cl * cluster_plan(C, NL)
+    out = np.zeros((nb, wl.W), dtype=np.float32)
+    one = np.zeros((nb, wl.W), dtype=np.float32)
+    most = 0
+    for b in range(nb):
+        rp = rowptr[b]
+        for w in range(wl.W):
+            for p in range(rp[w], rp[w + 1]):
+                one[b, w] += loc[b].T.reshape(-1)[ent[b, p]]
+        r0, passes = 0, 0
+        while r0 < wl.W:
+            e0 = int(rp[r0])
+            r1 = (wl.W if rp[-1] - e0 <= room
+                  else int(np.searchsorted(rp, e0 + room, side="right")) - 1)
+            assert r1 > r0
+            e1 = int(rp[r1])
+            Q = -(-(e1 - e0) // cl)
+            staged = [np.full(Q, np.nan, dtype=np.float32) for _ in range(cl)]
+            for i in range(NL):
+                for c in range(C):
+                    q = int(pos[b, i, c]) - e0
+                    if 0 <= q < e1 - e0:
+                        staged[q // Q][q % Q] = loc[b, i, c]
+            for w in range(r0, r1):
+                for q in range(int(rp[w]) - e0, int(rp[w + 1]) - e0):
+                    out[b, w] += staged[q // Q][q % Q]
+            r0, passes = r1, passes + 1
+        most = max(most, passes)
+    assert (most > 1) == (loc_bytes is not None)
+    np.testing.assert_array_equal(out, one)
+    np.testing.assert_allclose(out, plain.numpy(), rtol=1e-5, atol=1e-5)
