@@ -66,9 +66,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    state: K3 3-D lagged and Newton (velocity, nb=525, C=3,063) and K4b 3-D
    (pressure, nb=68, C=23,958) against their plain versions (<= 1e-5
    relative), bitwise repeat, wall times and the plain versions' times;
-   K4b 3-D's cluster launch (blocks per cluster, threads, passes, the
-   clusters the card holds at once), every cluster size and block size of
-   the sweep against it bitwise, and a layout of stride 16,384 on the same
+   K4b 3-D's cluster launch (csrc/wincluster.cuh: blocks per cluster,
+   threads, passes, the clusters launched and the clusters the card holds
+   at once), and a layout of stride 16,384 on the same
    mesh, which runs in more than one pass, against its plain version; the
    CSR yardstick of K4b at N=64 and of K3 3-D at N=32, beside the kernel's
    time at N=32 (the assembled N=64 tangent has ~1.4G element entries
@@ -89,15 +89,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    unless K4a launches once per step and K5 once per BiCGStab matvec, or if
    the steps differ from the reference (CompiledForm.apply and mass_apply,
    run under torch's deterministic algorithms) by more than one iteration
-   in any step or 1e-4 relative in the state; then
+   in any step or 1e-4 relative in the state, or if the iterations are not
+   FORMWIN_ITERS (the kernels sum in the order they always did); then
    K4a and K5 against their plain versions at this layout, with the CSR
-   yardstick;
+   yardstick and their cluster launch, whose clusters the card must hold
+   at once;
 18. K4b P2: Jacobi-CG Dirichlet P2 Poisson solves with WindowStiffnessOperator
    on unit_square_mesh(256) and box_mesh N=32 tets, float64 vectors
    (launches = iterations, solution within 1e-3 of the einsum operator's),
    each operator then against its plain version at its layout (2-D P2,
    NL = 6; 3-D P2, NL = 10); then K4a and K5 at NL = 10 on the tet layout
-   against their plain versions;
+   against their plain versions, with the CSR yardstick and their cluster
+   launch (68 window blocks: one cluster each, all resident), and at NL = 3
+   and 4 on the P1 layouts of the same meshes;
 19. big blocks: K4b 2-D P1 and K3 2-D lagged and Newton on
    unit_square_mesh(128) layouts with S=16,384, whose blocks hold more cells
    than shared memory could (C=32,318 and 8,158), against their plain
@@ -128,14 +132,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    the direct one, bitwise repeat; the rule's choice and its two byte
    counts; wall times, the plain versions' times, a torch.sparse CSR matvec
    as the yardstick and each kernel's bound from the bytes of the index
-   width it reads; at the 3-D pressure operator, the 53,392-row level and
-   the P2 probe, the windowed kernel also at every tile size and merge gap
-   of the sweep;
+   width it reads;
 24. device times (torch.profiler, last, since profiling slows later host
-   code) of the ELL kernels at every shape and sweep point of 23 (with the
-   L2 cache warm, and cold: after a 64 MB write), K3 2-D lagged and Newton,
-   K4b 2-D, the three 3-D kernels (K4b 3-D also cold and at every point of
-   its sweep), K2, K4a, K5 and K4b 2-D and 3-D P2.
+   code) of the ELL kernels at every shape of 23 (with the L2 cache warm,
+   and cold: after a 64 MB write), K3 2-D lagged and Newton, K4b 2-D, the
+   three 3-D kernels (K4b 3-D also cold and at its 2-pass layout), K2, K4a
+   and K5 at NL = 6 and 10 (L2 warm and cold), and K4b 2-D and 3-D P2.
 
 The line before the last holds the kernel report, the one before it the
 card; the last line is {"ok": true, "device": {...}}. Imports neither jax
@@ -198,6 +200,11 @@ STRUCTURED2D_DOFS = 4198401  # P1: 2049^2
 FORMWIN_N = 1024  # unit_square_mesh(1024, "right") P2: the formwin2d steps
 FORMWIN_DOFS = 4198401  # P2: 2049^2
 FORMWIN_STEPS = 6  # 1 warm-up + 5 timed
+# formwin2d's BiCGStab iterations a step on the card (H100 80GB HBM3) with
+# K4a and K5 summing their local results from a device scratch along the
+# scatter lists: the cluster kernels sum every window row in the same
+# order, so the steps, and these counts, must not move
+FORMWIN_ITERS = [7, 9, 9, 10, 10, 10]
 # implicit Euler step and diffusivity of formwin2d: where |b| = 0.5 (h =
 # 1/1024) the cell Peclet number |b| h / (2 kappa) is ~1 and the Courant
 # number |b| dt / h ~2.6
@@ -1061,15 +1068,12 @@ def phase_cavity3d_main():
 WINSTIFF3D_CHUNKED_S = 16384
 
 
-def _cluster_passes(op):
-    """Passes of K4b 3-D's cluster launch over a layout: the kernel's rule
-    (whole rows, at most CLUSTER_3D * cluster_plan staged values a pass)
-    walked on the host over every window block's rowptr; the most of any
-    block."""
-    from flow_tpu_torch.attic import winkernel
-
-    nb, NL, C = op.lidx.shape
-    room = winkernel.CLUSTER_3D * winkernel.cluster_plan(C, NL)
+def _cluster_passes(op, plan):
+    """Passes of a cluster kernel's launch `plan` (winkernel.ClusterLaunch)
+    over the layout of `op`: the walk's rule (whole rows, at most plan.cl *
+    plan.cap staged values a pass, csrc/wincluster.cuh) on the host over
+    every window block's rowptr; the most of any block."""
+    room = plan.cl * plan.cap
     most = 0
     for rp in op.positions[0].cpu().numpy():
         passes, r0 = 0, 0
@@ -1121,12 +1125,12 @@ def _winstiff3d_report(kq, rng):
     del A
     nbytes, nops = _winstiff_work(kq)
     b_ms, b_by = bound_ms(nbytes, nops)
-    chosen = (winkernel.CLUSTER_3D, winkernel.THREADS_3D)
-    resident = winkernel.max_active_clusters(nb, kq.wl.W, C)
+    plan = winkernel.cluster_launch(winkernel.WINSTIFF3D, nb, C, NL, "cuda")
+    chosen = (plan.cl, plan.threads)
     log(f"[window3d] winstiff3d pressure: n={kq.wl.n} nb={nb} S={kq.wl.S} W={kq.wl.W} "
-        f"C={C} cluster={chosen[0]} threads={chosen[1]} staged_per_block="
-        f"{winkernel.cluster_plan(C, NL)} passes={_cluster_passes(kq)} "
-        f"max_active_clusters={resident} max_abs_err={abs_err:.3e} "
+        f"C={C} cluster={plan.cl} threads={plan.threads} staged_per_block={plan.cap} "
+        f"passes={_cluster_passes(kq, plan)} clusters={plan.clusters} "
+        f"max_active_clusters={plan.resident} max_abs_err={abs_err:.3e} "
         f"rel_err={rel_err:.3e} kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
         f"csr_ms={lib_ms:.5f} (N=64, nnz {nnz}) bytes={nbytes} ops={nops} "
         f"bound_ms={b_ms:.6f} ({b_by})")
@@ -1136,7 +1140,8 @@ def _winstiff3d_report(kq, rng):
     big = winkernel.WindowStiffnessOperator(kq.space, S=WINSTIFF3D_CHUNKED_S)
     xb = inputs(big)
     nbb, _, Cb = big.lidx.shape
-    passes_b = _cluster_passes(big)
+    passes_b = _cluster_passes(big, winkernel.cluster_launch(winkernel.WINSTIFF3D, nbb, Cb,
+                                                              NL, "cuda"))
     check(passes_b > 1, f"winstiff3d: the S={big.wl.S} layout fits one pass")
     abs_b, rel_b = _check_kernel("winstiff3d chunked", lambda: big.windows(xb),
                                  plain_of(big, xb))
@@ -1399,9 +1404,9 @@ def _formwin_steps(U, n_steps, apply_K, apply_M, free, mask, jac):
 def _window_work(op, table_floats, ops_per_cell):
     """Bytes and operations of one window apply of K4a or K5: x, lidx, valid
     and the kernel's tables (`table_floats` floats) read once and the
-    output windows written once (not the scatter lists or the scratch that
-    only the kernels' design reads); `ops_per_cell` on the real cells,
-    plus the scatter sums."""
+    output windows written once (not the row pointers and list positions
+    that only the kernels' design reads); `ops_per_cell` on the real
+    cells, plus the row sums."""
     wl = op.wl
     nb, NL, C = op.lidx.shape
     cells = int(op.valid.sum())
@@ -1423,11 +1428,17 @@ def _element_csr(op, Ae):
     return _csr(rows, cols, Ae.reshape(-1), wl.n_pad)
 
 
-def _window_kernel_report(name, op, kernel, plain, Ae, nbytes, nops, reps=50):
+def _window_kernel_report(name, op, kernel, plain, Ae, nbytes, nops, reps=50,
+                          counter=None):
     """Kernel against plain (<= 1e-5 relative, bitwise repeat), its wall
     time, the plain version's, the CSR matvec of the same assembled
-    operator (checked against the kernel's apply) and the bound."""
+    operator (checked against the kernel's apply) and the bound. With the
+    `counter` of a cluster kernel (K4a, K5) also its launch: blocks a
+    cluster, threads, staged entries a block, passes, clusters launched and
+    the clusters the card holds at once, which must cover the launch (one
+    wave). Returns the report and the device-time jobs (L2 warm, cold)."""
     import torch
+    from flow_tpu_torch.attic import winkernel
 
     x = torch.zeros(op.wl.n_pad, device="cuda")
     x[:op.wl.n] = torch.as_tensor(np.random.default_rng(4).standard_normal(op.wl.n),
@@ -1443,12 +1454,25 @@ def _window_kernel_report(name, op, kernel, plain, Ae, nbytes, nops, reps=50):
     del A
     b_ms, b_by = bound_ms(nbytes, nops)
     wl = op.wl
-    log(f"[{name}] n={wl.n} nb={wl.nb} S={wl.S} W={wl.W} C={wl.C} NL={op.lidx.shape[1]} "
+    nb, NL, C = op.lidx.shape
+    row = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms)
+    launch = ""
+    if counter is not None:
+        plan = winkernel.cluster_launch(counter, nb, C, NL, "cuda")
+        row.update(plan._asdict(), passes=_cluster_passes(op, plan))
+        launch = (f" cluster={plan.cl} threads={plan.threads} staged_per_block={plan.cap} "
+                  f"passes={row['passes']} clusters={plan.clusters} "
+                  f"max_active_clusters={plan.resident} window_blocks_per_cluster<="
+                  f"{-(-nb // plan.clusters)}")
+        check(0 < plan.clusters <= plan.resident,
+              f"{name}: {plan.clusters} clusters launched, the card holds "
+              f"{plan.resident} at once")
+    log(f"[{name}] n={wl.n} nb={wl.nb} S={wl.S} W={wl.W} C={wl.C} NL={NL}{launch} "
         f"max_abs_err={abs_err:.3e} rel_err={rel_err:.3e} kernel_ms={ms:.5f} "
         f"plain_ms={plain_ms:.5f} csr_ms={lib_ms:.5f} (nnz {nnz}) bytes={nbytes} "
         f"ops={nops} bound_ms={b_ms:.6f} ({b_by})")
-    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms), lambda: kernel(x)
+    return row, {"warm": lambda: kernel(x), "cold": lambda: (_l2_flush().zero_(), kernel(x))}
 
 
 def _mass_report(name, M):
@@ -1460,7 +1484,8 @@ def _mass_report(name, M):
     return _window_kernel_report(
         name, M, M.windows,
         lambda x: winkernel.mass_windows_plain(x, M.lidx, M.valid, M.detj, M.mref,
-                                               M.wl.S, M.wl.W), Ae, nbytes, nops)
+                                               M.wl.S, M.wl.W), Ae, nbytes, nops,
+        counter=winkernel.WINMASS)
 
 
 def _element_report(name, K):
@@ -1472,17 +1497,19 @@ def _element_report(name, K):
     return _window_kernel_report(
         name, K, K.windows,
         lambda x: winform.element_windows_plain(x, K.lidx, K.valid, K.aloc, K.wl.S,
-                                                K.wl.W), Ae, nbytes, nops)
+                                                K.wl.W), Ae, nbytes, nops,
+        counter=winform.WINFORM)
 
 
 def _stiffness_report(name, op):
     from flow_tpu_torch.attic import winkernel
 
-    return _window_kernel_report(
+    row, jobs = _window_kernel_report(
         name, op, op.windows,
         lambda x: winkernel.stiffness_windows_plain(x, op.lidx, op.valid, op.Cg, op.kref,
                                                     op.wl.S, op.wl.W),
         _stiffness_elements(op), *_winstiff_work(op))
+    return row, jobs["warm"]
 
 
 def phase_formwin2d():
@@ -1551,6 +1578,9 @@ def phase_formwin2d():
           "formwin2d: K4a launches do not match the steps")
     check(launches["winform"] == sum(2 * i + 1 for i in iters),
           "formwin2d: K5 launches do not match the BiCGStab iterations")
+    check(iters == FORMWIN_ITERS,
+          f"formwin2d: BiCGStab iterations {iters}, not the sum-order-preserving "
+          f"{FORMWIN_ITERS}")
     check(tuple(U.shape) == (V.n_dofs,) and bool(torch.isfinite(U).all()),
           "formwin2d: state of the wrong shape or not finite")
     umax, u0max = float(U.abs().max()), float(U0.abs().max())
@@ -1576,11 +1606,11 @@ def phase_formwin2d():
     check(rel <= 1e-4, f"formwin2d: the state differs from the reference by {rel}")
     del U_ref, U_rep, runs, dg
 
-    k4a, k4a_job = _mass_report("formwin2d winmass", M)
-    k5, k5_job = _element_report("formwin2d winform", K)
+    k4a, k4a_jobs = _mass_report("formwin2d winmass", M)
+    k5, k5_jobs = _element_report("formwin2d winform", K)
     k4a["launches"], k5["launches"] = launches["winmass"], launches["winform"]
     torch.cuda.empty_cache()
-    return k4a, k5, {"winmass": k4a_job, "winform": k5_job}
+    return k4a, k5, {"winmass": k4a_jobs, "winform": k5_jobs}
 
 
 def _p2_poisson(V, kernel_counter):
@@ -1635,7 +1665,9 @@ def phase_window_p2():
     """K4b P2 on its paths (Dirichlet P2 Poisson on unit_square_mesh(256)
     triangles and box_mesh N=32 tets), each operator against its plain
     version at its layout, then K4a and K5 at NL=10 on the N=32 P2 tet
-    layout against theirs. Returns the 2-D and 3-D reports and jobs."""
+    layout against theirs, and at NL=3 and 4 on the P1 layouts of the same
+    meshes. Returns the 2-D and 3-D K4b reports and jobs, and the NL=10 K4a
+    and K5 reports and device-time jobs."""
     import torch
     from flow_tpu_torch.attic import winform, winkernel
     from flow_tpu_torch.fem import assembly, formlang as fl
@@ -1657,10 +1689,27 @@ def phase_window_p2():
     S = fl.compile_form(u * v + 1e-3 * (1e-2 * fl.dot(fl.grad(u), fl.grad(v))
                                         + fl.dot(b, fl.grad(u)) * v),
                         assembly.geometry(V3.mesh), 3)
-    _mass_report("tets N=32 winmass", winkernel.WindowMassOperator(V3))
-    _element_report("tets N=32 winform", winform.window_operator(S))
+    k4a10 = _mass_report("tets N=32 winmass", winkernel.WindowMassOperator(V3))
+    k5_10 = _element_report("tets N=32 winform", winform.window_operator(S))
+    for V in (V2, V3):
+        V1 = FunctionSpace(V.mesh, 1)
+        u, v = fl.TrialFunction(V1), fl.TestFunction(V1)
+        S1 = fl.compile_form(u * v + 1e-3 * fl.dot(fl.grad(u), fl.grad(v)),
+                             assembly.geometry(V1.mesh), 2)
+        M1, K1 = winkernel.WindowMassOperator(V1), winform.window_operator(S1)
+        x = torch.zeros(M1.wl.n_pad, device="cuda")
+        x[:M1.wl.n] = torch.as_tensor(np.random.default_rng(6).standard_normal(M1.wl.n),
+                                      dtype=torch.float32)
+        errs = [_check_kernel(f"{tag} P1 {V.dim}-D", lambda op=op: op.windows(x),
+                              lambda plain=plain: plain(x))[1] for tag, op, plain in (
+            ("winmass", M1, lambda y: winkernel.mass_windows_plain(
+                y, M1.lidx, M1.valid, M1.detj, M1.mref, M1.wl.S, M1.wl.W)),
+            ("winform", K1, lambda y: winform.element_windows_plain(
+                y, K1.lidx, K1.valid, K1.aloc, K1.wl.S, K1.wl.W)))]
+        log(f"[k4a-k5 P1] {V.dim}-D NL={M1.lidx.shape[1]} nb={M1.wl.nb} C={M1.wl.C}: "
+            f"winmass rel_err={errs[0]:.3e} winform rel_err={errs[1]:.3e}")
     torch.cuda.empty_cache()
-    return (k4b2, k4b2_job), (k4b3, k4b3_job)
+    return (k4b2, k4b2_job), (k4b3, k4b3_job), (k4a10, k5_10)
 
 
 
@@ -2013,7 +2062,7 @@ def main():
         phase_structured2d_parity()
         k2["launches"] = phase_structured2d_main()
         k4a, k5, jobs2 = phase_formwin2d()
-        (k4b_p2, k4b_p2_job), (k4b3_p2, k4b3_p2_job) = phase_window_p2()
+        (k4b_p2, k4b_p2_job), (k4b3_p2, k4b3_p2_job), nl10 = phase_window_p2()
         phase_window_bigblock()
         # the einsum routes and the ELL kernels (P1 direct, P2 windowed) at
         # every ELL operator of the two drivers and at the probes' shapes
@@ -2049,8 +2098,20 @@ def main():
             f"{k3d['winstiff3d']['device_cold_ms']:.5f}; "
             + ", ".join(f"{k}={v:.5f}" for k, v in k4b3.items()))
         k2["device_ms"] = device_ms(k2_job, 100)
-        k4a["device_ms"] = device_ms(jobs2["winmass"], 50)
-        k5["device_ms"] = device_ms(jobs2["winform"], 50)
+        # K4a and K5 at NL = 6 (formwin2d) and NL = 10 (tets N=32), L2
+        # warm and cold
+        (k4a10, jobs4a10), (k5_10, jobs5_10) = nl10
+        for row, jobs, kname in ((k4a, jobs2["winmass"], "winmass_kernel"),
+                                 (k5, jobs2["winform"], "winform_kernel"),
+                                 (k4a10, jobs4a10, "winmass_kernel"),
+                                 (k5_10, jobs5_10, "winform_kernel")):
+            row["device_ms"] = device_ms(jobs["warm"], 50, kernel=kname)
+            row["device_cold_ms"] = device_ms(jobs["cold"], 50, kernel=kname)
+        log("[profile] K4a/K5 device ms per call, L2 warm / cold (wall; CSR): "
+            + ", ".join(f"{tag}={r['device_ms']:.5f}/{r['device_cold_ms']:.5f} "
+                        f"({r['ms']:.5f}; {r['library_ms']:.5f})" for tag, r in (
+                            ("winmass NL=6", k4a), ("winform NL=6", k5),
+                            ("winmass NL=10", k4a10), ("winform NL=10", k5_10))))
         k4b_p2["device_ms"] = device_ms(k4b_p2_job, 50)
         k4b3_p2["device_ms"] = device_ms(k4b3_p2_job, 50)
         log("[profile] device ms per call: "

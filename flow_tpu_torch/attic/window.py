@@ -15,7 +15,9 @@
 #
 # The CUDA kernels also need, per block, the (cell, local dof) pairs that
 # touch each window dof, in a fixed order (build_scatter_lists): summing
-# along those lists makes the kernels' scatter deterministic.
+# along those lists makes the kernels' scatter deterministic. The cluster
+# kernels read the lists' inverse instead (position_lists: where each local
+# result stands in its row's list).
 from __future__ import annotations
 
 import numpy as np
@@ -23,7 +25,7 @@ import numpy as np
 from .. import native
 
 __all__ = ["WindowLayout", "build_window_layout", "build_scatter_lists",
-           "scatter_positions", "overlap_add_fn"]
+           "scatter_positions", "position_lists", "overlap_add_fn"]
 
 
 class WindowLayout:
@@ -193,3 +195,11 @@ def scatter_positions(rowptr, ent, nl):
         n = int(rowptr[b, -1])
         pos[b, ent[b, :n]] = np.arange(n, dtype=np.int32)
     return np.ascontiguousarray(pos.reshape(nb, C, nl).transpose(0, 2, 1)).reshape(nb, -1)
+
+
+def position_lists(wl):
+    """(rowptr [nb, W+1], pos [nb, nl*C]) int32: the row pointers of the
+    scatter lists and their inverse (scatter_positions), what the cluster
+    kernels read."""
+    rowptr, ent = build_scatter_lists(wl)
+    return rowptr, scatter_positions(rowptr, ent, wl.lidx.shape[2])

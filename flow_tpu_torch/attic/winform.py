@@ -14,7 +14,10 @@
 # computes in float32 whatever the caller's dtype and casts at the boundary.
 #
 # element_windows launches the kernel for CUDA tensors and takes the plain
-# version only for CPU tensors. It counts its launches in WINFORM.launches.
+# version only for CPU tensors: thread-block clusters that stage the local
+# results at their scatter-list positions in shared memory (K4a's launch,
+# attic/winkernel.cluster_launch). It counts its launches in
+# WINFORM.launches.
 from __future__ import annotations
 
 import ctypes
@@ -25,15 +28,18 @@ import torch
 
 from .._build import Kernel
 from ..mesh3d import _device
-from .window import build_scatter_lists, build_window_layout
-from .winkernel import (WINDOW_NL, check_window_args, gather_windows_plain,
-                        scatter_windows_plain)
+from .window import build_window_layout, position_lists
+from .winkernel import (WINDOW_NL, check_window_args, cluster_launch,
+                        gather_windows_plain, scatter_windows_plain)
 
 __all__ = ["WindowElementOperator", "window_operator", "element_windows",
            "element_windows_plain", "WINFORM"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-WINFORM = Kernel("winform", {"winform": [_P] * 8 + [_I] * 5 + [_P]})
+WINFORM = Kernel("winform", {
+    "winform": [_P] * 7 + [_I] * 9 + [_P],
+    "winform_clusters": [_I] * 4 + [_P],
+})
 
 
 def element_windows_plain(x_pad, lidx, valid, aloc, S, W):
@@ -47,12 +53,15 @@ def element_windows_plain(x_pad, lidx, valid, aloc, S, W):
     return scatter_windows_plain(loc, lidx, W)
 
 
-def element_windows(x_pad, lidx, valid, aloc, S, W, scatter=None):
+def element_windows(x_pad, lidx, valid, aloc, S, W, positions=None):
     """Per-block output windows [nb, W] of the element-matrix apply (see
     element_windows_plain). CPU tensors take the plain version; CUDA tensors
-    launch the kernel (csrc/winform.cu), which writes the local results to a
-    device scratch [nb, C*NL] and sums each window dof along the layout's
-    scatter lists `scatter` = (rowptr, ent) tensors."""
+    launch the kernel (csrc/winform.cu), which reads `positions` =
+    (rowptr, pos) tensors, pos the inverse of the layout's scatter lists
+    (window.position_lists): each cell stores its local results at their
+    list positions in the shared memory of a cluster of blocks
+    (winkernel.cluster_launch), in passes where they exceed it, and each
+    row sums its positions in order."""
     if x_pad.device.type == "cpu":
         return element_windows_plain(x_pad, lidx, valid, aloc, S, W)
     if x_pad.device.type != "cuda":
@@ -60,17 +69,18 @@ def element_windows(x_pad, lidx, valid, aloc, S, W, scatter=None):
     nb, NL, C = lidx.shape
     if NL not in WINDOW_NL:
         raise ValueError(f"element_windows: the kernel takes NL in {WINDOW_NL}, got {NL}")
-    check_window_args("element_windows", x_pad, lidx, valid, (aloc,), scatter, S, W)
+    check_window_args("element_windows", x_pad, lidx, valid, (aloc,), positions, S, W)
     if tuple(aloc.shape) != (nb, NL * NL, C):
         raise ValueError("element_windows: inconsistent layout shapes")
-    rowptr, ent = scatter
+    rowptr, pos = positions
     out = torch.empty((nb, W), dtype=torch.float32, device=x_pad.device)
-    scratch = torch.empty((nb, C * NL), dtype=torch.float32, device=x_pad.device)
+    plan = cluster_launch(WINFORM, nb, C, NL, x_pad.device)
     with torch.cuda.device(x_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
         WINFORM.launch("winform", x_pad.data_ptr(), lidx.data_ptr(), valid.data_ptr(),
-                       aloc.data_ptr(), rowptr.data_ptr(), ent.data_ptr(),
-                       scratch.data_ptr(), out.data_ptr(), nb, S, W, C, NL, stream)
+                       aloc.data_ptr(), rowptr.data_ptr(), pos.data_ptr(),
+                       out.data_ptr(), nb, S, W, C, NL, plan.clusters, plan.cl,
+                       plan.threads, plan.cap, stream)
     return out
 
 
@@ -79,9 +89,10 @@ class WindowElementOperator:
     layout of a scalar P1 or P2 space on triangles or tets: y = A x with A
     the assembled operator. Tables live on `device` (default: the mesh's);
     the blocked matrix in float32. apply(x) takes x [n] in the original
-    numbering, in any float dtype, and returns A x in that dtype.
-    layout_seconds: the host seconds of the layout, its tables and scatter
-    lists."""
+    numbering, in any float dtype, and returns A x in that dtype. On the
+    card the operator holds the lists its kernel reads, `positions` (see
+    element_windows). layout_seconds: the host seconds of the layout, its
+    tables and lists."""
 
     def __init__(self, space, loc=None, S=None, device=None):
         self.space = space
@@ -100,9 +111,9 @@ class WindowElementOperator:
         self.inv = dev(wl.inv, torch.int64)
         self.nl = int(wl.lidx.shape[2])
         self._cells = dev(wl.cells, torch.int64)
-        self.scatter = None
+        self.positions = None
         if self.device.type == "cuda":
-            self.scatter = tuple(dev(a) for a in build_scatter_lists(wl))
+            self.positions = tuple(dev(a) for a in position_lists(wl))
         self.layout_seconds = time.perf_counter() - t0
         self.aloc = None if loc is None else self.block_matrix(loc)
 
@@ -121,7 +132,7 @@ class WindowElementOperator:
         assert self.aloc is not None, "no element matrix: call set_matrix first"
         wl = self.wl
         return element_windows(x_pad, self.lidx, self.valid, self.aloc, wl.S, wl.W,
-                               self.scatter)
+                               self.positions)
 
     def apply(self, x):
         wl = self.wl

@@ -12,20 +12,22 @@
 # boundary.
 #
 # mass_windows and stiffness_windows launch their kernels for CUDA tensors
-# and take the plain versions only for CPU tensors. The 3-D P1 stiffness
-# (the cavity's pressure operator) runs as thread-block clusters of
-# CLUSTER_3D blocks of THREADS_3D threads per window block, which stage the
-# local results in their shared memory at their scatter-list positions
-# (cluster_plan; the lists' inverse, WindowStiffnessOperator.positions); the
-# other variants write them to a device scratch and read them back along
-# the scatter lists (WindowStiffnessOperator.scatter). They
-# count their launches in WINMASS.launches (K4a) and WINSTIFF.launches (K4b
-# 2-D P1), WINSTIFF3D.launches (3-D P1), WINSTIFF_P2.launches (2-D P2) and
+# and take the plain versions only for CPU tensors. K4a and the 3-D P1
+# stiffness (the cavity's pressure operator) run as thread-block clusters
+# (csrc/wincluster.cuh, shared with K5 in attic/winform.py) that stage the
+# local results in their shared memory at their scatter-list positions (the
+# lists' inverse, the operators' `positions`; cluster_launch); the other
+# stiffness variants write them to a device scratch and read them back along
+# the scatter lists (WindowStiffnessOperator.scatter). They count their
+# launches in WINMASS.launches (K4a) and WINSTIFF.launches (K4b 2-D P1),
+# WINSTIFF3D.launches (3-D P1), WINSTIFF_P2.launches (2-D P2) and
 # WINSTIFF3D_P2.launches (3-D P2).
 from __future__ import annotations
 
 import ctypes
+import functools
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,12 +35,14 @@ import torch
 from .._build import Kernel
 from ..fem import assembly
 from ..mesh3d import _device
-from .window import build_scatter_lists, build_window_layout, scatter_positions
+from .window import build_scatter_lists, build_window_layout, position_lists
 
 __all__ = ["WindowStiffnessOperator", "stiffness_windows",
-           "stiffness_windows_plain", "cluster_plan", "max_active_clusters",
+           "stiffness_windows_plain", "cluster_plan", "window_plan",
+           "cluster_launch", "ClusterLaunch",
            "WINSTIFF", "WINSTIFF3D", "WINSTIFF_P2", "WINSTIFF3D_P2",
-           "CLUSTER_3D", "THREADS_3D", "LOC_BYTES_3D",
+           "CLUSTER_3D", "THREADS_3D", "LOC_BYTES_3D", "WINDOW_LOC_BYTES",
+           "WINDOW_THREADS", "WINDOW_THREADS_FEW", "MAX_CLUSTER",
            "WindowMassOperator", "mass_windows", "mass_windows_plain", "WINMASS"]
 
 _P = ctypes.c_void_p
@@ -50,8 +54,8 @@ WINSTIFF = Kernel("winstiff", {
 # the 3-D variant: the same library, its own entry point and count; a
 # cluster launch with no scratch, and its occupancy query
 WINSTIFF3D = Kernel("winstiff", {
-    "winstiff_p1_3d": [_P] * 8 + [_I] * 7 + [_P],
-    "winstiff_p1_3d_clusters": [_I] * 6 + [_P],
+    "winstiff_p1_3d": [_P] * 8 + [_I] * 8 + [_P],
+    "winstiff_p1_3d_clusters": [_I] * 3 + [_P],
 })
 # the P2 variants (NL = 6 triangles, 10 tets), each with its own count
 WINSTIFF_P2 = Kernel("winstiff", {
@@ -77,7 +81,24 @@ _ENTRIES = {
 CLUSTER_3D = 8
 THREADS_3D = 512
 LOC_BYTES_3D = 96 * 1024
-WINMASS = Kernel("winmass", {"winmass": [_P] * 9 + [_I] * 5 + [_P]})
+# K4a's and K5's cluster launch (csrc/winmass.cu, winform.cu; window_plan):
+# the local results a block stages in one pass (bytes), and the threads of
+# a block where the blocks outnumber the card's SMs and where they do not.
+# Chosen on the card (scripts/torch_window_cluster_bench.py --sweep; device
+# µs of K4a / K5, H100 80GB HBM3, 700 W): at the NL = 10 layout (nb = 68,
+# C = 3,038) one block of 1,024 threads a window block 32.1 / 64.6, one of
+# 512 38.5 / 87.8, clusters of 2 x 512 38.0 / 72.9, 4 x 256 43.9 / 78.7,
+# 2 x 1,024 45.3 / 90.8 (66 of the 68 clusters resident); at NL = 6 (nb =
+# 1,026, C = 2,048) blocks of 512 113.8 / 206.3, 256 113.7 / 203.6, 1,024
+# 132.3 / 229.0, clusters of 2 x 512 155.4 / 231.5.
+WINDOW_LOC_BYTES = 128 * 1024
+WINDOW_THREADS = 512
+WINDOW_THREADS_FEW = 1024
+MAX_CLUSTER = 8  # blocks a cluster, at most (portable cluster size)
+WINMASS = Kernel("winmass", {
+    "winmass": [_P] * 8 + [_I] * 9 + [_P],
+    "winmass_clusters": [_I] * 4 + [_P],
+})
 # the local-dof counts the window kernels are instantiated for
 WINDOW_NL = (3, 4, 6, 10)
 
@@ -97,13 +118,16 @@ def gather_windows_plain(x_pad, lidx, S):
     return x_pad[(base + lidx).long()]
 
 
-def check_window_args(name, x_pad, lidx, valid, floats, scatter, S, W):
+def check_window_args(name, x_pad, lidx, valid, floats, lists, S, W):
     """The checks every window kernel wrapper makes before its launch:
     contiguous tensors on x_pad's device, float32 and int32 where the
     kernels read them, and the layout's shapes. `floats` are the kernel's
-    per-block tables and small reference tensors."""
+    per-block tables and small reference tensors; `lists` the (rowptr, ent)
+    scatter lists or the (rowptr, pos) positions the kernel reads."""
     nb, NL, C = lidx.shape
-    rowptr, ent = scatter
+    if lists is None:
+        raise ValueError(f"{name}: the kernel needs the layout's lists")
+    rowptr, ent = lists
     for t in (x_pad, lidx, valid, rowptr, ent, *floats):
         if t.device != x_pad.device or not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous and on one device")
@@ -132,10 +156,69 @@ def stiffness_windows_plain(x_pad, lidx, valid, cg, kref, S, W):
 
 
 def cluster_plan(C, NL):
-    """The entries one block of a cluster launch of CLUSTER_3D blocks
-    stages in a pass: all of a window block's C*NL at most, shared by the
-    blocks, and at most LOC_BYTES_3D of float32."""
+    """The entries one block of K4b 3-D's cluster launch of CLUSTER_3D
+    blocks stages in a pass: all of a window block's C*NL at most, shared
+    by the blocks, and at most LOC_BYTES_3D of float32."""
     return min(-(-C * NL // CLUSTER_3D), max(1, LOC_BYTES_3D // 4))
+
+
+def window_plan(nb, C, NL, sms):
+    """K4a's and K5's cluster launch at a layout of nb window blocks of C
+    cells on a card of `sms` SMs: (blocks a cluster CL, threads a block,
+    entries a block stages in a pass). CL is the least size that stages a
+    window block's C*NL local results in one pass of WINDOW_LOC_BYTES a
+    block, at most MAX_CLUSTER (a layout whose results exceed MAX_CLUSTER
+    blocks' stage runs in passes); blocks of WINDOW_THREADS_FEW threads
+    where the nb*CL blocks are no more than the SMs, else WINDOW_THREADS."""
+    entries = C * NL
+    room = max(1, WINDOW_LOC_BYTES // 4)
+    cl = min(MAX_CLUSTER, max(1, -(-entries // room)))
+    threads = WINDOW_THREADS_FEW if nb * cl <= sms else WINDOW_THREADS
+    return cl, threads, min(-(-entries // cl), room)
+
+
+class ClusterLaunch(NamedTuple):
+    """A cluster kernel's launch at a layout."""
+    cl: int  # blocks a cluster
+    threads: int  # threads a block
+    cap: int  # entries a block stages in a pass
+    clusters: int  # clusters launched: one wave, each walks nb / clusters window blocks
+    resident: int  # clusters the card holds at once (cudaOccupancyMaxActiveClusters)
+
+
+def cluster_launch(kernel, nb, C, NL, device):
+    """The launch of a cluster kernel (WINSTIFF3D, WINMASS or
+    winform.WINFORM) at a layout of nb window blocks of C cells on
+    `device`: K4b 3-D's constants (CLUSTER_3D, THREADS_3D, cluster_plan),
+    or K4a's and K5's rule (window_plan). It launches at most the clusters
+    the card holds at once, so the grid is one wave and each cluster walks
+    its share of the window blocks (csrc/wincluster.cuh); where the card's
+    query refuses the configuration, nb clusters, whose launch then
+    reports the error. Cached per layout and launch constants."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if kernel is WINSTIFF3D:
+        consts = (CLUSTER_3D, THREADS_3D, LOC_BYTES_3D)
+    else:
+        consts = (window_plan, WINDOW_LOC_BYTES, WINDOW_THREADS, WINDOW_THREADS_FEW,
+                  MAX_CLUSTER)
+    return _cluster_launch(kernel, nb, C, NL, index, consts)
+
+
+@functools.lru_cache(maxsize=256)
+def _cluster_launch(kernel, nb, C, NL, index, consts):
+    if kernel is WINSTIFF3D:
+        cl, threads, cap, lead = CLUSTER_3D, THREADS_3D, cluster_plan(C, NL), ()
+    else:
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        (cl, threads, cap), lead = window_plan(nb, C, NL, sms), (NL,)
+    query = next(fn for fn in kernel.signatures if fn.endswith("_clusters"))
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = getattr(kernel.lib(), query)(*lead, cl, threads, cap, ctypes.byref(out))
+    resident = out.value if err == 0 else 0
+    return ClusterLaunch(cl, threads, cap, min(nb, resident) if resident > 0 else nb,
+                         resident)
 
 
 def stiffness_windows(x_pad, lidx, valid, cg, kref, S, W, scatter=None,
@@ -172,7 +255,9 @@ def stiffness_windows(x_pad, lidx, valid, cg, kref, S, W, scatter=None,
     args = [x_pad.data_ptr(), lidx.data_ptr(), valid.data_ptr(), cg.data_ptr(),
             kref.data_ptr(), rowptr.data_ptr(), ent.data_ptr()]
     if kernel is WINSTIFF3D:
-        tail = [out.data_ptr(), nb, S, W, C, CLUSTER_3D, THREADS_3D, cluster_plan(C, NL)]
+        plan = cluster_launch(WINSTIFF3D, nb, C, NL, x_pad.device)
+        tail = [out.data_ptr(), nb, S, W, C, plan.clusters, plan.cl, plan.threads,
+                plan.cap]
     else:
         scratch = torch.empty((nb, C * NL), dtype=torch.float32, device=x_pad.device)
         tail = [scratch.data_ptr(), out.data_ptr(), nb, S, W, C]
@@ -180,17 +265,6 @@ def stiffness_windows(x_pad, lidx, valid, cg, kref, S, W, scatter=None,
         stream = torch.cuda.current_stream().cuda_stream
         kernel.launch(entry, *args, *tail, stream)
     return out
-
-
-def max_active_clusters(nb, W, C):
-    """cudaOccupancyMaxActiveClusters of the 3-D P1 kernel's launch at a
-    layout (nb, W, C): how many of its clusters the card holds at once."""
-    out = ctypes.c_int(0)
-    err = WINSTIFF3D.lib().winstiff_p1_3d_clusters(
-        nb, W, C, CLUSTER_3D, THREADS_3D, cluster_plan(C, 4), ctypes.byref(out))
-    if err != 0:
-        raise RuntimeError(f"winstiff_p1_3d_clusters failed with CUDA error {err}")
-    return out.value
 
 
 class WindowStiffnessOperator:
@@ -230,12 +304,10 @@ class WindowStiffnessOperator:
         self.inv = dev(wl.inv, torch.int64)
         self.scatter = self.positions = None
         if self.device.type == "cuda":
-            rowptr, ent = build_scatter_lists(wl)
             if _ENTRIES.get((dim * dim, nl), (None,))[0] is WINSTIFF3D:
-                self.positions = (dev(rowptr, torch.int32),
-                                  dev(scatter_positions(rowptr, ent, nl), torch.int32))
+                self.positions = tuple(dev(a, torch.int32) for a in position_lists(wl))
             else:
-                self.scatter = (dev(rowptr, torch.int32), dev(ent, torch.int32))
+                self.scatter = tuple(dev(a, torch.int32) for a in build_scatter_lists(wl))
         self.layout_seconds = time.perf_counter() - t0
 
     def windows(self, x_pad):
@@ -262,12 +334,15 @@ def mass_windows_plain(x_pad, lidx, valid, detj, mref, S, W):
     return scatter_windows_plain(loc, lidx, W)
 
 
-def mass_windows(x_pad, lidx, valid, detj, mref, S, W, scatter=None):
+def mass_windows(x_pad, lidx, valid, detj, mref, S, W, positions=None):
     """Per-block output windows [nb, W] of the consistent mass apply (see
     mass_windows_plain). CPU tensors take the plain version; CUDA tensors
-    launch the kernel (csrc/winmass.cu), which writes the local results to
-    a device scratch [nb, C*NL] and sums each window dof along the layout's
-    scatter lists `scatter` = (rowptr, ent) tensors."""
+    launch the kernel (csrc/winmass.cu), which reads `positions` =
+    (rowptr, pos) tensors, pos the inverse of the layout's scatter lists
+    (window.position_lists): each cell stores its local results at their
+    list positions in the shared memory of a cluster of blocks
+    (cluster_launch), in passes where they exceed it, and each row sums
+    its positions in order."""
     if x_pad.device.type == "cpu":
         return mass_windows_plain(x_pad, lidx, valid, detj, mref, S, W)
     if x_pad.device.type != "cuda":
@@ -275,18 +350,18 @@ def mass_windows(x_pad, lidx, valid, detj, mref, S, W, scatter=None):
     nb, NL, C = lidx.shape
     if NL not in WINDOW_NL:
         raise ValueError(f"mass_windows: the kernel takes NL in {WINDOW_NL}, got {NL}")
-    check_window_args("mass_windows", x_pad, lidx, valid, (detj, mref), scatter, S, W)
+    check_window_args("mass_windows", x_pad, lidx, valid, (detj, mref), positions, S, W)
     if tuple(detj.shape) != (nb, C) or tuple(mref.shape) != (NL, NL):
         raise ValueError("mass_windows: inconsistent layout shapes")
-    rowptr, ent = scatter
+    rowptr, pos = positions
     out = torch.empty((nb, W), dtype=torch.float32, device=x_pad.device)
-    scratch = torch.empty((nb, C * NL), dtype=torch.float32, device=x_pad.device)
+    plan = cluster_launch(WINMASS, nb, C, NL, x_pad.device)
     with torch.cuda.device(x_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
         WINMASS.launch("winmass", x_pad.data_ptr(), lidx.data_ptr(), valid.data_ptr(),
                        detj.data_ptr(), mref.data_ptr(), rowptr.data_ptr(),
-                       ent.data_ptr(), scratch.data_ptr(), out.data_ptr(), nb, S, W,
-                       C, NL, stream)
+                       pos.data_ptr(), out.data_ptr(), nb, S, W, C, NL, plan.clusters,
+                       plan.cl, plan.threads, plan.cap, stream)
     return out
 
 
@@ -295,8 +370,9 @@ class WindowMassOperator:
     on triangles or tets. Tables live in float32 on `device` (default: the
     mesh's). apply(x) takes a scalar x [n] in the original numbering, in any
     float dtype, and returns M x in that dtype (the same vector as
-    assembly.mass_apply at float32 level). layout_seconds: the host seconds
-    of the layout, its tables and scatter lists."""
+    assembly.mass_apply at float32 level). On the card the operator holds
+    the lists its kernel reads, `positions` (see mass_windows).
+    layout_seconds: the host seconds of the layout, its tables and lists."""
 
     def __init__(self, space, S=None, device=None):
         self.space = space
@@ -317,16 +393,16 @@ class WindowMassOperator:
         self.valid = dev(wl.valid)
         self.perm = dev(wl.perm, torch.int64)
         self.inv = dev(wl.inv, torch.int64)
-        self.scatter = None
+        self.positions = None
         if self.device.type == "cuda":
-            self.scatter = tuple(dev(a, torch.int32) for a in build_scatter_lists(wl))
+            self.positions = tuple(dev(a, torch.int32) for a in position_lists(wl))
         self.layout_seconds = time.perf_counter() - t0
 
     def windows(self, x_pad):
         """[nb*S + W] float32 permuted, padded input -> [nb, W] windows."""
         wl = self.wl
         return mass_windows(x_pad, self.lidx, self.valid, self.detj, self.mref,
-                            wl.S, wl.W, self.scatter)
+                            wl.S, wl.W, self.positions)
 
     def apply(self, x):
         wl = self.wl

@@ -1,6 +1,9 @@
-// What the window kernels (winstiff.cu, winmass.cu, winform.cu) share: the
-// deterministic scatter phase that sums a block's local results into its
-// output window, and the dispatch on the local-dof count NL.
+// What the window kernels share: the deterministic scatter phase that sums
+// a block's local results into its output window (winstiff.cu's variants
+// but winstiff_p1_3d), and the dispatch on the local-dof count NL
+// (winmass.cu, winform.cu). The cluster kernels (winstiff_p1_3d, winmass,
+// winform) sum in the same order from the cluster's shared memory instead
+// (wincluster.cuh).
 //
 // The scatter lists (rowptr [W + 1], ent [C*NL] of block b) are built on the
 // host by attic/window.py::build_scatter_lists: for window dof w, the

@@ -1,0 +1,171 @@
+#!/usr/bin/env python3
+"""Device times of the cluster kernels K4a (csrc/winmass.cu), K5
+(csrc/winform.cu) and K4b 3-D P1 (csrc/winstiff.cu's winstiff_p1_3d) at the
+layouts of their paths, for an A/B between two checkouts and a sweep of K4a's
+and K5's cluster launch.
+
+    python3 scripts/torch_window_cluster_bench.py [--root DIR] [--save F]
+        [--compare F] [--sweep] [--json F]
+
+Layouts: the NL = 10 P2 tet layout of box_mesh N=32 (nb = 68, C = 3,038)
+and the NL = 6 formwin2d layout of unit_square_mesh(1024, "right") P2 (nb =
+1,026, C = 2,048) for K4a and K5, the cavity's N=64 P1 pressure layout (nb =
+68, C = 23,958) for K4b 3-D; float32, inputs and element matrices made from
+a seed.
+For each kernel: device µs per call from torch.profiler with the L2 cache
+warm and cold (after a 64 MB write), and wall µs from CUDA events over
+back-to-back calls. --root imports flow_tpu_torch from another checkout (the
+parent commit, say) through the operators' public windows(), so both trees
+run the same script; --save writes the windows, --compare holds them
+bitwise against a saved run. --sweep (this tree only) times every cluster
+size and block size of the launch against the rule's choice and checks that
+all give the same windows bitwise. Needs the card; imports neither jax nor
+flow_tpu.
+"""
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SWEEP = {10: ((1, 1024), (1, 512), (2, 512), (2, 256), (4, 256), (2, 1024)),
+         6: ((1, 512), (1, 256), (1, 1024), (2, 512))}
+
+
+def device_us(fn, name, reps=30):
+    """Mean device µs per call of the kernels whose name holds `name`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    if not ev:
+        raise RuntimeError(f"the profiler shows no event of {name}")
+    return sum(e.device_time_total for e in ev) / len(ev)
+
+
+def wall_us(fn, reps=100):
+    for _ in range(3):
+        fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return 1e3 * a.elapsed_time(b) / reps
+
+
+def layouts():
+    from flow_tpu_torch.attic import winform, winkernel
+    from flow_tpu_torch.fem.spaces import FunctionSpace
+    from flow_tpu_torch.mesh import unit_square_mesh
+    from flow_tpu_torch.mesh3d import box_mesh
+
+    out = {}
+    for tag, mesh in (
+            ("tets N=32", lambda: box_mesh((0, 0, 0), (1, 1, 1), 32, 32, 32,
+                                           dtype=torch.float32, device="cuda")),
+            ("formwin2d", lambda: unit_square_mesh(1024, "right", dtype=torch.float32,
+                                                   device="cuda"))):
+        V = FunctionSpace(mesh(), 2)
+        M = winkernel.WindowMassOperator(V)
+        nb, NL, C = M.lidx.shape
+        g = torch.Generator(device="cuda").manual_seed(7)
+        loc = torch.randn((V.mesh.n_cells, NL, NL), generator=g, device="cuda")
+        K = winform.WindowElementOperator(V, loc=loc)
+        x = torch.zeros(M.wl.n_pad, device="cuda")
+        x[:M.wl.n] = torch.as_tensor(np.random.default_rng(4).standard_normal(M.wl.n),
+                                     dtype=torch.float32)
+        out[tag] = (x, {"winmass": M, "winform": K})
+    Q = FunctionSpace(box_mesh((0, 0, 0), (1, 1, 1), 64, 64, 64, dtype=torch.float32,
+                               device="cuda"), 1)
+    op = winkernel.WindowStiffnessOperator(Q)
+    x = torch.zeros(op.wl.n_pad, device="cuda")
+    x[:op.wl.n] = torch.as_tensor(np.random.default_rng(5).standard_normal(op.wl.n),
+                                  dtype=torch.float32)
+    out["cavity N=64 pressure"] = (x, {"winstiff_cluster": op})
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(ROOT))
+    ap.add_argument("--save")
+    ap.add_argument("--compare")
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_window_cluster_bench: needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, args.root)
+    from flow_tpu_torch.attic import winkernel
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"[device] {smi.stdout.strip()} root={args.root}", flush=True)
+    flush = torch.empty(16 << 20, device="cuda")
+    report, windows = [], {}
+    for tag, (x, ops) in layouts().items():
+        for name, op in ops.items():
+            nb, NL, C = op.lidx.shape
+            kname = f"{name}_kernel"
+            y = op.windows(x)
+            windows[f"{tag} {name}"] = y.cpu()
+            row = dict(layout=tag, kernel=name, nb=nb, C=C, NL=NL, W=op.wl.W,
+                       device_us=device_us(lambda: op.windows(x), kname),
+                       device_cold_us=device_us(lambda: (flush.zero_(), op.windows(x)),
+                                                kname),
+                       wall_us=wall_us(lambda: op.windows(x)))
+            if hasattr(winkernel, "cluster_launch"):
+                kernel = {"winmass": winkernel.WINMASS,
+                          "winstiff_cluster": winkernel.WINSTIFF3D}.get(name) or sys.modules[
+                    "flow_tpu_torch.attic.winform"].WINFORM
+                row.update(winkernel.cluster_launch(kernel, nb, C, NL, "cuda")._asdict())
+            print(json.dumps(row), flush=True)
+            report.append(row)
+            if args.sweep and name != "winstiff_cluster":
+                rule = winkernel.window_plan
+                try:
+                    for cl, threads in SWEEP[NL]:
+                        winkernel.window_plan = (
+                            lambda nb_, C_, NL_, sms, cl=cl, threads=threads:
+                            (cl, threads, -(-C_ * NL_ // cl)))
+                        plan = winkernel.cluster_launch(kernel, nb, C, NL, "cuda")
+                        same = torch.equal(op.windows(x), y)
+                        point = dict(layout=tag, kernel=name, sweep=True, **plan._asdict(),
+                                     device_us=device_us(lambda: op.windows(x), kname),
+                                     bitwise_equal=same)
+                        print(json.dumps(point), flush=True)
+                        report.append(point)
+                        if not same:
+                            raise SystemExit(f"{tag} {name}: cl={cl} threads={threads} "
+                                             "differs bitwise")
+                finally:
+                    winkernel.window_plan = rule
+    if args.save:
+        torch.save(windows, args.save)
+    if args.compare:
+        ref = torch.load(args.compare)
+        diff = [k for k in windows if not torch.equal(windows[k], ref[k])]
+        print(f"[compare] against {args.compare}: "
+              + ("bitwise equal" if not diff else f"differ: {diff}"), flush=True)
+        if diff:
+            return 1
+    if args.json:
+        Path(args.json).write_text(json.dumps(report, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

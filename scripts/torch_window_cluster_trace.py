@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""Where a cluster kernel's time goes, phase by phase, on the card.
+
+    python3 scripts/torch_window_cluster_trace.py [--json F]
+
+Builds csrc/winmass.cu, winform.cu and winstiff.cu with -DWINCLUSTER_TRACE
+(the phase marks of csrc/wincluster.cuh: thread 0 of each block reads
+%globaltimer at each phase of its first window block's first pass) into a
+temporary directory, runs K4a, K5 and K4b 3-D once at the layouts of
+scripts/torch_window_cluster_bench.py through that build, and prints the
+share of each layout's window rows that no local result lands on and, over
+the blocks, the median and the largest µs of each phase: setup (the
+kernel's tables and the first cluster barrier), cells (the local results
+stored at their list positions), wait (the cluster barrier after them),
+split (the row range of the block), rows (the row sums) and the last
+barrier. A block's marks wait for all its threads (a __syncthreads() in
+the traced build only), so the traced kernel runs a little slower than the
+real one. Needs the card; imports neither jax nor flow_tpu.
+"""
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "scripts"))
+
+from flow_tpu_torch import _build  # noqa: E402
+from flow_tpu_torch.attic import winform, winkernel  # noqa: E402
+import torch_window_cluster_bench as bench  # noqa: E402
+
+PHASES = ("setup", "cells", "wait", "split", "rows", "last_wait")
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_window_cluster_trace: needs a CUDA device", file=sys.stderr)
+        return 2
+    names = ("winmass", "winform", "winstiff")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for name in names:
+            cmd = _build.nvcc_command(_build._nvcc(), _build.CSRC_DIR / f"{name}.cu",
+                                      Path(tmp) / f"lib{name}.so")
+            cmd[1:1] = ["-DWINCLUSTER_TRACE"]
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        for proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                print(log, file=sys.stderr)
+                return 1
+        libs = {name: ctypes.CDLL(str(Path(tmp) / f"lib{name}.so")) for name in names}
+    # the kernels' launches go through the traced build
+    _build.load = lambda name: libs[name]
+    kernels = {"winmass": winkernel.WINMASS, "winform": winform.WINFORM,
+               "winstiff_cluster": winkernel.WINSTIFF3D}
+    for kernel in kernels.values():
+        kernel._lib = None
+    winkernel._cluster_launch.cache_clear()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"[device] {smi.stdout.strip()}", flush=True)
+    report = []
+    for tag, (x, ops) in bench.layouts().items():
+        for name, op in ops.items():
+            nb, NL, C = op.lidx.shape
+            plan = winkernel.cluster_launch(kernels[name], nb, C, NL, "cuda")
+            for _ in range(3):
+                op.windows(x)
+            torch.cuda.synchronize()
+            blocks = plan.clusters * plan.cl
+            marks = np.zeros(blocks * 8, dtype=np.uint64)
+            lib = libs["winstiff" if name == "winstiff_cluster" else name]
+            err = lib.wincluster_trace_read(ctypes.c_void_p(marks.ctypes.data), blocks * 8)
+            if err != 0:
+                raise RuntimeError(f"wincluster_trace_read failed with CUDA error {err}")
+            t = marks.reshape(blocks, 8)[:, :7].astype(np.int64)
+            us = np.diff(t, axis=1) / 1e3
+            rowptr = op.positions[0]
+            row = dict(layout=tag, kernel=name, nb=nb, C=C, NL=NL, W=op.wl.W,
+                       empty_rows=float((rowptr.diff(dim=1) == 0).float().mean()),
+                       **plan._asdict(),
+                       first_window_us=float((t[:, 6].max() - t[:, 0].min()) / 1e3),
+                       phases_us={p: [float(np.median(us[:, i])), float(us[:, i].max())]
+                                  for i, p in enumerate(PHASES)})
+            print(json.dumps(row), flush=True)
+            report.append(row)
+    if args.json:
+        Path(args.json).write_text(json.dumps(report, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

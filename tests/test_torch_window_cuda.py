@@ -11,7 +11,9 @@
 # refusing inputs they do not take; the window mass
 # kernel (K4a, csrc/winmass.cu), the element-matrix kernel (K5,
 # csrc/winform.cu) and K4b's P2 variants on P1/P2 triangle and tet layouts
-# (NL = 3, 6, 4, 10), the same. Skips without a CUDA device. Imports
+# (NL = 3, 6, 4, 10), the same; K4a and K5, cluster launches like K4b 3-D
+# (csrc/wincluster.cuh), also in passes and at every cluster and block size
+# in one summation order. Skips without a CUDA device. Imports
 # no JAX, so it runs on the machine with the card:
 #   python -m pytest --noconftest -q tests/test_torch_window_cuda.py
 # (tests/conftest.py imports JAX). Tolerance: float32 in both, another
@@ -252,7 +254,8 @@ def test_stiffness_3d_kernel_matches_plain(box, S, monkeypatch):
     y_plain = winkernel.stiffness_windows_plain(x_pad, op.lidx, op.valid, op.Cg,
                                                 op.kref, op.wl.S, op.wl.W)
     assert _rel(y, y_plain) <= TOL
-    assert winkernel.max_active_clusters(op.wl.nb, op.wl.W, C) > 0
+    plan = winkernel.cluster_launch(winkernel.WINSTIFF3D, op.wl.nb, C, 4, "cuda")
+    assert plan.resident > 0 and plan.clusters == min(op.wl.nb, plan.resident)
     # every cluster size and block size sums in the same order
     for cl, threads in ((1, 64), (2, 256), (4, 512), (8, 384)):
         monkeypatch.setattr(winkernel, "CLUSTER_3D", cl)
@@ -416,37 +419,76 @@ def test_stiffness_p2_kernels_match_plain(scalar_space):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mass", "element"])
+def test_mass_and_element_kernels_sum_in_one_order_at_every_cluster_size(
+        scalar_space, kind, monkeypatch):
+    # the launch constants steer window_plan's rule: one block a window
+    # block, clusters of up to 8 with stages of a few hundred bytes (several
+    # passes), and 32-1,024 threads a block; every launch gives the windows
+    # of the default launch bitwise
+    if kind == "mass":
+        op = winkernel.WindowMassOperator(scalar_space, S=128)
+    else:
+        op = winform.window_operator(_convection_diffusion(scalar_space), S=128)
+    counter = winkernel.WINMASS if kind == "mass" else winform.WINFORM
+    x_pad = _padded(op, 11)
+    y = op.windows(x_pad)
+    nb, NL, C = op.lidx.shape
+    entries = int(op.positions[0][:, -1].max())
+    passes = []
+    for loc_bytes, threads in ((1 << 20, 1024), (4 * 300, 128), (4 * 40, 256),
+                               (4 * 16, 32)):
+        monkeypatch.setattr(winkernel, "WINDOW_LOC_BYTES", loc_bytes)
+        monkeypatch.setattr(winkernel, "WINDOW_THREADS", threads)
+        monkeypatch.setattr(winkernel, "WINDOW_THREADS_FEW", threads)
+        plan = winkernel.cluster_launch(counter, nb, C, NL, "cuda")
+        assert plan.threads == threads and 0 < plan.clusters <= plan.resident
+        passes.append(entries > plan.cl * plan.cap)
+        before = counter.launches
+        assert torch.equal(op.windows(x_pad), y)
+        assert counter.launches == before + 1
+    assert passes[0] is False and passes[-1] is True
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("NL", [3, 4, 6, 10])
 def test_mass_and_element_kernels_take_large_blocks_and_refuse_bad_inputs(NL):
-    # one block of C = 40,000 cells (its local results far past shared
-    # memory): one real cell whose window dofs 0..NL-1 hold x = 1, all other
-    # cells masked
+    # one block of C = 40,000 real cells (its local results far past a
+    # cluster's shared memory, so that NL = 10 runs in passes): cell c puts
+    # its local dof i on window dof (c*NL + i) mod W, where x = 1, so every
+    # window dof sums its count of local results, each 2 NL (mass, detJ =
+    # 2, Mref = 1) or NL (element, A = 1): exact in float32
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc (CUDA kernel has no CPU mode)")
     S = W = 128
     z = dict(device="cuda")
     C = 40000
-    lidx = torch.arange(NL, dtype=torch.int32, **z)[None, :, None].expand(1, NL, C).contiguous()
-    valid = torch.zeros((1, C), **z)
-    valid[0, 0] = 1.0
-    rowptr = torch.full((1, W + 1), NL, dtype=torch.int32, **z)
-    rowptr[0, :NL + 1] = torch.arange(NL + 1, dtype=torch.int32, **z)
-    ent = torch.zeros((1, NL * C), dtype=torch.int32, **z)
-    ent[0, :NL] = torch.arange(NL, dtype=torch.int32, **z)
-    scatter = (rowptr, ent)
+    dof = (np.arange(C)[:, None] * NL + np.arange(NL)) % W  # [C, NL]
+    key = dof.reshape(-1)  # entry c*NL + i lands on key[c*NL + i]
+    ent = np.argsort(key, kind="stable").astype(np.int32)[None]
+    rowptr = np.searchsorted(key[ent[0]], np.arange(W + 1)).astype(np.int32)[None]
+    positions = (torch.as_tensor(rowptr, **z),
+                 torch.as_tensor(scatter_positions(rowptr, ent, NL), **z))
+    lidx = torch.as_tensor(dof.T[None].astype(np.int32), **z).contiguous()
+    valid = torch.ones((1, C), **z)
     x = torch.zeros(S + W, **z)
-    x[:NL] = 1.0
+    x[:W] = 1.0
+    counts = torch.as_tensor(np.bincount(key, minlength=W), dtype=torch.float32, **z)
+    plan = winkernel.cluster_launch(winkernel.WINMASS, 1, C, NL, "cuda")
+    if NL == 10:
+        assert C * NL > plan.cl * plan.cap  # more than one pass
     y = winkernel.mass_windows(x, lidx, valid, torch.full((1, C), 2.0, **z),
-                               torch.ones((NL, NL), **z), S, W, scatter)
+                               torch.ones((NL, NL), **z), S, W, positions)
     aloc = torch.ones((1, NL * NL, C), **z)
-    ye = winform.element_windows(x, lidx, valid, aloc, S, W, scatter)
+    ye = winform.element_windows(x, lidx, valid, aloc, S, W, positions)
     torch.cuda.synchronize()
-    assert y[0, :NL].tolist() == [2.0 * NL] * NL and float(y[0, NL:].abs().max()) == 0.0
-    assert ye[0, :NL].tolist() == [float(NL)] * NL and float(ye[0, NL:].abs().max()) == 0.0
+    assert torch.equal(y[0], 2.0 * NL * counts) and torch.equal(ye[0], NL * counts)
     with pytest.raises(TypeError, match="float32"):
-        winform.element_windows(x, lidx, valid, aloc.double(), S, W, scatter)
+        winform.element_windows(x, lidx, valid, aloc.double(), S, W, positions)
     with pytest.raises(ValueError, match="inconsistent layout shapes"):
-        winform.element_windows(x, lidx, valid, aloc[:, 1:].contiguous(), S, W, scatter)
+        winform.element_windows(x, lidx, valid, aloc[:, 1:].contiguous(), S, W, positions)
     with pytest.raises(ValueError, match="NL in"):
         winkernel.mass_windows(x, lidx[:, :2].contiguous(), valid, valid,
-                               torch.ones((2, 2), **z), S, W, scatter)
+                               torch.ones((2, 2), **z), S, W, positions)
+    with pytest.raises(ValueError, match="lists"):
+        winkernel.mass_windows(x, lidx, valid, valid, torch.ones((NL, NL), **z), S, W)

@@ -4,9 +4,10 @@
 # must reproduce the plain scatter, and the plain version of the window
 # stiffness kernel (K4b) must match the JAX Pallas kernel run in interpret
 # mode at the JAX package's own tolerance (rtol 3e-5: both compute in
-# float32, in another summation order). The 3-D P1 kernel's cluster launch
-# (cluster_plan, the inverse lists of scatter_positions, the passes) is
-# replayed in numpy on a box layout and must sum every row in list order.
+# float32, in another summation order). The cluster kernels' walk (K4b 3-D,
+# K4a and K5: their launch plans, the inverse lists of scatter_positions,
+# the passes) is replayed in numpy on tiny layouts and must sum every row
+# in list order.
 import numpy as np
 import pytest
 import torch
@@ -19,12 +20,13 @@ from flow_tpu.models.karman import KarmanProblem as JaxKarman
 from flow_tpu_torch.attic.window import (build_scatter_lists,
                                          build_window_layout, overlap_add_fn,
                                          scatter_positions)
-from flow_tpu_torch.attic import winkernel
+from flow_tpu_torch.attic import winform, winkernel
 from flow_tpu_torch.attic.winkernel import (WindowStiffnessOperator, cluster_plan,
                                             stiffness_windows_plain)
 from flow_tpu_torch.fem import assembly
 from flow_tpu_torch.fem.ell import ell_stiffness
 from flow_tpu_torch.fem.spaces import FunctionSpace
+from flow_tpu_torch.mesh import unit_square_mesh
 from flow_tpu_torch.mesh3d import box_mesh
 from flow_tpu_torch.models.karman import KarmanProblem
 
@@ -128,59 +130,106 @@ def test_wrapper_refuses_devices_without_a_kernel(problems):
         op.windows(torch.zeros(op.wl.n_pad, device="meta"))
 
 
-@pytest.mark.parametrize("cl, loc_bytes", [(8, None), (2, 4 * 300), (3, 4 * 40)])
-def test_cluster_walk_reproduces_plain(cl, loc_bytes, monkeypatch):
-    # the 3-D P1 kernel's cluster launch replayed in numpy on a box layout
-    # (N=4): passes over whole rows of at most cl * cluster_plan staged
-    # values, each cell's local results stored at their list positions
+def _row_sums(vals, rp):
+    """Each row's values vals[rp[w]:rp[w+1]] summed in order in float32."""
+    start, length = rp[:-1], np.diff(rp)
+    acc = np.zeros(len(length), dtype=np.float32)
+    for k in range(int(length.max(initial=0))):
+        m = length > k
+        acc[m] += vals[start[m] + k]
+    return acc
+
+
+_WALK_SPACES = {  # NL -> a tiny mesh and degree
+    3: (lambda: unit_square_mesh(8, "crossed", dtype=torch.float32, device="cpu"), 1),
+    6: (lambda: unit_square_mesh(6, "crossed", dtype=torch.float32, device="cpu"), 2),
+    4: (lambda: box_mesh((0, 0, 0), (1, 1, 1), 3, 3, 3, dtype=torch.float32,
+                         device="cpu"), 1),
+    10: (lambda: box_mesh((0, 0, 0), (1, 1, 1), 2, 2, 2, dtype=torch.float32,
+                          device="cpu"), 2),
+}
+_WALK_CASES = (
+    [pytest.param("stiffness", 4, cl, loc_bytes, id=f"{cl}-{loc_bytes}")
+     for cl, loc_bytes in ((8, None), (2, 4 * 300), (3, 4 * 40))]
+    + [pytest.param(kind, NL, None, loc_bytes,
+                    id=f"{kind}-NL{NL}-{'rule' if loc_bytes is None else 'passes'}")
+       for kind in ("mass", "element") for NL in (3, 4, 6, 10)
+       for loc_bytes in (None, 4 * 40)])
+
+
+@pytest.mark.parametrize("kind, NL, cl, loc_bytes", _WALK_CASES)
+def test_cluster_walk_reproduces_plain(kind, NL, cl, loc_bytes, monkeypatch):
+    # the cluster kernels' walk (csrc/wincluster.cuh) replayed in numpy:
+    # K4b 3-D on a box layout (N=4) at the given cluster sizes and staging
+    # budgets, K4a and K5 on tiny layouts of every NL at their wrapper's
+    # rule (window_plan, on a card of 132 SMs) and at a budget that forces
+    # passes. Passes over whole rows of at most cl * cap staged values,
+    # each cell's local results stored at their list positions
     # (scatter_positions) in the array of the block that stages them, each
-    # row summed along its positions in order by the block that stages its
-    # first; the windows equal a one-pass walk of the lists bitwise and the
-    # plain version within float32 rounding
-    mesh = box_mesh((0, 0, 0), (1, 1, 1), 4, 4, 4, dtype=torch.float32, device="cpu")
-    op = WindowStiffnessOperator(FunctionSpace(mesh, 1), S=128)
+    # row summed along its positions in order; the windows equal a
+    # one-pass walk of the lists bitwise and the plain version within
+    # float32 rounding
+    rng = np.random.default_rng(9)
+    if kind == "stiffness":
+        mesh = box_mesh((0, 0, 0), (1, 1, 1), 4, 4, 4, dtype=torch.float32, device="cpu")
+        op = WindowStiffnessOperator(FunctionSpace(mesh, 1), S=128)
+    else:
+        mesh_fn, degree = _WALK_SPACES[NL]
+        op = winkernel.WindowMassOperator(FunctionSpace(mesh_fn(), degree), S=128)
     wl = op.wl
     nb, NL, C = op.lidx.shape
     rowptr, ent = build_scatter_lists(wl)
     pos = scatter_positions(rowptr, ent, NL).reshape(nb, NL, C)
-    rng = np.random.default_rng(9)
     x_pad = torch.zeros(wl.n_pad)
     x_pad[:wl.n] = torch.as_tensor(rng.standard_normal(wl.n), dtype=torch.float32)
-    plain = stiffness_windows_plain(x_pad, op.lidx, op.valid, op.Cg, op.kref, wl.S, wl.W)
     u = x_pad[(torch.arange(nb)[:, None, None] * wl.S + op.lidx).long()]
-    K = op.kref.view(9, NL, NL)
-    loc = (torch.einsum("bkc,kij,bjc->bic", op.Cg, K, u) * op.valid[:, None, :]).numpy()
-    monkeypatch.setattr(winkernel, "CLUSTER_3D", cl)
-    if loc_bytes is not None:
-        monkeypatch.setattr(winkernel, "LOC_BYTES_3D", loc_bytes)
-    room = cl * cluster_plan(C, NL)
+    if kind == "stiffness":
+        plain = stiffness_windows_plain(x_pad, op.lidx, op.valid, op.Cg, op.kref, wl.S, wl.W)
+        K = op.kref.view(9, NL, NL)
+        loc = torch.einsum("bkc,kij,bjc->bic", op.Cg, K, u) * op.valid[:, None, :]
+        monkeypatch.setattr(winkernel, "CLUSTER_3D", cl)
+        if loc_bytes is not None:
+            monkeypatch.setattr(winkernel, "LOC_BYTES_3D", loc_bytes)
+        cap = cluster_plan(C, NL)
+    else:
+        if kind == "mass":
+            plain = winkernel.mass_windows_plain(x_pad, op.lidx, op.valid, op.detj, op.mref,
+                                                 wl.S, wl.W)
+            loc = torch.einsum("ij,bjc->bic", op.mref, u) * (op.detj * op.valid)[:, None, :]
+        else:
+            aloc = torch.as_tensor(rng.standard_normal((nb, NL * NL, C)), dtype=torch.float32)
+            plain = winform.element_windows_plain(x_pad, op.lidx, op.valid, aloc, wl.S, wl.W)
+            loc = (torch.einsum("bijc,bjc->bic", aloc.view(nb, NL, NL, C), u)
+                   * op.valid[:, None, :])
+        if loc_bytes is not None:
+            monkeypatch.setattr(winkernel, "WINDOW_LOC_BYTES", loc_bytes)
+        cl, _, cap = winkernel.window_plan(nb, C, NL, 132)
+    loc = loc.numpy()
+    room = cl * cap
     out = np.zeros((nb, wl.W), dtype=np.float32)
     one = np.zeros((nb, wl.W), dtype=np.float32)
     most = 0
     for b in range(nb):
         rp = rowptr[b]
-        for w in range(wl.W):
-            for p in range(rp[w], rp[w + 1]):
-                one[b, w] += loc[b].T.reshape(-1)[ent[b, p]]
+        one[b] = _row_sums(loc[b].T.reshape(-1)[ent[b, :rp[-1]]], rp)
         r0, passes = 0, 0
         while r0 < wl.W:
             e0 = int(rp[r0])
             r1 = (wl.W if rp[-1] - e0 <= room
                   else int(np.searchsorted(rp, e0 + room, side="right")) - 1)
             assert r1 > r0
-            e1 = int(rp[r1])
-            Q = -(-(e1 - e0) // cl)
-            staged = [np.full(Q, np.nan, dtype=np.float32) for _ in range(cl)]
-            for i in range(NL):
-                for c in range(C):
-                    q = int(pos[b, i, c]) - e0
-                    if 0 <= q < e1 - e0:
-                        staged[q // Q][q % Q] = loc[b, i, c]
-            for w in range(r0, r1):
-                for q in range(int(rp[w]) - e0, int(rp[w + 1]) - e0):
-                    out[b, w] += staged[q // Q][q % Q]
+            n = int(rp[r1]) - e0
+            Q = -(-n // cl)
+            staged = np.full((cl, Q), np.nan, dtype=np.float32)
+            q = pos[b] - e0
+            m = (q >= 0) & (q < n)
+            staged[q[m] // Q, q[m] % Q] = loc[b][m]
+            # position q is staged at [q // Q, q % Q]: the rows read their
+            # positions in list order across the blocks' arrays
+            out[b, r0:r1] = _row_sums(staged.reshape(-1), rp[r0:r1 + 1] - e0)
             r0, passes = r1, passes + 1
         most = max(most, passes)
     assert (most > 1) == (loc_bytes is not None)
     np.testing.assert_array_equal(out, one)
-    np.testing.assert_allclose(out, plain.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out, plain.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(plain.abs().max()))
