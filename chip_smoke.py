@@ -98,7 +98,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    on unit_square_mesh(256) and box_mesh N=32 tets, float64 vectors
    (launches = iterations, solution within 1e-3 of the einsum operator's),
    each operator then against its plain version at its layout (2-D P2,
-   NL = 6; 3-D P2, NL = 10); then K4a and K5 at NL = 10 on the tet layout
+   NL = 6; 3-D P2, NL = 10), with its cluster launch (csrc/wincluster.cuh,
+   window_plan's rule; the clusters the card holds at once must cover it)
+   and its host µs per call; then K4a and K5 at NL = 10 on the tet layout
    against their plain versions, with the CSR yardstick and their cluster
    launch (68 window blocks: one cluster each, all resident), and at NL = 3
    and 4 on the P1 layouts of the same meshes;
@@ -137,7 +139,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    code) of the ELL kernels at every shape of 23 (with the L2 cache warm,
    and cold: after a 64 MB write), K3 2-D lagged and Newton, K4b 2-D, the
    three 3-D kernels (K4b 3-D also cold and at its 2-pass layout), K2, K4a
-   and K5 at NL = 6 and 10 (L2 warm and cold), and K4b 2-D and 3-D P2.
+   and K5 at NL = 6 and 10 (L2 warm and cold), and K4b 2-D and 3-D P2 (L2
+   warm and cold). Every K4b row also carries host_us: perf_counter over
+   200 calls enqueued with no synchronisation, divided by the count, the
+   least of five such loops.
 
 The line before the last holds the kernel report, the one before it the
 card; the last line is {"ok": true, "device": {...}}. Imports neither jax
@@ -251,6 +256,26 @@ def cuda_time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, calls=200, loops=5):
+    """Host µs per call of fn: perf_counter over `calls` calls enqueued back
+    to back with no synchronisation, divided by the count; the least of
+    `loops` such loops, since the host's clock spreads more than the
+    device's. The device runs behind, so this is what the Python launch
+    path costs the host."""
+    import torch
+
+    fn()
+    best = float("inf")
+    for _ in range(loops):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * best / calls
 
 
 def device_ms(fn, reps, kernel=None):
@@ -695,6 +720,7 @@ def phase_window_kernels(st, hier):
             lambda: winkernel.stiffness_windows_plain(
                 x, op.lidx, op.valid, op.Cg, op.kref, op.wl.S, op.wl.W))
         ms = cuda_time_ms(lambda: op.windows(x), 100)
+        h_us = host_us(lambda: op.windows(x))
         plain_ms = cuda_time_ms(lambda: winkernel.stiffness_windows_plain(
             x, op.lidx, op.valid, op.Cg, op.kref, op.wl.S, op.wl.W), 10)
         A = _stiffness_csr(op)
@@ -704,12 +730,14 @@ def phase_window_kernels(st, hier):
         nbytes, nops = _winstiff_work(op)
         b_ms, b_by = bound_ms(nbytes, nops)
         log(f"[window] winstiff {name}: n={op.wl.n} max_abs_err={abs_err:.3e} "
-            f"rel_err={rel_err:.3e} kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+            f"rel_err={rel_err:.3e} kernel_ms={ms:.5f} host_us={h_us:.3f} "
+            f"plain_ms={plain_ms:.5f} "
             f"csr_ms={lib_ms:.5f} (nnz {A.values().numel()}) bytes={nbytes} ops={nops} "
             f"bound_ms={b_ms:.6f} ({b_by})")
         if "winstiff" not in report:
             report["winstiff"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                                      host_us=h_us)
             jobs["winstiff"] = (lambda op=op, x=x: op.windows(x))
         del A
 
@@ -1116,6 +1144,7 @@ def _winstiff3d_report(kq, rng):
     plain_q = plain_of(kq, x)
     abs_err, rel_err = _check_kernel("winstiff3d pressure", kernel_q, plain_q)
     ms = cuda_time_ms(kernel_q, 100)
+    h_us = host_us(kernel_q)
     plain_ms = cuda_time_ms(plain_q, 10)
     A = _stiffness_csr(kq)
     _, csr_err = _rel((A @ x)[:kq.wl.n], kq.wl.overlap_add(kernel_q()))
@@ -1131,11 +1160,13 @@ def _winstiff3d_report(kq, rng):
         f"C={C} cluster={plan.cl} threads={plan.threads} staged_per_block={plan.cap} "
         f"passes={_cluster_passes(kq, plan)} clusters={plan.clusters} "
         f"max_active_clusters={plan.resident} max_abs_err={abs_err:.3e} "
-        f"rel_err={rel_err:.3e} kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
-        f"csr_ms={lib_ms:.5f} (N=64, nnz {nnz}) bytes={nbytes} ops={nops} "
+        f"rel_err={rel_err:.3e} kernel_ms={ms:.5f} host_us={h_us:.3f} "
+        f"plain_ms={plain_ms:.5f} csr_ms={lib_ms:.5f} (N=64, nnz {nnz}) bytes={nbytes} "
+        f"ops={nops} "
         f"bound_ms={b_ms:.6f} ({b_by})")
     row = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, library_ms=lib_ms, cluster=chosen[0], threads=chosen[1])
+               bound_by=b_by, library_ms=lib_ms, cluster=chosen[0], threads=chosen[1],
+               host_us=h_us)
     jobs = {"warm": kernel_q, "cold": lambda: (_l2_flush().zero_(), kernel_q())}
     big = winkernel.WindowStiffnessOperator(kq.space, S=WINSTIFF3D_CHUNKED_S)
     xb = inputs(big)
@@ -1429,14 +1460,15 @@ def _element_csr(op, Ae):
 
 
 def _window_kernel_report(name, op, kernel, plain, Ae, nbytes, nops, reps=50,
-                          counter=None):
+                          counter=None, host=False):
     """Kernel against plain (<= 1e-5 relative, bitwise repeat), its wall
     time, the plain version's, the CSR matvec of the same assembled
     operator (checked against the kernel's apply) and the bound. With the
-    `counter` of a cluster kernel (K4a, K5) also its launch: blocks a
-    cluster, threads, staged entries a block, passes, clusters launched and
-    the clusters the card holds at once, which must cover the launch (one
-    wave). Returns the report and the device-time jobs (L2 warm, cold)."""
+    `counter` of a cluster kernel (K4a, K5, K4b P2) also its launch: blocks
+    a cluster, threads, staged entries a block, passes, clusters launched
+    and the clusters the card holds at once, which must cover the launch
+    (one wave); with `host`, the host µs per call (host_us). Returns the
+    report and the device-time jobs (L2 warm, cold)."""
     import torch
     from flow_tpu_torch.attic import winkernel
 
@@ -1446,6 +1478,7 @@ def _window_kernel_report(name, op, kernel, plain, Ae, nbytes, nops, reps=50,
     abs_err, rel_err = _check_kernel(name, lambda: kernel(x), lambda: plain(x))
     ms = cuda_time_ms(lambda: kernel(x), reps)
     plain_ms = cuda_time_ms(lambda: plain(x), 5)
+    h_us = host_us(lambda: kernel(x)) if host else None
     A = _element_csr(op, Ae)
     _, csr_err = _rel((A @ x)[:op.wl.n], op.wl.overlap_add(kernel(x)))
     check(csr_err <= 1e-5, f"{name}: the CSR yardstick differs ({csr_err})")
@@ -1457,11 +1490,13 @@ def _window_kernel_report(name, op, kernel, plain, Ae, nbytes, nops, reps=50,
     nb, NL, C = op.lidx.shape
     row = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, library_ms=lib_ms)
-    launch = ""
+    launch = "" if h_us is None else f" host_us={h_us:.3f}"
+    if host:
+        row["host_us"] = h_us
     if counter is not None:
         plan = winkernel.cluster_launch(counter, nb, C, NL, "cuda")
         row.update(plan._asdict(), passes=_cluster_passes(op, plan))
-        launch = (f" cluster={plan.cl} threads={plan.threads} staged_per_block={plan.cap} "
+        launch += (f" cluster={plan.cl} threads={plan.threads} staged_per_block={plan.cap} "
                   f"passes={row['passes']} clusters={plan.clusters} "
                   f"max_active_clusters={plan.resident} window_blocks_per_cluster<="
                   f"{-(-nb // plan.clusters)}")
@@ -1501,15 +1536,16 @@ def _element_report(name, K):
         counter=winform.WINFORM)
 
 
-def _stiffness_report(name, op):
+def _stiffness_report(name, op, counter):
+    """K4b P2 (a cluster kernel, `counter` its count) at op's layout: the
+    report of _window_kernel_report with the cluster launch and host_us."""
     from flow_tpu_torch.attic import winkernel
 
-    row, jobs = _window_kernel_report(
+    return _window_kernel_report(
         name, op, op.windows,
         lambda x: winkernel.stiffness_windows_plain(x, op.lidx, op.valid, op.Cg, op.kref,
                                                     op.wl.S, op.wl.W),
-        _stiffness_elements(op), *_winstiff_work(op))
-    return row, jobs["warm"]
+        _stiffness_elements(op), *_winstiff_work(op), counter=counter, host=True)
 
 
 def phase_formwin2d():
@@ -1664,10 +1700,11 @@ def _p2_poisson(V, kernel_counter):
 def phase_window_p2():
     """K4b P2 on its paths (Dirichlet P2 Poisson on unit_square_mesh(256)
     triangles and box_mesh N=32 tets), each operator against its plain
-    version at its layout, then K4a and K5 at NL=10 on the N=32 P2 tet
-    layout against theirs, and at NL=3 and 4 on the P1 layouts of the same
-    meshes. Returns the 2-D and 3-D K4b reports and jobs, and the NL=10 K4a
-    and K5 reports and device-time jobs."""
+    version at its layout with its cluster launch and host µs per call,
+    then K4a and K5 at NL=10 on the N=32 P2 tet layout against theirs, and
+    at NL=3 and 4 on the P1 layouts of the same meshes. Returns the 2-D and
+    3-D K4b reports and device-time jobs (L2 warm, cold), and the NL=10 K4a
+    and K5 reports and jobs."""
     import torch
     from flow_tpu_torch.attic import winform, winkernel
     from flow_tpu_torch.fem import assembly, formlang as fl
@@ -1680,8 +1717,8 @@ def phase_window_p2():
                                 device="cuda"), 2)
     op2, l2 = _p2_poisson(V2, winkernel.WINSTIFF_P2)
     op3, l3 = _p2_poisson(V3, winkernel.WINSTIFF3D_P2)
-    k4b2, k4b2_job = _stiffness_report("k4b-p2 tri n=256", op2)
-    k4b3, k4b3_job = _stiffness_report("k4b-p2 tets N=32", op3)
+    k4b2, k4b2_job = _stiffness_report("k4b-p2 tri n=256", op2, winkernel.WINSTIFF_P2)
+    k4b3, k4b3_job = _stiffness_report("k4b-p2 tets N=32", op3, winkernel.WINSTIFF3D_P2)
     k4b2["launches"], k4b3["launches"] = l2, l3
 
     u, v = fl.TrialFunction(V3), fl.TestFunction(V3)
@@ -2112,8 +2149,15 @@ def main():
                         f"({r['ms']:.5f}; {r['library_ms']:.5f})" for tag, r in (
                             ("winmass NL=6", k4a), ("winform NL=6", k5),
                             ("winmass NL=10", k4a10), ("winform NL=10", k5_10))))
-        k4b_p2["device_ms"] = device_ms(k4b_p2_job, 50)
-        k4b3_p2["device_ms"] = device_ms(k4b3_p2_job, 50)
+        for row, jobs in ((k4b_p2, k4b_p2_job), (k4b3_p2, k4b3_p2_job)):
+            row["device_ms"] = device_ms(jobs["warm"], 50, kernel="winstiff_p2_kernel")
+            row["device_cold_ms"] = device_ms(jobs["cold"], 50,
+                                              kernel="winstiff_p2_kernel")
+        log("[profile] K4b P2 device ms per call, L2 warm / cold (wall; host us; CSR): "
+            + ", ".join(f"{tag}={r['device_ms']:.5f}/{r['device_cold_ms']:.5f} "
+                        f"({r['ms']:.5f}; {r['host_us']:.3f}; {r['library_ms']:.5f})"
+                        for tag, r in (("winstiff_p2 tri n=256", k4b_p2),
+                                       ("winstiff3d_p2 tets N=32", k4b3_p2))))
         log("[profile] device ms per call: "
             + ", ".join(f"{k}={v['device_ms']:.5f}" for k, v in
                         (("winmom lagged", kwin["winmom"]), ("winstiff", kwin["winstiff"]),
@@ -2199,7 +2243,9 @@ def main():
     log(f"[done] launches by path: {json.dumps(paths)}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    # host_us: the host µs per call of the K4b rows
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("host_us",) if k in keys or k in r}
+                                  for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

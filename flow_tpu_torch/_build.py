@@ -111,19 +111,24 @@ class Kernel:
         self.signatures = signatures
         self.launches = 0
         self._lib = None
+        self._entries = {}
 
     def lib(self):
         if self._lib is None:
             lib = load(self.name)
+            entries = {}
             for fn, argtypes in self.signatures.items():
-                entry = getattr(lib, fn)
+                entry = entries[fn] = getattr(lib, fn)
                 entry.argtypes = argtypes
                 entry.restype = ctypes.c_int
+            self._entries = entries
             self._lib = lib
         return self._lib
 
     def launch(self, fn, *args):
-        err = getattr(self.lib(), fn)(*args)
+        if self._lib is None:
+            self.lib()
+        err = self._entries[fn](*args)
         if err != 0:
             raise RuntimeError(f"{fn} launch failed with CUDA error {err}")
         self.launches += 1

@@ -12,16 +12,18 @@
 # boundary.
 #
 # mass_windows and stiffness_windows launch their kernels for CUDA tensors
-# and take the plain versions only for CPU tensors. K4a and the 3-D P1
-# stiffness (the cavity's pressure operator) run as thread-block clusters
-# (csrc/wincluster.cuh, shared with K5 in attic/winform.py) that stage the
-# local results in their shared memory at their scatter-list positions (the
-# lists' inverse, the operators' `positions`; cluster_launch); the other
-# stiffness variants write them to a device scratch and read them back along
-# the scatter lists (WindowStiffnessOperator.scatter). They count their
+# and take the plain versions only for CPU tensors. K4a and the stiffness
+# variants but 2-D P1 run as thread-block clusters (csrc/wincluster.cuh,
+# shared with K5 in attic/winform.py) that stage the local results in their
+# shared memory at their scatter-list positions (the lists' inverse, the
+# operators' `positions`; cluster_launch); the 2-D P1 stiffness (the Karman
+# pressure operator) writes them to a device scratch and reads them back
+# along the scatter lists (WindowStiffnessOperator.scatter). They count their
 # launches in WINMASS.launches (K4a) and WINSTIFF.launches (K4b 2-D P1),
 # WINSTIFF3D.launches (3-D P1), WINSTIFF_P2.launches (2-D P2) and
-# WINSTIFF3D_P2.launches (3-D P2).
+# WINSTIFF3D_P2.launches (3-D P2). WindowStiffnessOperator checks its
+# tables and resolves its launch once, at construction (_StiffnessLaunch),
+# so that an apply costs the host little more than the launch itself.
 from __future__ import annotations
 
 import ctypes
@@ -47,22 +49,25 @@ __all__ = ["WindowStiffnessOperator", "stiffness_windows",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# the 2-D and P2 variants take a device scratch for the local results
+# K4b's variants: one library, an entry point and a count each. Every entry
+# takes the launch's fixed arguments as one struct (_WinstiffArgs), then x,
+# (2-D P1: its device scratch for the local results,) out and the stream;
+# the cluster variants also have their occupancy query
 WINSTIFF = Kernel("winstiff", {
-    "winstiff_p1_2d": [_P] * 9 + [_I] * 4 + [_P],
+    "winstiff_p1_2d": [_P] * 5,
 })
-# the 3-D variant: the same library, its own entry point and count; a
-# cluster launch with no scratch, and its occupancy query
 WINSTIFF3D = Kernel("winstiff", {
-    "winstiff_p1_3d": [_P] * 8 + [_I] * 8 + [_P],
+    "winstiff_p1_3d": [_P] * 4,
     "winstiff_p1_3d_clusters": [_I] * 3 + [_P],
 })
-# the P2 variants (NL = 6 triangles, 10 tets), each with its own count
+# the P2 variants (NL = 6 triangles, 10 tets)
 WINSTIFF_P2 = Kernel("winstiff", {
-    "winstiff_p2_2d": [_P] * 9 + [_I] * 4 + [_P],
+    "winstiff_p2_2d": [_P] * 4,
+    "winstiff_p2_2d_clusters": [_I] * 3 + [_P],
 })
 WINSTIFF3D_P2 = Kernel("winstiff", {
-    "winstiff_p2_3d": [_P] * 9 + [_I] * 4 + [_P],
+    "winstiff_p2_3d": [_P] * 4,
+    "winstiff_p2_3d_clusters": [_I] * 3 + [_P],
 })
 # (DIM^2, NL) -> (kernel, entry point)
 _ENTRIES = {
@@ -81,7 +86,8 @@ _ENTRIES = {
 CLUSTER_3D = 8
 THREADS_3D = 512
 LOC_BYTES_3D = 96 * 1024
-# K4a's and K5's cluster launch (csrc/winmass.cu, winform.cu; window_plan):
+# K4a's, K5's and K4b P2's cluster launch (csrc/winmass.cu, winform.cu,
+# winstiff.cu's P2 variants; window_plan):
 # the local results a block stages in one pass (bytes), and the threads of
 # a block where the blocks outnumber the card's SMs and where they do not.
 # Chosen on the card (scripts/torch_window_cluster_bench.py --sweep; device
@@ -118,27 +124,47 @@ def gather_windows_plain(x_pad, lidx, S):
     return x_pad[(base + lidx).long()]
 
 
-def check_window_args(name, x_pad, lidx, valid, floats, lists, S, W):
-    """The checks every window kernel wrapper makes before its launch:
-    contiguous tensors on x_pad's device, float32 and int32 where the
-    kernels read them, and the layout's shapes. `floats` are the kernel's
-    per-block tables and small reference tensors; `lists` the (rowptr, ent)
-    scatter lists or the (rowptr, pos) positions the kernel reads."""
+def check_window_input(name, x_pad, device, n_pad):
+    """The checks of a window kernel's input x_pad: contiguous float32 on
+    the tables' `device`, n_pad = nb*S + W values."""
+    if x_pad.device != device or not x_pad.is_contiguous():
+        raise ValueError(f"{name}: tensors must be contiguous and on one device")
+    if x_pad.dtype != torch.float32:
+        raise TypeError(f"{name}: float tensors must be float32")
+    if x_pad.numel() != n_pad:
+        raise ValueError(f"{name}: inconsistent layout shapes")
+
+
+def check_window_tables(name, lidx, valid, floats, lists, S, W):
+    """The checks of a window kernel's tables: contiguous tensors on lidx's
+    device, float32 and int32 where the kernels read them, and the layout's
+    shapes. `floats` are the kernel's per-block tables and small reference
+    tensors; `lists` the (rowptr, ent) scatter lists or the (rowptr, pos)
+    positions the kernel reads."""
     nb, NL, C = lidx.shape
     if lists is None:
         raise ValueError(f"{name}: the kernel needs the layout's lists")
     rowptr, ent = lists
-    for t in (x_pad, lidx, valid, rowptr, ent, *floats):
-        if t.device != x_pad.device or not t.is_contiguous():
+    for t in (lidx, valid, rowptr, ent, *floats):
+        if t.device != lidx.device or not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous and on one device")
-    if any(t.dtype != torch.float32 for t in (x_pad, valid, *floats)):
+    if any(t.dtype != torch.float32 for t in (valid, *floats)):
         raise TypeError(f"{name}: float tensors must be float32")
     if any(t.dtype != torch.int32 for t in (lidx, rowptr, ent)):
         raise TypeError(f"{name}: index tensors must be int32")
-    if (x_pad.numel() != nb * S + W or tuple(valid.shape) != (nb, C)
-            or tuple(rowptr.shape) != (nb, W + 1) or tuple(ent.shape) != (nb, C * NL)
-            or max(x_pad.numel(), ent.numel(), *(t.numel() for t in floats)) >= 2**31):
+    if (tuple(valid.shape) != (nb, C) or tuple(rowptr.shape) != (nb, W + 1)
+            or tuple(ent.shape) != (nb, C * NL)
+            or max(nb * S + W, ent.numel(), *(t.numel() for t in floats)) >= 2**31):
         raise ValueError(f"{name}: inconsistent layout shapes")
+
+
+def check_window_args(name, x_pad, lidx, valid, floats, lists, S, W):
+    """The checks every window kernel wrapper makes before its launch: those
+    of its input (check_window_input) and of its tables
+    (check_window_tables)."""
+    nb = lidx.shape[0]
+    check_window_input(name, x_pad, lidx.device, nb * S + W)
+    check_window_tables(name, lidx, valid, floats, lists, S, W)
 
 
 def stiffness_windows_plain(x_pad, lidx, valid, cg, kref, S, W):
@@ -163,11 +189,11 @@ def cluster_plan(C, NL):
 
 
 def window_plan(nb, C, NL, sms):
-    """K4a's and K5's cluster launch at a layout of nb window blocks of C
-    cells on a card of `sms` SMs: (blocks a cluster CL, threads a block,
-    entries a block stages in a pass). CL is the least size that stages a
-    window block's C*NL local results in one pass of WINDOW_LOC_BYTES a
-    block, at most MAX_CLUSTER (a layout whose results exceed MAX_CLUSTER
+    """K4a's, K5's and K4b P2's cluster launch at a layout of nb window
+    blocks of C cells on a card of `sms` SMs: (blocks a cluster CL, threads
+    a block, entries a block stages in a pass). CL is the least size that
+    stages a window block's C*NL local results in one pass of
+    WINDOW_LOC_BYTES a block, at most MAX_CLUSTER (a layout whose results exceed MAX_CLUSTER
     blocks' stage runs in passes); blocks of WINDOW_THREADS_FEW threads
     where the nb*CL blocks are no more than the SMs, else WINDOW_THREADS."""
     entries = C * NL
@@ -186,32 +212,37 @@ class ClusterLaunch(NamedTuple):
     resident: int  # clusters the card holds at once (cudaOccupancyMaxActiveClusters)
 
 
+def _launch_consts(kernel):
+    """The module constants that a cluster kernel's launch follows."""
+    if kernel is WINSTIFF3D:
+        return CLUSTER_3D, THREADS_3D, LOC_BYTES_3D
+    return window_plan, WINDOW_LOC_BYTES, WINDOW_THREADS, WINDOW_THREADS_FEW, MAX_CLUSTER
+
+
 def cluster_launch(kernel, nb, C, NL, device):
-    """The launch of a cluster kernel (WINSTIFF3D, WINMASS or
-    winform.WINFORM) at a layout of nb window blocks of C cells on
-    `device`: K4b 3-D's constants (CLUSTER_3D, THREADS_3D, cluster_plan),
-    or K4a's and K5's rule (window_plan). It launches at most the clusters
-    the card holds at once, so the grid is one wave and each cluster walks
-    its share of the window blocks (csrc/wincluster.cuh); where the card's
-    query refuses the configuration, nb clusters, whose launch then
-    reports the error. Cached per layout and launch constants."""
+    """The launch of a cluster kernel (WINSTIFF3D, WINSTIFF_P2,
+    WINSTIFF3D_P2, WINMASS or winform.WINFORM) at a layout of nb window
+    blocks of C cells on `device`: K4b 3-D P1's constants (CLUSTER_3D,
+    THREADS_3D, cluster_plan), or the rule of K4a, K5 and K4b P2
+    (window_plan). It launches at most the clusters the card holds at once,
+    so the grid is one wave and each cluster walks its share of the window
+    blocks (csrc/wincluster.cuh); where the card's query refuses the
+    configuration, nb clusters, whose launch then reports the error. Cached
+    per layout and launch constants."""
     device = torch.device(device)
     index = device.index if device.index is not None else torch.cuda.current_device()
-    if kernel is WINSTIFF3D:
-        consts = (CLUSTER_3D, THREADS_3D, LOC_BYTES_3D)
-    else:
-        consts = (window_plan, WINDOW_LOC_BYTES, WINDOW_THREADS, WINDOW_THREADS_FEW,
-                  MAX_CLUSTER)
-    return _cluster_launch(kernel, nb, C, NL, index, consts)
+    return _cluster_launch(kernel, nb, C, NL, index, _launch_consts(kernel))
 
 
 @functools.lru_cache(maxsize=256)
 def _cluster_launch(kernel, nb, C, NL, index, consts):
     if kernel is WINSTIFF3D:
-        cl, threads, cap, lead = CLUSTER_3D, THREADS_3D, cluster_plan(C, NL), ()
+        cl, threads, cap = CLUSTER_3D, THREADS_3D, cluster_plan(C, NL)
     else:
         sms = torch.cuda.get_device_properties(index).multi_processor_count
-        (cl, threads, cap), lead = window_plan(nb, C, NL, sms), (NL,)
+        cl, threads, cap = window_plan(nb, C, NL, sms)
+    # the queries of K4b's variants, each instantiated at one NL, take no NL
+    lead = () if kernel in (WINSTIFF3D, WINSTIFF_P2, WINSTIFF3D_P2) else (NL,)
     query = next(fn for fn in kernel.signatures if fn.endswith("_clusters"))
     out = ctypes.c_int(0)
     with torch.cuda.device(index):
@@ -221,61 +252,128 @@ def _cluster_launch(kernel, nb, C, NL, index, consts):
                          resident)
 
 
+class _WinstiffArgs(ctypes.Structure):
+    """The fixed arguments of a csrc/winstiff.cu launch (struct
+    WinstiffArgs): the tables' pointers, the layout and, for the cluster
+    variants, the launch."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in
+                 ("lidx", "valid", "cg", "kref", "kref_host", "rowptr", "lists")]
+                + [(name, ctypes.c_int)
+                   for name in ("nb", "S", "W", "C", "clusters", "cl", "threads", "cap")])
+
+
+class _StiffnessLaunch:
+    """K4b's launch at fixed tables (see stiffness_windows): the tables are
+    checked once, here, and their pointers kept in a _WinstiffArgs struct
+    with the entry point and, for a cluster variant, its launch, so that a
+    call checks only x_pad and allocates only the output (and 2-D P1's
+    scratch). The P2 kernels take Kref as a kernel parameter, so the launch
+    keeps a host copy of it. The launch follows the module's launch
+    constants: a call that finds them changed plans again. The tables must
+    not change while the launch lives (it holds them, and their
+    pointers)."""
+
+    def __init__(self, lidx, valid, cg, kref, S, W, scatter, positions):
+        nb, NL, C = lidx.shape
+        d2 = cg.shape[1]
+        if (d2, NL) not in _ENTRIES:
+            raise ValueError(
+                f"stiffness_windows: the kernels take P1 and P2 on triangles and "
+                f"tets (DIM^2, NL) in {sorted(_ENTRIES)}, got ({d2}, {NL})"
+            )
+        self.kernel, self.entry = _ENTRIES[(d2, NL)]
+        self.cluster = self.kernel is not WINSTIFF
+        lists = positions if self.cluster else scatter
+        check_window_tables("stiffness_windows", lidx, valid, (cg, kref), lists, S, W)
+        if tuple(cg.shape) != (nb, d2, C) or kref.numel() != d2 * NL * NL:
+            raise ValueError("stiffness_windows: inconsistent layout shapes")
+        # the P2 kernels read Kref from their parameters, copied from host memory
+        self.kref_host = (kref.cpu().contiguous()
+                          if self.kernel in (WINSTIFF_P2, WINSTIFF3D_P2) else None)
+        self.tables = (lidx, valid, cg, kref, *lists)
+        self.device = lidx.device
+        self.layout = (nb, C, NL)
+        self.n_pad = nb * S + W
+        # the output (and 2-D P1's scratch) by empty_like of one value
+        # expanded to its shape: contiguous, at a fraction of torch.empty's
+        # host cost
+        one = torch.empty(1, dtype=torch.float32, device=self.device)
+        self.out_like = one.expand(nb, W)
+        self.scratch_like = None if self.cluster else one.expand(nb, C * NL)
+        self.args = _WinstiffArgs(
+            lidx.data_ptr(), valid.data_ptr(), cg.data_ptr(), kref.data_ptr(),
+            None if self.kref_host is None else self.kref_host.data_ptr(),
+            lists[0].data_ptr(), lists[1].data_ptr(), nb, S, W, C)
+        self.argp = ctypes.c_void_p(ctypes.addressof(self.args))
+        self.consts = None
+
+    def _plan(self, consts):
+        nb, C, NL = self.layout
+        plan = _cluster_launch(self.kernel, nb, C, NL, self.device.index, consts)
+        a = self.args
+        a.clusters, a.cl, a.threads, a.cap = (plan.clusters, plan.cl, plan.threads,
+                                              plan.cap)
+        self.consts = consts
+
+    def __call__(self, x_pad):
+        device = self.device
+        if (x_pad.device != device or x_pad.dtype != torch.float32
+                or not x_pad.is_contiguous() or x_pad.numel() != self.n_pad):
+            check_window_input("stiffness_windows", x_pad, device, self.n_pad)
+        if self.cluster:
+            consts = _launch_consts(self.kernel)
+            if consts != self.consts:
+                self._plan(consts)
+        out = torch.empty_like(self.out_like)
+        if self.cluster:
+            args = (self.argp, x_pad.data_ptr(), out.data_ptr())
+        else:
+            scratch = torch.empty_like(self.scratch_like)
+            args = (self.argp, x_pad.data_ptr(), scratch.data_ptr(), out.data_ptr())
+        index = device.index
+        if index == torch.cuda.current_device():
+            self.kernel.launch(self.entry, *args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                self.kernel.launch(self.entry, *args,
+                                   torch._C._cuda_getCurrentRawStream(index))
+        return out
+
+
 def stiffness_windows(x_pad, lidx, valid, cg, kref, S, W, scatter=None,
                       positions=None):
     """Per-block output windows [nb, W] of the scalar stiffness apply (see
     stiffness_windows_plain). CPU tensors take the plain version; CUDA
-    tensors launch the kernel. The 3-D P1 kernel reads `positions` =
-    (rowptr, pos) tensors, pos the inverse of the layout's scatter lists
+    tensors launch the kernel, after checking every argument. The 2-D P1
+    kernel reads `scatter` = (rowptr, ent) tensors: it writes the local
+    results to a device scratch [nb, C*NL], so any C fits, and sums each
+    window dof along its list. The others read `positions` = (rowptr, pos)
+    tensors, pos the inverse of the layout's scatter lists
     (window.scatter_positions): each cell stores its local results at
-    their list positions in the shared memory of a cluster of CLUSTER_3D
-    blocks of THREADS_3D threads, in passes where they exceed it
-    (cluster_plan), and each row sums its positions in order. The others
-    read `scatter` = (rowptr, ent) tensors: they write the local results to
-    a device scratch [nb, C*NL], so any C fits, and sum each window dof
-    along its list."""
+    their list positions in the shared memory of a cluster of blocks
+    (cluster_launch: CLUSTER_3D blocks of THREADS_3D threads for 3-D P1,
+    window_plan's rule for P2), in passes where they exceed it, and each
+    row sums its positions in order. The P2 kernels take Kref as a kernel
+    parameter, so a call copies it to the host (WindowStiffnessOperator
+    does so once)."""
     if x_pad.device.type == "cpu":
         return stiffness_windows_plain(x_pad, lidx, valid, cg, kref, S, W)
     if x_pad.device.type != "cuda":
         raise ValueError(f"stiffness_windows: no kernel for device {x_pad.device}")
-    nb, NL, C = lidx.shape
-    d2 = cg.shape[1]
-    if (d2, NL) not in _ENTRIES:
-        raise ValueError(
-            f"stiffness_windows: the kernels take P1 and P2 on triangles and "
-            f"tets (DIM^2, NL) in {sorted(_ENTRIES)}, got ({d2}, {NL})"
-        )
-    kernel, entry = _ENTRIES[(d2, NL)]
-    lists = positions if kernel is WINSTIFF3D else scatter
-    check_window_args("stiffness_windows", x_pad, lidx, valid, (cg, kref), lists, S, W)
-    if tuple(cg.shape) != (nb, d2, C) or kref.numel() != d2 * NL * NL:
-        raise ValueError("stiffness_windows: inconsistent layout shapes")
-    rowptr, ent = lists
-    out = torch.empty((nb, W), dtype=torch.float32, device=x_pad.device)
-    args = [x_pad.data_ptr(), lidx.data_ptr(), valid.data_ptr(), cg.data_ptr(),
-            kref.data_ptr(), rowptr.data_ptr(), ent.data_ptr()]
-    if kernel is WINSTIFF3D:
-        plan = cluster_launch(WINSTIFF3D, nb, C, NL, x_pad.device)
-        tail = [out.data_ptr(), nb, S, W, C, plan.clusters, plan.cl, plan.threads,
-                plan.cap]
-    else:
-        scratch = torch.empty((nb, C * NL), dtype=torch.float32, device=x_pad.device)
-        tail = [scratch.data_ptr(), out.data_ptr(), nb, S, W, C]
-    with torch.cuda.device(x_pad.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        kernel.launch(entry, *args, *tail, stream)
-    return out
+    return _StiffnessLaunch(lidx, valid, cg, kref, S, W, scatter, positions)(x_pad)
 
 
 class WindowStiffnessOperator:
     """Scalar stiffness apply on the window layout of a P1 or P2 space on
     triangles or tets (the pressure-Poisson and multigrid-level operator).
-    Tables live in float32 on `device` (default: the mesh's). apply(x)
-    takes x [n] in the original numbering, in any float dtype, and returns
-    K x in that dtype. On the card the operator holds the lists its kernel
-    reads (see stiffness_windows): `positions` for 3-D P1, `scatter` for
-    the others; the other is None. layout_seconds: the host seconds of the
-    layout, its tables and scatter lists."""
+    Tables live in float32 on `device` (default: the mesh's) and do not
+    change after construction. apply(x) takes x [n] in the original
+    numbering, in any float dtype, and returns K x in that dtype. On the
+    card the operator holds the lists its kernel reads (see
+    stiffness_windows): `scatter` for 2-D P1, `positions` for the others;
+    the other is None. Its tables are checked, and its launch resolved,
+    once here: windows() then checks only its input. layout_seconds: the
+    host seconds of the layout, its tables and scatter lists."""
 
     def __init__(self, space, S=None, device=None):
         self.space = space
@@ -302,16 +400,20 @@ class WindowStiffnessOperator:
         self.valid = dev(wl.valid)
         self.perm = dev(wl.perm, torch.int64)
         self.inv = dev(wl.inv, torch.int64)
-        self.scatter = self.positions = None
+        self.scatter = self.positions = self._launch = None
         if self.device.type == "cuda":
-            if _ENTRIES.get((dim * dim, nl), (None,))[0] is WINSTIFF3D:
-                self.positions = tuple(dev(a, torch.int32) for a in position_lists(wl))
-            else:
+            if _ENTRIES.get((dim * dim, nl), (None,))[0] is WINSTIFF:
                 self.scatter = tuple(dev(a, torch.int32) for a in build_scatter_lists(wl))
+            else:
+                self.positions = tuple(dev(a, torch.int32) for a in position_lists(wl))
+            self._launch = _StiffnessLaunch(self.lidx, self.valid, self.Cg, self.kref,
+                                            wl.S, wl.W, self.scatter, self.positions)
         self.layout_seconds = time.perf_counter() - t0
 
     def windows(self, x_pad):
         """[nb*S + W] float32 permuted, padded input -> [nb, W] windows."""
+        if self._launch is not None:
+            return self._launch(x_pad)
         wl = self.wl
         return stiffness_windows(x_pad, self.lidx, self.valid, self.Cg,
                                  self.kref, wl.S, wl.W, self.scatter, self.positions)

@@ -1,5 +1,6 @@
-// The thread-block-cluster walk that the window kernels winstiff_p1_3d
-// (winstiff.cu), winmass (winmass.cu) and winform (winform.cu) share: a
+// The thread-block-cluster walk that the window kernels winstiff_p1_3d,
+// winstiff_p2_2d and winstiff_p2_3d (winstiff.cu), winmass (winmass.cu) and
+// winform (winform.cu) share: a
 // window block's local results staged at their scatter-list positions in
 // the shared memory of a cluster of blocks (distributed shared memory,
 // DSMEM), and each window row summed from it in list order. No device

@@ -1,7 +1,7 @@
 // What the window kernels share: the deterministic scatter phase that sums
-// a block's local results into its output window (winstiff.cu's variants
-// but winstiff_p1_3d), and the dispatch on the local-dof count NL
-// (winmass.cu, winform.cu). The cluster kernels (winstiff_p1_3d, winmass,
+// a block's local results into its output window (winstiff.cu's
+// winstiff_p1_2d), and the dispatch on the local-dof count NL (winmass.cu,
+// winform.cu). The cluster kernels (winstiff.cu's other variants, winmass,
 // winform) sum in the same order from the cluster's shared memory instead
 // (wincluster.cuh).
 //

@@ -12,50 +12,82 @@
 // Replaces flow_tpu/attic/winkernel.py::WindowStiffnessOperator._pallas
 // (K4b), whose TPU kernel DMAs the window into VMEM and gathers and scatters
 // with one-hot MXU contractions. It is the pressure operator of the window
-// route (Karman in 2-D, the cavity in 3-D) and the operator of the large
-// 2-D multigrid levels.
+// route (Karman in 2-D, the cavity in 3-D), the operator of the large 2-D
+// multigrid levels, and the operator of any P2 space a caller builds it on.
 //
 // Bound: memory bandwidth. Per cell it reads NL indices, DIM^2 geometry
 // factors, a mask and NL window values and does ~100 (2-D P1), ~370 (3-D
 // P1), ~360 (2-D P2) or ~1,900 (3-D P2) flops. The scatter lists, which
 // only this design needs, add one index per (cell, local dof) and one row
 // pointer per window dof on top of the function's own bytes; the device
-// scratch of all but winstiff_p1_3d adds two floats per local result.
+// scratch of winstiff_p1_2d adds two floats per local result.
 //
-// Design of winstiff_p1_2d, winstiff_p2_2d and winstiff_p2_3d: one block
-// per window block b. The Kref table is staged in shared memory. Threads
-// take cells in turn, gather the NL window values (the window of one block
-// spans a few thousand contiguous floats, so the gathers hit L1/L2), and
-// write the NL local results. Then the block sums them into its window
-// along the host-built scatter lists, in a fixed order and with no atomics
-// (scatter_window, csrc/winscatter.cuh).
-// The local results live in a device scratch [nb, C*NL] that the wrapper
-// allocates, so any C fits; __syncthreads() makes the block's global writes
-// visible to the block before the sums. A 3-D block has 1,024 threads, a
-// 2-D block 256.
+// Design of winstiff_p1_2d (the Karman pressure operator and multigrid
+// levels): one block of 256 threads per window block b. The Kref table is
+// staged in shared memory. Threads take cells in turn, gather the NL window
+// values (the window of one block spans a few thousand contiguous floats,
+// so the gathers hit L1/L2), and write the NL local results to a device
+// scratch [nb, C*NL] that the wrapper allocates, so any C fits. Then the
+// block sums them into its window along the host-built scatter lists, in a
+// fixed order and with no atomics (scatter_window, csrc/winscatter.cuh);
+// __syncthreads() makes the block's global writes visible to the block
+// before the sums.
 //
-// Design of winstiff_p1_3d (the cavity's pressure operator: nb = 68, C =
-// 23,958, W = 20,480 at N=64): the thread-block-cluster walk of
-// csrc/wincluster.cuh, which winmass.cu and winform.cu share, with clusters
-// of CL blocks a window block (attic/winkernel.CLUSTER_3D), so that 68
-// window blocks spread over the 132 SMs. The cluster's shared memory
-// (distributed shared memory, DSMEM) holds what the TPU kernel kept in
-// VMEM: every local result of the window block, stored at its position in
-// the scatter lists (the host-built inverse of the lists,
-// window.py::scatter_positions), so no device scratch is written or read
-// back and no list is gathered. Each row then sums contiguous shared
-// memory in list order, the order of the other variants' scatter_window.
-// A layout whose entries exceed the cluster's stage runs in passes over
-// whole rows.
+// Design of winstiff_p1_3d, winstiff_p2_2d and winstiff_p2_3d: the
+// thread-block-cluster walk of csrc/wincluster.cuh, which winmass.cu and
+// winform.cu share. The cluster's shared memory (distributed shared memory,
+// DSMEM) holds what the TPU kernel kept in VMEM: every local result of the
+// window block, stored at its position in the scatter lists (the host-built
+// inverse of the lists, window.py::scatter_positions), so no device scratch
+// is written or read back and no list is gathered. Each row then sums
+// contiguous shared memory in list order, the order of scatter_window, so
+// the windows are those of the scratch design bitwise. A layout whose
+// entries exceed the cluster's stage runs in passes over whole rows. Each
+// cell's results are computed in the scratch design's order: for each
+// (k, l) the Kref row's dot with the window values in j order, then the
+// (k, l) terms in order, then the mask.
+// winstiff_p1_3d (the cavity's pressure operator: nb = 68, C = 23,958, W =
+// 20,480 at N=64) runs clusters of CL blocks of at most 512 threads a
+// window block (attic/winkernel.CLUSTER_3D), so that 68 window blocks spread
+// over the 132 SMs, and reads its 144-float Kref table from shared memory,
+// a row of four as one 16-byte load (kref_row_dot).
+// The P2 variants (winstiff_p2_kernel) take K4a's and K5's launch rule
+// (attic/winkernel.window_plan): one block of 1,024 threads a window block
+// at the P2 Poisson layouts (nb = 68 tets at NL = 10, 121 triangle blocks
+// at NL = 6). Their cell phase leads (32 of 54 us at NL = 10 on an H100
+// with the table in shared memory, PERF.md), and its 900 (3-D) or 144 (2-D)
+// Kref values a cell cost 270 or 48 shared-memory loads even as 16-byte
+// broadcasts, and a spill. So the table is a kernel parameter (__grid_constant__, 3,600 or
+// 576 bytes of the 4 KB parameter space): with every index known at compile
+// time, each multiply-add reads its Kref value straight from the constant
+// bank, and no load or register holds the table.
 //
-// Plain C interface (loaded with ctypes): the entry launches on the given
-// stream and returns the cudaError_t of the launch (0 on success).
+// Plain C interface (loaded with ctypes): the fixed arguments of a launch
+// (the tables, the layout and, for the cluster variants, the launch) come
+// in one WinstiffArgs struct that the caller keeps, so that a call passes
+// four or five arguments; each entry launches on the given stream and
+// returns the cudaError_t of the launch (0 on success); the query entries
+// write how many clusters of a launch the card holds at once.
 #include <cuda_runtime.h>
 
-#include <type_traits>
+#include <cstring>
 
 #include "wincluster.cuh"
 #include "winscatter.cuh"
+
+// The fixed arguments of a launch, in the layout of the ctypes Structure
+// attic/winkernel.py::_WinstiffArgs.
+struct WinstiffArgs {
+  const int* lidx;         // [nb, NL, C]
+  const float* valid;      // [nb, C]
+  const float* cg;         // [nb, DIM*DIM, C]
+  const float* kref;       // [DIM*DIM*NL, NL] on the device (the P1 variants)
+  const float* kref_host;  // the same in host memory (the P2 variants)
+  const int* rowptr;       // [nb, W + 1]
+  const int* lists;        // ent [nb, C*NL] (winstiff_p1_2d) or pos [nb, NL*C]
+  int nb, S, W, C;
+  int clusters, cl, threads, cap;  // the cluster variants' launch
+};
 
 namespace {
 
@@ -68,11 +100,6 @@ winstiff_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
                 float* __restrict__ out, int S, int W, int C) {
   constexpr int D2 = DIM * DIM;
   constexpr int KT = D2 * NL * NL;
-  // the 3-D P1 table (144 floats) and the P2 tables (144 and 900) are read
-  // through a volatile pointer, so that every use reads shared memory:
-  // otherwise the compiler hoists them out of the cell loop and spills them
-  // to local memory; the 2-D P1 table (36 floats) stays in registers
-  using KrefPtr = std::conditional_t<(KT > 64), const volatile float*, const float*>;
   __shared__ float kref_s[KT];  // [D2*NL, NL]
 
   const int b = blockIdx.x;
@@ -102,7 +129,7 @@ winstiff_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
       float loc = 0.f;
 #pragma unroll
       for (int kl = 0; kl < D2; ++kl) {
-        KrefPtr kr = kref_s + (kl * NL + i) * NL;
+        const float* kr = kref_s + (kl * NL + i) * NL;
         float s = 0.f;
 #pragma unroll
         for (int j = 0; j < NL; ++j) s += kr[j] * u[j];
@@ -178,79 +205,133 @@ winstiff_cluster_kernel(const float* __restrict__ x, const int* __restrict__ lid
       });
 }
 
-// The launch of the cluster variant (wincluster::launch); with
-// `max_clusters` set, instead of launching, the number of such clusters
-// that the card holds at once.
-int launch_cluster(const void* x, const void* lidx, const void* valid, const void* cg,
-                   const void* kref, const void* rowptr, const void* pos, void* out,
-                   int nb, int S, int W, int C, int clusters, int cl, int threads,
-                   int cap, void* stream, int* max_clusters = nullptr) {
-  if (nb <= 0 || C <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return wincluster::launch(
-      winstiff_cluster_kernel<3, 4>, clusters, cl, threads, kClusterThreads, cap, stream,
-      max_clusters, static_cast<const float*>(x), static_cast<const int*>(lidx),
-      static_cast<const float*>(valid), static_cast<const float*>(cg),
-      static_cast<const float*>(kref), static_cast<const int*>(rowptr),
-      static_cast<const int*>(pos), static_cast<float*>(out), nb, S, W, C, cap);
+// The P2 Kref table [DIM*DIM*NL, NL], passed by value as a kernel parameter.
+template <int N>
+struct KrefTable {
+  float v[N];
+};
+
+constexpr int kP2Threads = 1024;
+
+// The P2 variants (see the header): the walk of csrc/wincluster.cuh, at
+// most 1,024 threads a block, Kref read from the parameter space.
+template <int DIM, int NL>
+__global__ void __launch_bounds__(kP2Threads)
+winstiff_p2_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
+                   const float* __restrict__ valid, const float* __restrict__ cg,
+                   const __grid_constant__ KrefTable<DIM * DIM * NL * NL> kref,
+                   const int* __restrict__ rowptr, const int* __restrict__ pos,
+                   float* __restrict__ out, int nb, int S, int W, int C, int cap) {
+  constexpr int D2 = DIM * DIM;
+  wincluster::stage_and_sum<NL>(
+      rowptr, pos, out, nb, W, C, cap, [&](int b, int c) {
+        const float* xw = x + static_cast<long long>(b) * S;
+        const int* lidx_b = lidx + static_cast<long long>(b) * NL * C;
+        const float* cg_b = cg + static_cast<long long>(b) * D2 * C;
+        float u[NL];
+#pragma unroll
+        for (int j = 0; j < NL; ++j) u[j] = xw[lidx_b[j * C + c]];
+        float g[D2];
+#pragma unroll
+        for (int kl = 0; kl < D2; ++kl) g[kl] = cg_b[kl * C + c];
+        const float v = valid[static_cast<long long>(b) * C + c];
+        // kref by reference: a copy would move the table into registers
+        return [=, &kref](int i) {
+          float s = 0.f;
+#pragma unroll
+          for (int kl = 0; kl < D2; ++kl) {
+            const float* kr = kref.v + (kl * NL + i) * NL;
+            float d = 0.f;
+#pragma unroll
+            for (int j = 0; j < NL; ++j) d += kr[j] * u[j];
+            s += g[kl] * d;
+          }
+          return s * v;
+        };
+      });
 }
 
-template <int DIM, int NL, int THREADS>
-int launch(const void* x, const void* lidx, const void* valid, const void* cg,
-           const void* kref, const void* rowptr, const void* ent,
-           void* scratch, void* out, int nb, int S, int W, int C,
-           void* stream) {
-  if (nb <= 0 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  winstiff_kernel<DIM, NL, THREADS>
-      <<<nb, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(x), static_cast<const int*>(lidx),
-          static_cast<const float*>(valid), static_cast<const float*>(cg),
-          static_cast<const float*>(kref), static_cast<const int*>(rowptr),
-          static_cast<const int*>(ent), static_cast<float*>(scratch),
-          static_cast<float*>(out), S, W, C);
-  return static_cast<int>(cudaGetLastError());
+// The launch of winstiff_p1_3d (wincluster::launch) with the arguments of
+// `a`; with `max_clusters` set, instead of launching, the number of such
+// clusters that the card holds at once.
+int launch_p1_3d(const WinstiffArgs* a, const void* x, void* out, void* stream,
+                 int* max_clusters = nullptr) {
+  if (a == nullptr || a->nb <= 0 || a->C <= 0 || a->W <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return wincluster::launch(
+      winstiff_cluster_kernel<3, 4>, a->clusters, a->cl, a->threads, kClusterThreads,
+      a->cap, stream, max_clusters, static_cast<const float*>(x), a->lidx, a->valid,
+      a->cg, a->kref, a->rowptr, a->lists, static_cast<float*>(out), a->nb, a->S, a->W,
+      a->C, a->cap);
+}
+
+// The launch of a P2 variant, the same way; the Kref table is copied from
+// a->kref_host into the launch's parameters (not read for the query).
+template <int DIM, int NL>
+int launch_p2(const WinstiffArgs* a, const void* x, void* out, void* stream,
+              int* max_clusters = nullptr) {
+  if (a == nullptr || a->nb <= 0 || a->C <= 0 || a->W <= 0 ||
+      (max_clusters == nullptr && a->kref_host == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  KrefTable<DIM * DIM * NL * NL> kref = {};
+  if (max_clusters == nullptr) std::memcpy(kref.v, a->kref_host, sizeof(kref.v));
+  return wincluster::launch(
+      winstiff_p2_kernel<DIM, NL>, a->clusters, a->cl, a->threads, kP2Threads, a->cap,
+      stream, max_clusters, static_cast<const float*>(x), a->lidx, a->valid, a->cg, kref,
+      a->rowptr, a->lists, static_cast<float*>(out), a->nb, a->S, a->W, a->C, a->cap);
+}
+
+// The query arguments of a cluster launch of clusters of `cl` blocks of
+// `threads` threads staging `cap` values each.
+WinstiffArgs query_args(int cl, int threads, int cap) {
+  WinstiffArgs a = {};
+  a.nb = a.W = a.C = a.clusters = 1;
+  a.cl = cl;
+  a.threads = threads;
+  a.cap = cap;
+  return a;
 }
 
 }  // namespace
 
-extern "C" int winstiff_p1_2d(const void* x, const void* lidx,
-                              const void* valid, const void* cg,
-                              const void* kref, const void* rowptr,
-                              const void* ent, void* scratch, void* out,
-                              int nb, int S, int W, int C, void* stream) {
-  return launch<2, 3, 256>(x, lidx, valid, cg, kref, rowptr, ent, scratch,
-                           out, nb, S, W, C, stream);
+extern "C" int winstiff_p1_2d(const WinstiffArgs* a, const void* x, void* scratch,
+                              void* out, void* stream) {
+  if (a == nullptr || a->nb <= 0 || a->C <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  winstiff_kernel<2, 3, 256><<<a->nb, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), a->lidx, a->valid, a->cg, a->kref, a->rowptr,
+      a->lists, static_cast<float*>(scratch), static_cast<float*>(out), a->S, a->W, a->C);
+  return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int winstiff_p1_3d(const void* x, const void* lidx,
-                              const void* valid, const void* cg,
-                              const void* kref, const void* rowptr,
-                              const void* pos, void* out, int nb, int S, int W,
-                              int C, int clusters, int cl, int threads, int cap,
+extern "C" int winstiff_p1_3d(const WinstiffArgs* a, const void* x, void* out,
                               void* stream) {
-  return launch_cluster(x, lidx, valid, cg, kref, rowptr, pos, out, nb, S, W, C,
-                        clusters, cl, threads, cap, stream);
+  return launch_p1_3d(a, x, out, stream);
 }
 
-// cudaOccupancyMaxActiveClusters of winstiff_p1_3d's launch, into *out.
+// cudaOccupancyMaxActiveClusters of a cluster launch, into *out; the same
+// for the P2 variants below.
 extern "C" int winstiff_p1_3d_clusters(int cl, int threads, int cap, int* out) {
-  return launch_cluster(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                        nullptr, 1, 0, 1, 1, 1, cl, threads, cap, nullptr, out);
+  const WinstiffArgs a = query_args(cl, threads, cap);
+  return launch_p1_3d(&a, nullptr, nullptr, nullptr, out);
 }
 
-extern "C" int winstiff_p2_2d(const void* x, const void* lidx,
-                              const void* valid, const void* cg,
-                              const void* kref, const void* rowptr,
-                              const void* ent, void* scratch, void* out,
-                              int nb, int S, int W, int C, void* stream) {
-  return launch<2, 6, 256>(x, lidx, valid, cg, kref, rowptr, ent,
-                                  scratch, out, nb, S, W, C, stream);
+extern "C" int winstiff_p2_2d(const WinstiffArgs* a, const void* x, void* out,
+                              void* stream) {
+  return launch_p2<2, 6>(a, x, out, stream);
 }
 
-extern "C" int winstiff_p2_3d(const void* x, const void* lidx,
-                              const void* valid, const void* cg,
-                              const void* kref, const void* rowptr,
-                              const void* ent, void* scratch, void* out,
-                              int nb, int S, int W, int C, void* stream) {
-  return launch<3, 10, 1024>(x, lidx, valid, cg, kref, rowptr, ent,
-                                    scratch, out, nb, S, W, C, stream);
+extern "C" int winstiff_p2_2d_clusters(int cl, int threads, int cap, int* out) {
+  const WinstiffArgs a = query_args(cl, threads, cap);
+  return launch_p2<2, 6>(&a, nullptr, nullptr, nullptr, out);
+}
+
+extern "C" int winstiff_p2_3d(const WinstiffArgs* a, const void* x, void* out,
+                              void* stream) {
+  return launch_p2<3, 10>(a, x, out, stream);
+}
+
+extern "C" int winstiff_p2_3d_clusters(int cl, int threads, int cap, int* out) {
+  const WinstiffArgs a = query_args(cl, threads, cap);
+  return launch_p2<3, 10>(&a, nullptr, nullptr, nullptr, out);
 }

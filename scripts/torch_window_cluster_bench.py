@@ -1,39 +1,51 @@
 #!/usr/bin/env python3
 """Device times of the cluster kernels K4a (csrc/winmass.cu), K5
-(csrc/winform.cu) and K4b 3-D P1 (csrc/winstiff.cu's winstiff_p1_3d) at the
-layouts of their paths, for an A/B between two checkouts and a sweep of K4a's
-and K5's cluster launch.
+(csrc/winform.cu), K4b 3-D P1 and K4b P2 (csrc/winstiff.cu's winstiff_p1_3d,
+winstiff_p2_2d and winstiff_p2_3d) at the layouts of their paths, for an A/B
+between two checkouts and a sweep of the cluster launch of K4a, K5 and K4b
+P2.
 
     python3 scripts/torch_window_cluster_bench.py [--root DIR] [--save F]
         [--compare F] [--sweep] [--json F]
 
 Layouts: the NL = 10 P2 tet layout of box_mesh N=32 (nb = 68, C = 3,038)
-and the NL = 6 formwin2d layout of unit_square_mesh(1024, "right") P2 (nb =
-1,026, C = 2,048) for K4a and K5, the cavity's N=64 P1 pressure layout (nb =
-68, C = 23,958) for K4b 3-D; float32, inputs and element matrices made from
-a seed.
+for K4a, K5 and K4b 3-D P2, the NL = 6 formwin2d layout of
+unit_square_mesh(1024, "right") P2 (nb = 1,026, C = 2,048) for K4a and K5,
+the NL = 6 layout of unit_square_mesh(256, "right") P2 (nb = 121, C =
+1,086) for K4b 2-D P2 (the layouts of chip_smoke.py's P2 Poisson solves),
+and the cavity's N=64 P1 pressure layout (nb = 68, C = 23,958) for K4b 3-D
+P1; float32, inputs and element matrices made from a seed.
 For each kernel: device µs per call from torch.profiler with the L2 cache
-warm and cold (after a 64 MB write), and wall µs from CUDA events over
-back-to-back calls. --root imports flow_tpu_torch from another checkout (the
-parent commit, say) through the operators' public windows(), so both trees
-run the same script; --save writes the windows, --compare holds them
-bitwise against a saved run. --sweep (this tree only) times every cluster
-size and block size of the launch against the rule's choice and checks that
-all give the same windows bitwise. Needs the card; imports neither jax nor
-flow_tpu.
+warm and cold (after a 64 MB write), wall µs from CUDA events over
+back-to-back calls, and host µs per call (perf_counter over 200 calls
+enqueued with no synchronisation, the least of five loops, taken before
+any profiler session). --root imports flow_tpu_torch from
+another checkout (the parent commit, say) through the operators' public
+windows(), so both trees run the same script; --save writes the windows,
+--compare holds them bitwise against a saved run. --sweep (this tree only)
+times every cluster size and block size of the launch against the rule's
+choice and checks that all give the same windows bitwise. Needs the card;
+imports neither jax nor flow_tpu.
 """
 import argparse
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-SWEEP = {10: ((1, 1024), (1, 512), (2, 512), (2, 256), (4, 256), (2, 1024)),
-         6: ((1, 512), (1, 256), (1, 1024), (2, 512))}
+# (blocks a cluster, threads a block) of each layout's sweep
+SWEEP = {"tets N=32": ((1, 1024), (1, 512), (2, 512), (2, 256), (4, 256), (2, 1024)),
+         "formwin2d": ((1, 512), (1, 256), (1, 1024), (2, 512)),
+         "tri n=256": ((1, 1024), (1, 512), (1, 256), (2, 512), (2, 1024))}
+# the name of each operator's kernel in the profiler (K4b P2: the scratch
+# kernel winstiff_kernel of an earlier checkout, or the cluster kernel)
+KERNEL_NAMES = {"winmass": "winmass_kernel", "winform": "winform_kernel",
+                "winstiff_cluster": "winstiff_cluster_kernel", "winstiff_p2": "winstiff"}
 
 
 def device_us(fn, name, reps=30):
@@ -65,6 +77,39 @@ def wall_us(fn, reps=100):
     return 1e3 * a.elapsed_time(b) / reps
 
 
+def host_us(fn, calls=200, loops=5):
+    """Host µs per call: perf_counter over `calls` calls enqueued back to
+    back with no synchronisation, divided by the count; the least of
+    `loops` such loops (the host's clock spreads more than the device's)."""
+    fn()
+    best = float("inf")
+    for _ in range(loops):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * best / calls
+
+
+def counter_of(name, NL):
+    """The launch counter (a Kernel) of an operator of layouts()."""
+    from flow_tpu_torch.attic import winform, winkernel
+
+    if name == "winstiff_p2":
+        return winkernel.WINSTIFF_P2 if NL == 6 else winkernel.WINSTIFF3D_P2
+    return {"winmass": winkernel.WINMASS, "winform": winform.WINFORM,
+            "winstiff_cluster": winkernel.WINSTIFF3D}[name]
+
+
+def _padded(op, seed):
+    x = torch.zeros(op.wl.n_pad, device="cuda")
+    x[:op.wl.n] = torch.as_tensor(np.random.default_rng(seed).standard_normal(op.wl.n),
+                                  dtype=torch.float32)
+    return x
+
+
 def layouts():
     from flow_tpu_torch.attic import winform, winkernel
     from flow_tpu_torch.fem.spaces import FunctionSpace
@@ -83,17 +128,16 @@ def layouts():
         g = torch.Generator(device="cuda").manual_seed(7)
         loc = torch.randn((V.mesh.n_cells, NL, NL), generator=g, device="cuda")
         K = winform.WindowElementOperator(V, loc=loc)
-        x = torch.zeros(M.wl.n_pad, device="cuda")
-        x[:M.wl.n] = torch.as_tensor(np.random.default_rng(4).standard_normal(M.wl.n),
-                                     dtype=torch.float32)
-        out[tag] = (x, {"winmass": M, "winform": K})
+        out[tag] = (_padded(M, 4), {"winmass": M, "winform": K})
+        if tag == "tets N=32":
+            out[tag][1]["winstiff_p2"] = winkernel.WindowStiffnessOperator(V)
+    V = FunctionSpace(unit_square_mesh(256, "right", dtype=torch.float32, device="cuda"), 2)
+    op = winkernel.WindowStiffnessOperator(V)
+    out["tri n=256"] = (_padded(op, 6), {"winstiff_p2": op})
     Q = FunctionSpace(box_mesh((0, 0, 0), (1, 1, 1), 64, 64, 64, dtype=torch.float32,
                                device="cuda"), 1)
     op = winkernel.WindowStiffnessOperator(Q)
-    x = torch.zeros(op.wl.n_pad, device="cuda")
-    x[:op.wl.n] = torch.as_tensor(np.random.default_rng(5).standard_normal(op.wl.n),
-                                  dtype=torch.float32)
-    out["cavity N=64 pressure"] = (x, {"winstiff_cluster": op})
+    out["cavity N=64 pressure"] = (_padded(op, 5), {"winstiff_cluster": op})
     return out
 
 
@@ -119,25 +163,27 @@ def main():
     for tag, (x, ops) in layouts().items():
         for name, op in ops.items():
             nb, NL, C = op.lidx.shape
-            kname = f"{name}_kernel"
+            kname = KERNEL_NAMES[name]
             y = op.windows(x)
             windows[f"{tag} {name}"] = y.cpu()
+            # the host clocks first: a profiler session slows later host code
             row = dict(layout=tag, kernel=name, nb=nb, C=C, NL=NL, W=op.wl.W,
+                       wall_us=wall_us(lambda: op.windows(x)),
+                       host_us=host_us(lambda: op.windows(x)),
                        device_us=device_us(lambda: op.windows(x), kname),
                        device_cold_us=device_us(lambda: (flush.zero_(), op.windows(x)),
-                                                kname),
-                       wall_us=wall_us(lambda: op.windows(x)))
-            if hasattr(winkernel, "cluster_launch"):
-                kernel = {"winmass": winkernel.WINMASS,
-                          "winstiff_cluster": winkernel.WINSTIFF3D}.get(name) or sys.modules[
-                    "flow_tpu_torch.attic.winform"].WINFORM
+                                                kname))
+            kernel = counter_of(name, NL)
+            # a cluster kernel's launch (an earlier checkout's K4b P2 sums
+            # from a device scratch, and holds no positions)
+            if getattr(op, "positions", None) is not None:
                 row.update(winkernel.cluster_launch(kernel, nb, C, NL, "cuda")._asdict())
             print(json.dumps(row), flush=True)
             report.append(row)
             if args.sweep and name != "winstiff_cluster":
                 rule = winkernel.window_plan
                 try:
-                    for cl, threads in SWEEP[NL]:
+                    for cl, threads in SWEEP[tag]:
                         winkernel.window_plan = (
                             lambda nb_, C_, NL_, sms, cl=cl, threads=threads:
                             (cl, threads, -(-C_ * NL_ // cl)))

@@ -6,8 +6,9 @@
 Builds csrc/winmass.cu, winform.cu and winstiff.cu with -DWINCLUSTER_TRACE
 (the phase marks of csrc/wincluster.cuh: thread 0 of each block reads
 %globaltimer at each phase of its first window block's first pass) into a
-temporary directory, runs K4a, K5 and K4b 3-D once at the layouts of
-scripts/torch_window_cluster_bench.py through that build, and prints the
+temporary directory, runs K4a, K5, K4b 3-D P1 and K4b P2 once at the
+layouts of scripts/torch_window_cluster_bench.py through that build, and
+prints the
 share of each layout's window rows that no local result lands on and, over
 the blocks, the median and the largest µs of each phase: setup (the
 kernel's tables and the first cluster barrier), cells (the local results
@@ -63,9 +64,8 @@ def main():
         libs = {name: ctypes.CDLL(str(Path(tmp) / f"lib{name}.so")) for name in names}
     # the kernels' launches go through the traced build
     _build.load = lambda name: libs[name]
-    kernels = {"winmass": winkernel.WINMASS, "winform": winform.WINFORM,
-               "winstiff_cluster": winkernel.WINSTIFF3D}
-    for kernel in kernels.values():
+    for kernel in (winkernel.WINMASS, winform.WINFORM, winkernel.WINSTIFF3D,
+                   winkernel.WINSTIFF_P2, winkernel.WINSTIFF3D_P2):
         kernel._lib = None
     winkernel._cluster_launch.cache_clear()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -75,13 +75,13 @@ def main():
     for tag, (x, ops) in bench.layouts().items():
         for name, op in ops.items():
             nb, NL, C = op.lidx.shape
-            plan = winkernel.cluster_launch(kernels[name], nb, C, NL, "cuda")
+            plan = winkernel.cluster_launch(bench.counter_of(name, NL), nb, C, NL, "cuda")
             for _ in range(3):
                 op.windows(x)
             torch.cuda.synchronize()
             blocks = plan.clusters * plan.cl
             marks = np.zeros(blocks * 8, dtype=np.uint64)
-            lib = libs["winstiff" if name == "winstiff_cluster" else name]
+            lib = libs["winstiff" if name.startswith("winstiff") else name]
             err = lib.wincluster_trace_read(ctypes.c_void_p(marks.ctypes.data), blocks * 8)
             if err != 0:
                 raise RuntimeError(f"wincluster_trace_read failed with CUDA error {err}")

@@ -11,9 +11,11 @@
 # refusing inputs they do not take; the window mass
 # kernel (K4a, csrc/winmass.cu), the element-matrix kernel (K5,
 # csrc/winform.cu) and K4b's P2 variants on P1/P2 triangle and tet layouts
-# (NL = 3, 6, 4, 10), the same; K4a and K5, cluster launches like K4b 3-D
-# (csrc/wincluster.cuh), also in passes and at every cluster and block size
-# in one summation order. Skips without a CUDA device. Imports
+# (NL = 3, 6, 4, 10), the same; K4a, K5 and K4b P2, cluster launches like
+# K4b 3-D (csrc/wincluster.cuh), also in passes and at every cluster and
+# block size in one summation order, taking blocks past a cluster's shared
+# memory and refusing inputs they do not take, K4b's operator also on the
+# lean path that checks only its input. Skips without a CUDA device. Imports
 # no JAX, so it runs on the machine with the card:
 #   python -m pytest --noconftest -q tests/test_torch_window_cuda.py
 # (tests/conftest.py imports JAX). Tolerance: float32 in both, another
@@ -405,6 +407,8 @@ def test_stiffness_p2_kernels_match_plain(scalar_space):
     if scalar_space.degree != 2:
         pytest.skip("the P1 variants have their own tests above")
     op = winkernel.WindowStiffnessOperator(scalar_space, S=128)
+    # a cluster kernel: it reads the lists' inverse, not the lists
+    assert op.positions is not None and op.scatter is None
     counter = winkernel.WINSTIFF_P2 if op.Cg.shape[1] == 4 else winkernel.WINSTIFF3D_P2
     x_pad = _padded(op, 10)
     before = counter.launches
@@ -419,18 +423,24 @@ def test_stiffness_p2_kernels_match_plain(scalar_space):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["mass", "element"])
+@pytest.mark.parametrize("kind", ["mass", "element", "stiffness"])
 def test_mass_and_element_kernels_sum_in_one_order_at_every_cluster_size(
         scalar_space, kind, monkeypatch):
-    # the launch constants steer window_plan's rule: one block a window
-    # block, clusters of up to 8 with stages of a few hundred bytes (several
-    # passes), and 32-1,024 threads a block; every launch gives the windows
-    # of the default launch bitwise
+    # the launch constants steer window_plan's rule (K4a, K5, K4b P2): one
+    # block a window block, clusters of up to 8 with stages of a few hundred
+    # bytes (several passes), and 32-1,024 threads a block; every launch
+    # gives the windows of the default launch bitwise
     if kind == "mass":
         op = winkernel.WindowMassOperator(scalar_space, S=128)
-    else:
+        counter = winkernel.WINMASS
+    elif kind == "element":
         op = winform.window_operator(_convection_diffusion(scalar_space), S=128)
-    counter = winkernel.WINMASS if kind == "mass" else winform.WINFORM
+        counter = winform.WINFORM
+    else:
+        if scalar_space.degree != 2:
+            pytest.skip("the P1 stiffness variants do not take window_plan's rule")
+        op = winkernel.WindowStiffnessOperator(scalar_space, S=128)
+        counter = winkernel.WINSTIFF_P2 if op.Cg.shape[1] == 4 else winkernel.WINSTIFF3D_P2
     x_pad = _padded(op, 11)
     y = op.windows(x_pad)
     nb, NL, C = op.lidx.shape
@@ -492,3 +502,87 @@ def test_mass_and_element_kernels_take_large_blocks_and_refuse_bad_inputs(NL):
                                torch.ones((2, 2), **z), S, W, positions)
     with pytest.raises(ValueError, match="lists"):
         winkernel.mass_windows(x, lidx, valid, valid, torch.ones((NL, NL), **z), S, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NL", [6, 10])
+def test_stiffness_p2_kernels_take_large_blocks_and_refuse_bad_inputs(NL, monkeypatch):
+    # K4b P2 on one block of C = 40,000 real cells, as the K4a/K5 test
+    # above: cell c puts its local dof i on window dof (c*NL + i) mod W,
+    # where x = 1, with Cg = 1 and Kref = 1, so every local result is
+    # DIM^2 * NL and every window dof sums its count of them: exact in
+    # float32; NL = 10 runs in passes
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc (CUDA kernel has no CPU mode)")
+    S = W = 128
+    z = dict(device="cuda")
+    C = 40000
+    d2 = 4 if NL == 6 else 9
+    dof = (np.arange(C)[:, None] * NL + np.arange(NL)) % W  # [C, NL]
+    key = dof.reshape(-1)
+    ent = np.argsort(key, kind="stable").astype(np.int32)[None]
+    rowptr = np.searchsorted(key[ent[0]], np.arange(W + 1)).astype(np.int32)[None]
+    positions = (torch.as_tensor(rowptr, **z),
+                 torch.as_tensor(scatter_positions(rowptr, ent, NL), **z))
+    lidx = torch.as_tensor(dof.T[None].astype(np.int32), **z).contiguous()
+    valid = torch.ones((1, C), **z)
+    cg = torch.ones((1, d2, C), **z)
+    kref = torch.ones((d2 * NL, NL), **z)
+    x = torch.zeros(S + W, **z)
+    x[:W] = 1.0
+    counts = torch.as_tensor(np.bincount(key, minlength=W), dtype=torch.float32, **z)
+    counter = winkernel.WINSTIFF_P2 if NL == 6 else winkernel.WINSTIFF3D_P2
+    plan = winkernel.cluster_launch(counter, 1, C, NL, "cuda")
+    if NL == 10:
+        assert C * NL > plan.cl * plan.cap  # more than one pass
+    before = counter.launches
+    y = winkernel.stiffness_windows(x, lidx, valid, cg, kref, S, W, positions=positions)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert torch.equal(y[0], d2 * NL * counts)
+    with pytest.raises(TypeError, match="float32"):
+        winkernel.stiffness_windows(x.double(), lidx, valid, cg, kref, S, W,
+                                    positions=positions)
+    with pytest.raises(ValueError, match="inconsistent layout shapes"):
+        winkernel.stiffness_windows(x, lidx, valid, cg, kref[1:].contiguous(), S, W,
+                                    positions=positions)
+    with pytest.raises(ValueError, match="lists"):
+        winkernel.stiffness_windows(x, lidx, valid, cg, kref, S, W,
+                                    scatter=(positions[0], positions[1]))
+    # a launch the card refuses (more than 8 blocks a cluster, more than
+    # 1,024 threads a block) raises, and counts nothing
+    for name, value in (("MAX_CLUSTER", 16), ("WINDOW_THREADS_FEW", 2048)):
+        with monkeypatch.context() as m:
+            m.setattr(winkernel, "WINDOW_LOC_BYTES", 4 * 1024)
+            m.setattr(winkernel, name, value)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                winkernel.stiffness_windows(x, lidx, valid, cg, kref, S, W,
+                                            positions=positions)
+    assert counter.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_stiffness_operator_checks_its_input(scalar_space):
+    # the operator checks its tables once, at construction; windows() then
+    # checks only x_pad, and still refuses one on the CPU, in float64, of
+    # another length or not contiguous, before any launch
+    op = winkernel.WindowStiffnessOperator(scalar_space, S=128)
+    counter = winkernel._ENTRIES[(op.Cg.shape[1], op.lidx.shape[1])][0]
+    x_pad = _padded(op, 12)
+    before = counter.launches
+    with pytest.raises(ValueError, match="one device"):
+        op.windows(x_pad.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        op.windows(x_pad.double())
+    with pytest.raises(ValueError, match="inconsistent layout shapes"):
+        op.windows(x_pad[1:].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        op.windows(torch.stack([x_pad, x_pad], dim=1)[:, 0])
+    assert counter.launches == before
+    y = op.windows(x_pad)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert y.is_contiguous() and tuple(y.shape) == (op.wl.nb, op.wl.W)
+    assert torch.equal(y, winkernel.stiffness_windows(
+        x_pad, op.lidx, op.valid, op.Cg, op.kref, op.wl.S, op.wl.W, op.scatter,
+        op.positions))

@@ -4,10 +4,10 @@
 # must reproduce the plain scatter, and the plain version of the window
 # stiffness kernel (K4b) must match the JAX Pallas kernel run in interpret
 # mode at the JAX package's own tolerance (rtol 3e-5: both compute in
-# float32, in another summation order). The cluster kernels' walk (K4b 3-D,
-# K4a and K5: their launch plans, the inverse lists of scatter_positions,
-# the passes) is replayed in numpy on tiny layouts and must sum every row
-# in list order.
+# float32, in another summation order). The cluster kernels' walk (K4b 3-D
+# P1 and P2, K4b 2-D P2, K4a and K5: their launch plans, the inverse lists of
+# scatter_positions, the passes) is replayed in numpy on tiny layouts and
+# must sum every row in list order.
 import numpy as np
 import pytest
 import torch
@@ -153,29 +153,33 @@ _WALK_CASES = (
      for cl, loc_bytes in ((8, None), (2, 4 * 300), (3, 4 * 40))]
     + [pytest.param(kind, NL, None, loc_bytes,
                     id=f"{kind}-NL{NL}-{'rule' if loc_bytes is None else 'passes'}")
-       for kind in ("mass", "element") for NL in (3, 4, 6, 10)
-       for loc_bytes in (None, 4 * 40)])
+       for kind, nls in (("mass", (3, 4, 6, 10)), ("element", (3, 4, 6, 10)),
+                         ("stiffness", (6, 10)))
+       for NL in nls for loc_bytes in (None, 4 * 40)])
 
 
 @pytest.mark.parametrize("kind, NL, cl, loc_bytes", _WALK_CASES)
 def test_cluster_walk_reproduces_plain(kind, NL, cl, loc_bytes, monkeypatch):
     # the cluster kernels' walk (csrc/wincluster.cuh) replayed in numpy:
-    # K4b 3-D on a box layout (N=4) at the given cluster sizes and staging
-    # budgets, K4a and K5 on tiny layouts of every NL at their wrapper's
-    # rule (window_plan, on a card of 132 SMs) and at a budget that forces
-    # passes. Passes over whole rows of at most cl * cap staged values,
+    # K4b 3-D P1 on a box layout (N=4) at the given cluster sizes and staging
+    # budgets, K4a and K5 on tiny layouts of every NL and K4b P2 at NL = 6
+    # and 10 at their wrapper's rule (window_plan, on a card of 132 SMs) and
+    # at a budget that forces passes. Passes over whole rows of at most cl * cap staged values,
     # each cell's local results stored at their list positions
     # (scatter_positions) in the array of the block that stages them, each
     # row summed along its positions in order; the windows equal a
     # one-pass walk of the lists bitwise and the plain version within
     # float32 rounding
     rng = np.random.default_rng(9)
-    if kind == "stiffness":
+    p1_3d = kind == "stiffness" and NL == 4
+    if p1_3d:
         mesh = box_mesh((0, 0, 0), (1, 1, 1), 4, 4, 4, dtype=torch.float32, device="cpu")
         op = WindowStiffnessOperator(FunctionSpace(mesh, 1), S=128)
     else:
         mesh_fn, degree = _WALK_SPACES[NL]
-        op = winkernel.WindowMassOperator(FunctionSpace(mesh_fn(), degree), S=128)
+        operator = (WindowStiffnessOperator if kind == "stiffness"
+                    else winkernel.WindowMassOperator)
+        op = operator(FunctionSpace(mesh_fn(), degree), S=128)
     wl = op.wl
     nb, NL, C = op.lidx.shape
     rowptr, ent = build_scatter_lists(wl)
@@ -185,8 +189,9 @@ def test_cluster_walk_reproduces_plain(kind, NL, cl, loc_bytes, monkeypatch):
     u = x_pad[(torch.arange(nb)[:, None, None] * wl.S + op.lidx).long()]
     if kind == "stiffness":
         plain = stiffness_windows_plain(x_pad, op.lidx, op.valid, op.Cg, op.kref, wl.S, wl.W)
-        K = op.kref.view(9, NL, NL)
+        K = op.kref.view(op.Cg.shape[1], NL, NL)
         loc = torch.einsum("bkc,kij,bjc->bic", op.Cg, K, u) * op.valid[:, None, :]
+    if p1_3d:
         monkeypatch.setattr(winkernel, "CLUSTER_3D", cl)
         if loc_bytes is not None:
             monkeypatch.setattr(winkernel, "LOC_BYTES_3D", loc_bytes)
@@ -196,7 +201,7 @@ def test_cluster_walk_reproduces_plain(kind, NL, cl, loc_bytes, monkeypatch):
             plain = winkernel.mass_windows_plain(x_pad, op.lidx, op.valid, op.detj, op.mref,
                                                  wl.S, wl.W)
             loc = torch.einsum("ij,bjc->bic", op.mref, u) * (op.detj * op.valid)[:, None, :]
-        else:
+        elif kind == "element":
             aloc = torch.as_tensor(rng.standard_normal((nb, NL * NL, C)), dtype=torch.float32)
             plain = winform.element_windows_plain(x_pad, op.lidx, op.valid, aloc, wl.S, wl.W)
             loc = (torch.einsum("bijc,bjc->bic", aloc.view(nb, NL, NL, C), u)
