@@ -61,14 +61,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    substeps timed. Fails on a non-finite state, an unconverged solve, or a
    step without its K3 3-D Newton launches (2 per BiCGStab iteration), K3
    3-D lagged launches (the velocity correction), K4b 3-D launches (one per
-   pressure CG iteration) or K1 launches (the V-cycle);
+   pressure CG iteration) or K1 launches (the V-cycle), or if the Newton,
+   BiCGStab, pressure and correction iterations are not CAVITY3D_ITERS (K3
+   3-D sums in the order it always did);
 14. 3-D kernels at the main path's layouts, with the tables of its final
    state: K3 3-D lagged and Newton (velocity, nb=525, C=3,063) and K4b 3-D
    (pressure, nb=68, C=23,958) against their plain versions (<= 1e-5
    relative), bitwise repeat, wall times and the plain versions' times;
-   K4b 3-D's cluster launch (csrc/wincluster.cuh: blocks per cluster,
-   threads, passes, the clusters launched and the clusters the card holds
-   at once), and a layout of stride 16,384 on the same
+   the cluster launches of K3 3-D and K4b 3-D (csrc/wincluster.cuh: blocks
+   per cluster, threads, positions staged a block, passes, the clusters
+   launched and the clusters the card holds at once; K3's compressed rows),
+   K3 3-D's host µs a call and the time of the overlap-add of its velocity
+   windows, and a layout of stride 16,384 on the same
    mesh, which runs in more than one pass, against its plain version; the
    CSR yardstick of K4b at N=64 and of K3 3-D at N=32, beside the kernel's
    time at N=32 (the assembled N=64 tangent has ~1.4G element entries
@@ -138,11 +142,12 @@ Phases, in order; any failure exits non-zero and prints no result:
 24. device times (torch.profiler, last, since profiling slows later host
    code) of the ELL kernels at every shape of 23 (with the L2 cache warm,
    and cold: after a 64 MB write), K3 2-D lagged and Newton, K4b 2-D, the
-   three 3-D kernels (K4b 3-D also cold and at its 2-pass layout), K2, K4a
-   and K5 at NL = 6 and 10 (L2 warm and cold), and K4b 2-D and 3-D P2 (L2
-   warm and cold). Every K4b row also carries host_us: perf_counter over
-   200 calls enqueued with no synchronisation, divided by the count, the
-   least of five such loops.
+   three 3-D kernels (L2 warm and cold; K4b 3-D also at its 2-pass
+   layout), K2, K4a and K5 at NL = 6 and 10 (L2 warm and cold), and K4b 2-D
+   and 3-D P2 (L2 warm and cold). Every K4b row also carries host_us:
+   perf_counter over 200 calls enqueued with no synchronisation, divided by
+   the count, the least of five such loops; the K3 3-D rows the same over
+   20 calls, the least of three loops.
 
 The line before the last holds the kernel report, the one before it the
 card; the last line is {"ok": true, "device": {...}}. Imports neither jax
@@ -193,6 +198,12 @@ KARMAN_DOFS = 1905056  # 2 n_V + n_Q of the JAX package's mesh at these args
 CAVITY3D_MAIN = 64  # run_cavity3d_fast's n on the 3-D window route
 CAVITY3D_DOFS = 6714692  # 3 n_V + n_Q at n=64
 CAVITY3D_STEPS = 4  # 1 warm-up + 3 timed
+# the 3-D window route's iterations a step at N=64 on the card (H100 80GB
+# HBM3) with K3 3-D summing its local results from a device scratch along
+# the scatter lists: the cluster walk sums every window row in the same
+# order, so the steps, and these counts, must not move
+CAVITY3D_ITERS = {"newton_iters": [1, 2, 2, 2], "linear_iters": [9, 20, 26, 34],
+                  "pressure_iters": [4, 4, 3, 3], "correction_iters": [20, 20, 20, 20]}
 # the einsum 3-D route's Newton tangent: "linearize" keeps x's quadrature
 # tables for a Newton iteration (the JAX default; JAX needed "jvp" where
 # linearize's storage did not fit)
@@ -1083,6 +1094,9 @@ def phase_cavity3d_main():
     check(launches["winstiff3d"] == int(tel["pressure_iters"].sum()),
           "cavity3d: K4b 3-D launches do not match the pressure iterations")
     check(launches["stencil3d"] > 0, "cavity3d: the stencil kernel was never launched")
+    for key, want in CAVITY3D_ITERS.items():
+        check(tel[key].tolist() == want,
+              f"cavity3d: {key} {tel[key].tolist()} are not CAVITY3D_ITERS' {want}")
     umax = float(U.abs().max())
     check(abs(umax - 1.0) < 1e-6, f"cavity3d: max |u| {umax} is not the lid speed")
     times = _timed_step(st, U, P, st._scalar(out["dt"]))
@@ -1186,8 +1200,9 @@ def _winstiff3d_report(kq, rng):
 
 def phase_window3d_kernels(st, U):
     """K3 3-D lagged and Newton and K4b 3-D at the 3-D main path's layouts,
-    with the tables of its final state; the CSR yardsticks of K4b at N=64
-    and of K3 at N=32."""
+    with the tables of its final state; K3's cluster launch and host µs a
+    call, and the overlap-add of its velocity windows; the CSR yardsticks
+    of K4b at N=64 and of K3 at N=32."""
     import torch
     from flow_tpu_torch.attic import winkernel, winmom
     from flow_tpu_torch.models.cavity3d import Cavity3DProblem
@@ -1228,16 +1243,35 @@ def phase_window3d_kernels(st, U):
                               xp, op.lidx, op.valid, op.detj, op.G4, op.Cg4, Tq,
                               op.tabs, op._scal(1.0, 0.0, 0.0), op.wl.S, op.wl.W))
         ms = cuda_time_ms(kernel, 20)
+        h_us = host_us(kernel, calls=20, loops=3)
         plain_ms = cuda_time_ms(plain, 3)
         nbytes, nops = _winmom_work(op, newton=bool(extra))
         b_ms, b_by = bound_ms(nbytes, nops)
+        plan = winkernel.cluster_launch(winmom.WINMOM3D_NEWTON if extra else winmom.WINMOM3D,
+                                        op.wl.nb, op.wl.C, 10, "cuda")
         log(f"[window3d] {name} main: n={op.wl.n} nb={op.wl.nb} S={op.wl.S} W={op.wl.W} "
-            f"C={op.wl.C} max_abs_err={abs_err:.3e} rel_err={rel_err:.3e} "
-            f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} bytes={nbytes} ops={nops} "
+            f"C={op.wl.C} compressed_rows={op.positions[1].shape[1]} cluster={plan.cl} "
+            f"threads={plan.threads} staged_per_block={plan.cap} "
+            f"passes={_cluster_passes(op, plan)} clusters={plan.clusters} "
+            f"max_active_clusters={plan.resident} max_abs_err={abs_err:.3e} "
+            f"rel_err={rel_err:.3e} kernel_ms={ms:.5f} host_us={h_us:.3f} "
+            f"plain_ms={plain_ms:.5f} bytes={nbytes} ops={nops} "
             f"bound_ms={b_ms:.6f} ({b_by})")
         report[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by)
-        jobs[name] = kernel
+                            bound_by=b_by, host_us=h_us, cluster=plan.cl,
+                            threads=plan.threads)
+        jobs[name] = {"warm": kernel, "cold": lambda kernel=kernel: (_l2_flush().zero_(),
+                                                                     kernel())}
+    # the overlap-add of the velocity windows, which every K3 apply on the
+    # route is followed by: what the kernel's time can bring to the step
+    # is bounded by it
+    y = op.windows(xp, Tq, *w)
+    oa_ms = cuda_time_ms(lambda: op.wl.overlap_add(y), 20)
+    log(f"[window3d] overlap_add of the velocity windows [3, {op.wl.nb}, {op.wl.W}]: "
+        f"ms={oa_ms:.5f}")
+    for name in ("winmom3d", "winmom3d_newton"):
+        report[name]["overlap_add_ms"] = oa_ms
+    del y
     del Uq, Gu
     torch.cuda.empty_cache()
 
@@ -2123,9 +2157,17 @@ def main():
         kwin["winmom"]["device_ms"] = device_ms(win_jobs["winmom"], 50)
         kwin["winstiff"]["device_ms"] = device_ms(win_jobs["winstiff"], 100)
         knewton["device_ms"] = device_ms(newton_job, 50)
-        for name, job in jobs3.items():
-            if name != "winstiff3d":
-                k3d[name]["device_ms"] = device_ms(job, 20)
+        for name in ("winmom3d", "winmom3d_newton"):
+            k3d[name]["device_ms"] = device_ms(jobs3[name]["warm"], 20,
+                                               kernel="winmom3d_kernel")
+            k3d[name]["device_cold_ms"] = device_ms(jobs3[name]["cold"], 20,
+                                                    kernel="winmom3d_kernel")
+        log("[profile] K3 3-D device ms per call, L2 warm / cold (wall; host us; "
+            "overlap_add): "
+            + ", ".join(f"{k}={k3d[k]['device_ms']:.5f}/{k3d[k]['device_cold_ms']:.5f} "
+                        f"({k3d[k]['ms']:.5f}; {k3d[k]['host_us']:.3f}; "
+                        f"{k3d[k]['overlap_add_ms']:.5f})"
+                        for k in ("winmom3d", "winmom3d_newton")))
         k4b3 = {tag: device_ms(job, 20, kernel="winstiff_cluster_kernel")
                 for tag, job in jobs3["winstiff3d"].items()}
         k3d["winstiff3d"]["device_ms"] = k4b3.pop("warm")
@@ -2243,7 +2285,7 @@ def main():
     log(f"[done] launches by path: {json.dumps(paths)}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # host_us: the host µs per call of the K4b rows
+    # host_us: the host µs per call of the K4b and K3 3-D rows
     print(json.dumps({"kernels": [{k: r[k] for k in keys + ("host_us",) if k in keys or k in r}
                                   for r in rows]}))
     print(smi)

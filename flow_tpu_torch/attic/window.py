@@ -17,7 +17,8 @@
 # touch each window dof, in a fixed order (build_scatter_lists): summing
 # along those lists makes the kernels' scatter deterministic. The cluster
 # kernels read the lists' inverse instead (position_lists: where each local
-# result stands in its row's list).
+# result stands in its row's list), K3 3-D with the rows that hold any
+# entry (compact_lists).
 from __future__ import annotations
 
 import numpy as np
@@ -25,7 +26,7 @@ import numpy as np
 from .. import native
 
 __all__ = ["WindowLayout", "build_window_layout", "build_scatter_lists",
-           "scatter_positions", "position_lists", "overlap_add_fn"]
+           "scatter_positions", "position_lists", "compact_lists", "overlap_add_fn"]
 
 
 class WindowLayout:
@@ -203,3 +204,24 @@ def position_lists(wl):
     kernels read."""
     rowptr, ent = build_scatter_lists(wl)
     return rowptr, scatter_positions(rowptr, ent, wl.lidx.shape[2])
+
+
+def compact_lists(wl):
+    """(rptr [nb, R+1], rows [nb, R], pos [nb, nl*C]) int32: the window rows
+    of each block that some real local result lands on, ascending, padded
+    with W to the most of any block (R); the positions of their lists,
+    rptr[b, k] = rowptr[b, rows[b, k]] and the block's entry count from the
+    last listed row on; and the lists' inverse pos (position_lists), which
+    they leave unchanged. Every row that is not listed is empty."""
+    rowptr, pos = position_lists(wl)
+    nb, W = rowptr.shape[0], rowptr.shape[1] - 1
+    b, w = np.nonzero(rowptr[:, 1:] > rowptr[:, :-1])  # ascending per block
+    counts = np.bincount(b, minlength=nb)
+    R = max(1, int(counts.max(initial=0)))
+    k = np.arange(len(b)) - (np.cumsum(counts) - counts)[b]
+    rows = np.full((nb, R), W, dtype=np.int32)
+    rows[b, k] = w
+    rptr = np.empty((nb, R + 1), dtype=np.int32)
+    rptr[:, :R] = np.take_along_axis(rowptr, rows, axis=1)
+    rptr[:, R] = rowptr[:, W]
+    return rptr, rows, pos

@@ -14,7 +14,8 @@
 # mass_windows and stiffness_windows launch their kernels for CUDA tensors
 # and take the plain versions only for CPU tensors. K4a and the stiffness
 # variants but 2-D P1 run as thread-block clusters (csrc/wincluster.cuh,
-# shared with K5 in attic/winform.py) that stage the local results in their
+# shared with K5 in attic/winform.py and K3 3-D in attic/winmom.py, whose
+# launches cluster_launch plans too) that stage the local results in their
 # shared memory at their scatter-list positions (the lists' inverse, the
 # operators' `positions`; cluster_launch); the 2-D P1 stiffness (the Karman
 # pressure operator) writes them to a device scratch and reads them back
@@ -40,8 +41,9 @@ from ..mesh3d import _device
 from .window import build_scatter_lists, build_window_layout, position_lists
 
 __all__ = ["WindowStiffnessOperator", "stiffness_windows",
-           "stiffness_windows_plain", "cluster_plan", "window_plan",
-           "cluster_launch", "ClusterLaunch",
+           "stiffness_windows_plain", "cluster_plan", "window_plan", "momentum_plan",
+           "cluster_launch", "ClusterLaunch", "MOMENTUM_CLUSTER", "MOMENTUM_THREADS",
+           "MOMENTUM_LOC_BYTES",
            "WINSTIFF", "WINSTIFF3D", "WINSTIFF_P2", "WINSTIFF3D_P2",
            "CLUSTER_3D", "THREADS_3D", "LOC_BYTES_3D", "WINDOW_LOC_BYTES",
            "WINDOW_THREADS", "WINDOW_THREADS_FEW", "MAX_CLUSTER",
@@ -101,6 +103,14 @@ WINDOW_LOC_BYTES = 128 * 1024
 WINDOW_THREADS = 512
 WINDOW_THREADS_FEW = 1024
 MAX_CLUSTER = 8  # blocks a cluster, at most (portable cluster size)
+# K3 3-D's cluster launch (csrc/winmom3d.cu, attic/winmom.py; momentum_plan):
+# blocks a cluster at least, threads a block (at most 512, the kernel's
+# launch bounds), and the bytes a block stages in one pass (three floats a
+# position; with the kernel's 14.4 KB of tables, at most the 227 KB a
+# block may have).
+MOMENTUM_CLUSTER = 2
+MOMENTUM_THREADS = 512
+MOMENTUM_LOC_BYTES = 208 * 1024
 WINMASS = Kernel("winmass", {
     "winmass": [_P] * 8 + [_I] * 9 + [_P],
     "winmass_clusters": [_I] * 4 + [_P],
@@ -203,6 +213,39 @@ def window_plan(nb, C, NL, sms):
     return cl, threads, min(-(-entries // cl), room)
 
 
+def momentum_plan(nb, C, NL, sms, resident=None):
+    """K3 3-D's cluster launch at a layout of nb window blocks of C cells
+    (the arguments of window_plan): (blocks a cluster CL, threads a block,
+    positions a block stages in a pass). A position holds the three
+    components of a local result. CL is, of the sizes from the least that
+    stages a window block's C*NL positions in one pass of
+    MOMENTUM_LOC_BYTES a block (at least MOMENTUM_CLUSTER; passes compute
+    every cell again) up to MAX_CLUSTER, the one whose one-wave grid takes
+    the fewest rounds of cells a block: ceil(nb / resident clusters) window
+    blocks a cluster, ceil(C / CL / MOMENTUM_THREADS) rounds each, the
+    fewest window blocks on a tie. resident(CL, cap) is how many clusters
+    of CL blocks staging cap positions each the card holds at once; where
+    it is None, one block an SM."""
+    def ceil(a, b):
+        return -(-a // b)
+
+    entries = C * NL
+    room = max(1, MOMENTUM_LOC_BYTES // (4 * 3))
+    least = min(MAX_CLUSTER, max(MOMENTUM_CLUSTER, ceil(entries, room)))
+    threads = MOMENTUM_THREADS
+    held = resident or (lambda cl, cap: sms // cl)
+
+    def cap(cl):
+        return min(ceil(entries, cl), room)
+
+    def rounds(cl):
+        windows = ceil(nb, max(1, min(nb, held(cl, cap(cl)))))
+        return windows * ceil(ceil(C, cl), threads), windows
+
+    cl = min(range(least, MAX_CLUSTER + 1), key=rounds)
+    return cl, threads, cap(cl)
+
+
 class ClusterLaunch(NamedTuple):
     """A cluster kernel's launch at a layout."""
     cl: int  # blocks a cluster
@@ -216,16 +259,21 @@ def _launch_consts(kernel):
     """The module constants that a cluster kernel's launch follows."""
     if kernel is WINSTIFF3D:
         return CLUSTER_3D, THREADS_3D, LOC_BYTES_3D
+    if kernel.name == "winmom3d":
+        return (momentum_plan, MOMENTUM_CLUSTER, MOMENTUM_THREADS, MOMENTUM_LOC_BYTES,
+                MAX_CLUSTER)
     return window_plan, WINDOW_LOC_BYTES, WINDOW_THREADS, WINDOW_THREADS_FEW, MAX_CLUSTER
 
 
 def cluster_launch(kernel, nb, C, NL, device):
     """The launch of a cluster kernel (WINSTIFF3D, WINSTIFF_P2,
-    WINSTIFF3D_P2, WINMASS or winform.WINFORM) at a layout of nb window
-    blocks of C cells on `device`: K4b 3-D P1's constants (CLUSTER_3D,
-    THREADS_3D, cluster_plan), or the rule of K4a, K5 and K4b P2
-    (window_plan). It launches at most the clusters the card holds at once,
-    so the grid is one wave and each cluster walks its share of the window
+    WINSTIFF3D_P2, WINMASS, winform.WINFORM, winmom.WINMOM3D or
+    winmom.WINMOM3D_NEWTON) at a layout of nb window blocks of C cells on
+    `device`: K4b 3-D P1's constants (CLUSTER_3D, THREADS_3D,
+    cluster_plan), K3 3-D's rule (momentum_plan, with the card's answer of
+    how many clusters of each size it holds), or the rule of K4a, K5 and
+    K4b P2 (window_plan). It launches at most the clusters the card holds
+    at once, so the grid is one wave and each cluster walks its share of the window
     blocks (csrc/wincluster.cuh); where the card's query refuses the
     configuration, nb clusters, whose launch then reports the error. Cached
     per layout and launch constants."""
@@ -236,18 +284,33 @@ def cluster_launch(kernel, nb, C, NL, device):
 
 @functools.lru_cache(maxsize=256)
 def _cluster_launch(kernel, nb, C, NL, index, consts):
+    momentum = kernel.name == "winmom3d"
+    # the queries of K4b's variants, each instantiated at one NL, take no NL;
+    # K3 3-D's takes the variant
+    if momentum:
+        lead = (int("winmom_p2_3d_newton" in kernel.signatures),)
+    else:
+        lead = () if kernel in (WINSTIFF3D, WINSTIFF_P2, WINSTIFF3D_P2) else (NL,)
+    query = getattr(kernel.lib(), next(fn for fn in kernel.signatures
+                                       if fn.endswith("_clusters")))
+
+    def held(cl, threads, cap):
+        """Clusters of the launch the card holds at once, 0 where it refuses."""
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = query(*lead, cl, threads, cap, ctypes.byref(out))
+        return out.value if err == 0 else 0
+
     if kernel is WINSTIFF3D:
         cl, threads, cap = CLUSTER_3D, THREADS_3D, cluster_plan(C, NL)
+    elif momentum:
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        cl, threads, cap = momentum_plan(
+            nb, C, NL, sms, lambda cl_, cap_: held(cl_, MOMENTUM_THREADS, cap_))
     else:
         sms = torch.cuda.get_device_properties(index).multi_processor_count
         cl, threads, cap = window_plan(nb, C, NL, sms)
-    # the queries of K4b's variants, each instantiated at one NL, take no NL
-    lead = () if kernel in (WINSTIFF3D, WINSTIFF_P2, WINSTIFF3D_P2) else (NL,)
-    query = next(fn for fn in kernel.signatures if fn.endswith("_clusters"))
-    out = ctypes.c_int(0)
-    with torch.cuda.device(index):
-        err = getattr(kernel.lib(), query)(*lead, cl, threads, cap, ctypes.byref(out))
-    resident = out.value if err == 0 else 0
+    resident = held(cl, threads, cap)
     return ClusterLaunch(cl, threads, cap, min(nb, resident) if resident > 0 else nb,
                          resident)
 

@@ -27,7 +27,11 @@
 # momentum_windows launches the kernel for CUDA tensors and takes the plain
 # version only for CPU tensors. It counts its launches in WINMOM.launches
 # (2-D lagged), WINMOM_NEWTON.launches (2-D Newton), WINMOM3D.launches (3-D
-# lagged) and WINMOM3D_NEWTON.launches (3-D Newton).
+# lagged) and WINMOM3D_NEWTON.launches (3-D Newton). The 2-D kernels write
+# the local results to a device scratch and sum them along the scatter
+# lists; the 3-D ones run the cluster walk of csrc/wincluster.cuh
+# (attic/winkernel.cluster_launch, momentum_plan) on the layout's
+# compressed rows and positions (window.compact_lists).
 from __future__ import annotations
 
 import ctypes
@@ -39,7 +43,8 @@ import torch
 from .._build import Kernel
 from ..fem import assembly
 from ..mesh3d import _device
-from .window import build_scatter_lists, build_window_layout
+from .window import build_scatter_lists, build_window_layout, compact_lists
+from .winkernel import cluster_launch
 
 __all__ = ["WindowLaggedMomentum", "momentum_windows", "momentum_windows_plain",
            "momentum_local_plain", "smem_tables", "WINMOM", "WINMOM_NEWTON",
@@ -47,7 +52,7 @@ __all__ = ["WindowLaggedMomentum", "momentum_windows", "momentum_windows_plain",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# every variant takes a device scratch for the local results
+# the 2-D variants take a device scratch for the local results
 WINMOM = Kernel("winmom", {
     "winmom_p2_2d_lagged": [_P] * 13 + [_I] * 5 + [_P],
 })
@@ -55,12 +60,14 @@ WINMOM = Kernel("winmom", {
 WINMOM_NEWTON = Kernel("winmom", {
     "winmom_p2_2d_newton": [_P] * 14 + [_I] * 5 + [_P],
 })
-# the 3-D variants
+# the 3-D variants: cluster launches, with their occupancy query
 WINMOM3D = Kernel("winmom3d", {
-    "winmom_p2_3d_lagged": [_P] * 13 + [_I] * 5 + [_P],
+    "winmom_p2_3d_lagged": [_P] * 13 + [_I] * 10 + [_P],
+    "winmom_p2_3d_clusters": [_I] * 4 + [_P],
 })
 WINMOM3D_NEWTON = Kernel("winmom3d", {
-    "winmom_p2_3d_newton": [_P] * 14 + [_I] * 5 + [_P],
+    "winmom_p2_3d_newton": [_P] * 14 + [_I] * 10 + [_P],
+    "winmom_p2_3d_clusters": [_I] * 4 + [_P],
 })
 
 # the configurations the kernels are built for, P2 with the degree-5 rule:
@@ -160,15 +167,20 @@ def momentum_windows_plain(x_pad, lidx, valid, detj, g4, cg4, Tq, tabs, scal,
 
 
 def momentum_windows(x_pad, lidx, valid, detj, g4, cg4, Tq, tabs, scal, S, W,
-                     scatter=None, Uq=None, Gu=None):
+                     scatter=None, Uq=None, Gu=None, positions=None):
     """Per-block output windows [DIM, nb, W] of the momentum apply (see
     momentum_windows_plain). CPU tensors take the plain version; CUDA
-    tensors launch the kernel, which writes a block's local results to a
-    device scratch [nb, DIM, C*NL], so any C fits, and sums each window dof
-    along the layout's scatter lists `scatter` = (rowptr, ent). The Newton
-    kernels read the state
-    values from Tq, so they take only Uq that is Tq (as state_qp returns
-    them)."""
+    tensors launch the kernel. The 2-D kernel writes a block's local
+    results to a device scratch [nb, DIM, C*NL], so any C fits, and sums
+    each window dof along the layout's scatter lists `scatter` = (rowptr,
+    ent). The 3-D kernel reads `positions` = (rptr, rows, pos), the
+    layout's compressed rows and the lists' inverse (window.compact_lists):
+    each cell stores its local results, three components each, at their
+    list positions in the shared memory of a cluster of blocks
+    (winkernel.cluster_launch, momentum_plan), in passes where they exceed
+    it, and each listed row sums its positions in order; the other rows are
+    zero. The Newton kernels read the state values from Tq, so they take
+    only Uq that is Tq (as state_qp returns them)."""
     if x_pad.device.type == "cpu":
         return momentum_windows_plain(x_pad, lidx, valid, detj, g4, cg4, Tq,
                                       tabs, scal, S, W, Uq, Gu)
@@ -187,43 +199,55 @@ def momentum_windows(x_pad, lidx, valid, detj, g4, cg4, Tq, tabs, scal, S, W,
     if newton and (Uq is not Tq or Gu is None):
         raise ValueError("momentum_windows: the Newton kernel takes Uq that is "
                          "Tq (the state is the transport) and Gu")
-    rowptr, ent = scatter
-    tensors = (x_pad, lidx, valid, detj, g4, cg4, Tq, tabs, scal, rowptr, ent)
-    if newton:
-        tensors = tensors + (Gu,)
-    for t in tensors:
+    lists = scatter if DIM == 2 else positions
+    if lists is None:
+        raise ValueError("momentum_windows: the kernel needs the layout's lists")
+    floats = (x_pad, valid, detj, g4, cg4, Tq, tabs, scal) + ((Gu,) if newton else ())
+    for t in (lidx, *lists, *floats):
         if t.device != x_pad.device or not t.is_contiguous():
             raise ValueError("momentum_windows: tensors must be contiguous and "
                              "on one device")
-    if any(t.dtype != torch.float32 for t in tensors[:1] + tensors[2:9] + tensors[11:]):
+    if any(t.dtype != torch.float32 for t in floats):
         raise TypeError("momentum_windows: float tensors must be float32")
-    if any(t.dtype != torch.int32 for t in (lidx, rowptr, ent)):
+    if any(t.dtype != torch.int32 for t in (lidx, *lists)):
         raise TypeError("momentum_windows: index tensors must be int32")
     n_pad = nb * S + W
     ntab = NQ * NL + DIM * NQ * NL + NQ + NL * NL + DIM * DIM * NL * NL
-    if (tuple(x_pad.shape) != (DIM, n_pad) or tuple(valid.shape) != (nb, C)
-            or tuple(detj.shape) != (nb, C)
+    if DIM == 2:
+        lists_ok = (tuple(lists[0].shape) == (nb, W + 1)
+                    and tuple(lists[1].shape) == (nb, C * NL))
+    else:
+        R = lists[1].shape[-1]
+        lists_ok = (tuple(lists[0].shape) == (nb, R + 1) and tuple(lists[1].shape) == (nb, R)
+                    and tuple(lists[2].shape) == (nb, NL * C) and W % 4 == 0)
+    if (not lists_ok or tuple(x_pad.shape) != (DIM, n_pad)
+            or tuple(valid.shape) != (nb, C) or tuple(detj.shape) != (nb, C)
             or tuple(g4.shape) != (nb, DIM * DIM, C)
             or tuple(cg4.shape) != (nb, DIM * DIM, C)
             or tuple(Tq.shape) != (nb, DIM * NQ, C) or tabs.numel() != ntab
-            or scal.numel() != 3 or tuple(rowptr.shape) != (nb, W + 1)
-            or tuple(ent.shape) != (nb, C * NL)
+            or scal.numel() != 3
             or (newton and tuple(Gu.shape) != (nb, DIM * DIM * NQ, C))
             or x_pad.numel() >= 2**31 or Tq.numel() >= 2**31
             or (newton and Gu.numel() >= 2**31)):
         raise ValueError("momentum_windows: inconsistent layout shapes")
     out = torch.empty((DIM, nb, W), dtype=torch.float32, device=x_pad.device)
-    head = (x_pad.data_ptr(), lidx.data_ptr(), valid.data_ptr(),
-            detj.data_ptr(), g4.data_ptr(), cg4.data_ptr(), Tq.data_ptr())
-    scratch = torch.empty((nb, DIM, C * NL), dtype=torch.float32,
-                          device=x_pad.device)
-    tail = [tabs.data_ptr(), scal.data_ptr(), rowptr.data_ptr(), ent.data_ptr(),
-            scratch.data_ptr()]
     kernel, entry = newton_entry if newton else lagged
+    tables = (x_pad.data_ptr(), lidx.data_ptr(), valid.data_ptr(), detj.data_ptr(),
+              g4.data_ptr(), cg4.data_ptr(), Tq.data_ptr(),
+              *((Gu.data_ptr(),) if newton else ()))
     with torch.cuda.device(x_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
-        kernel.launch(entry, *head, *((Gu.data_ptr(),) if newton else ()), *tail,
-                      out.data_ptr(), nb, S, W, C, n_pad, stream)
+        if DIM == 2:
+            scratch = torch.empty((nb, DIM, C * NL), dtype=torch.float32,
+                                  device=x_pad.device)
+            kernel.launch(entry, *tables, tabs.data_ptr(), scal.data_ptr(),
+                          *(t.data_ptr() for t in lists), scratch.data_ptr(),
+                          out.data_ptr(), nb, S, W, C, n_pad, stream)
+        else:
+            plan = cluster_launch(kernel, nb, C, NL, x_pad.device)
+            kernel.launch(entry, *tables, tabs.data_ptr(), scal.data_ptr(),
+                          *(t.data_ptr() for t in lists), out.data_ptr(), nb, S, W, C, R,
+                          n_pad, plan.clusters, plan.cl, plan.threads, plan.cap, stream)
     return out
 
 
@@ -233,8 +257,10 @@ class WindowLaggedMomentum:
     tets. Tables live in float32 on `device` (default: the mesh's). State
     convention: [n, DIM] in the original numbering (apply), or in the
     layout's permuted row order (apply_perm_rows, the solve-side path).
-    layout_seconds: the host seconds of the layout, its tables and scatter
-    lists."""
+    On the card the operator holds the lists its kernel reads (see
+    momentum_windows): `scatter` in 2-D, `positions` in 3-D; the other is
+    None.
+    layout_seconds: the host seconds of the layout, its tables and lists."""
 
     def __init__(self, V, S=None, device=None):
         self.V = V
@@ -266,9 +292,12 @@ class WindowLaggedMomentum:
         self.tab = assembly.tabulation(V, assembly.CONV_RULE)
         self.nq = self.tab.nq
         self.tabs = dev(smem_tables(self.tab, V.degree, dim))
-        self.scatter = None
+        self.scatter = self.positions = None
         if self.device.type == "cuda":
-            self.scatter = tuple(dev(a, torch.int32) for a in build_scatter_lists(wl))
+            if dim == 2:
+                self.scatter = tuple(dev(a, torch.int32) for a in build_scatter_lists(wl))
+            else:
+                self.positions = tuple(dev(a, torch.int32) for a in compact_lists(wl))
         self._scal_cache = {}
         self.layout_seconds = time.perf_counter() - t0
 
@@ -321,7 +350,7 @@ class WindowLaggedMomentum:
         return momentum_windows(
             x_pad, self.lidx, self.valid, self.detj, self.G4, self.Cg4, Tq,
             self.tabs, self._scal(mass_w, s_rho, s_mu), wl.S, wl.W,
-            self.scatter, Uq, Gu,
+            self.scatter, Uq, Gu, self.positions,
         )
 
     def apply_perm_rows(self, v, Tq, mass_w, s_rho, s_mu, Uq=None, Gu=None):

@@ -1,6 +1,6 @@
 // The thread-block-cluster walk that the window kernels winstiff_p1_3d,
-// winstiff_p2_2d and winstiff_p2_3d (winstiff.cu), winmass (winmass.cu) and
-// winform (winform.cu) share: a
+// winstiff_p2_2d and winstiff_p2_3d (winstiff.cu), winmass (winmass.cu),
+// winform (winform.cu) and winmom3d (winmom3d.cu) share: a
 // window block's local results staged at their scatter-list positions in
 // the shared memory of a cluster of blocks (distributed shared memory,
 // DSMEM), and each window row summed from it in list order. No device
@@ -26,11 +26,21 @@
 // block sums the rows whose first position it stages, each along its
 // contiguous positions, from its own shared memory or (for a row that runs
 // past its last position) the next block's. A window block whose entries
-// exceed the cluster's CL*cap staged values runs in passes over whole rows;
+// exceed the cluster's CL*cap staged positions runs in passes over whole rows;
 // each pass reads every cell again and stores the results that fall in
 // it. The row sums are bound by instructions, not bytes (most rows of a
 // 3-D window are empty, and a warp waits for its longest row): a thread
 // loads the pointers of kRows rows at once and finds a row's holder once.
+//
+// A position may hold NC values (K3 3-D: the three velocity components of
+// a local result), staged as NC planes of Q values in each block's shared
+// memory and summed per component; component m of window block b is
+// out[(m * nb + b) * W + w]. And the walk may take compressed rows
+// (COMPACT): only the rows that some local result lands on (rows [nb, R],
+// ascending, padded with W; rowptr [nb, R + 1] their positions), after
+// zeros written over the whole window with 16-byte stores (interleaved
+// with the cells of the first pass), so that an empty row costs neither a
+// pointer load nor a turn of the row loop.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -66,7 +76,6 @@ namespace wincluster {
 
 constexpr int kMaxCluster = 8;  // blocks of a cluster, at most (portable)
 constexpr int kRows = 8;  // rows a thread sums per round of row-pointer loads
-
 // First row w in [lo, hi] with rp[w] >= target, or hi (rp ascends), found
 // by the whole block: each round probes blockDim.x rows evenly spread over
 // the interval left and keeps the gap where rp crosses target, so that two
@@ -102,17 +111,20 @@ struct Holder {
 
 // The walk of the header for a kernel whose cell(b, c) reads what cell c
 // of window block b needs and returns result, with result(i) its local
-// result i: the walk asks only for the results that fall in the pass, so
-// a kernel computes in result(i) what it can skip and in cell() what it
-// had better load early. Each block stages up to `cap` positions a pass in
-// its dynamic shared memory. The caller stages its own tables in
-// shared memory first; the cluster.sync() here, before any store to
-// another block's shared memory, orders them too.
-template <int NL, typename Cell>
-__device__ __forceinline__ void stage_and_sum(const int* __restrict__ rowptr,
-                                              const int* __restrict__ pos,
-                                              float* __restrict__ out, int nb, int W,
-                                              int C, int cap, Cell&& cell) {
+// result i (NC = 1) or result(i, m) component m of it: the walk asks only
+// for the results that fall in the pass, so a kernel computes in result
+// what it can skip and in cell() what it had better load early. Each
+// block stages up to `cap` positions a pass, NC*cap floats of its dynamic
+// shared memory. rowptr [nb, R + 1] holds the positions of the rows the
+// walk sums: every row (R = W, rows unused) or, COMPACT, the listed rows
+// rows [nb, R]. The caller stages its own tables in shared memory first;
+// the cluster.sync() here, before any store to another block's shared
+// memory, orders them too.
+template <int NL, int NC, bool COMPACT, typename Cell>
+__device__ __forceinline__ void walk(const int* __restrict__ rowptr,
+                                     const int* __restrict__ rows, int R,
+                                     const int* __restrict__ pos, float* __restrict__ out,
+                                     int nb, int W, int C, int cap, Cell&& cell) {
   namespace coop = cooperative_groups;
   extern __shared__ __align__(16) float stage_s[];
   coop::cluster_group cluster = coop::this_cluster();
@@ -122,6 +134,7 @@ __device__ __forceinline__ void stage_and_sum(const int* __restrict__ rowptr,
   const int cells = (C + CL - 1) / CL;  // this block's cells [c0, c1)
   const int c0 = min(C, rank * cells);
   const int c1 = min(C, c0 + cells);
+  const long long plane = static_cast<long long>(nb) * W;  // component stride of out
   bool tracing = true;  // the first pass of the first window block (marks)
   WINCLUSTER_MARK(0, tracing);
   // every block of the cluster has started (and staged its tables): a
@@ -130,30 +143,58 @@ __device__ __forceinline__ void stage_and_sum(const int* __restrict__ rowptr,
 
   for (int b = static_cast<int>(blockIdx.x) / CL; b < nb;
        b += static_cast<int>(gridDim.x) / CL) {
-    const int* rp = rowptr + static_cast<long long>(b) * (W + 1);
+    const int* rp = rowptr + static_cast<long long>(b) * (R + 1);
     const int* pos_b = pos + static_cast<long long>(b) * NL * C;
     float* out_b = out + static_cast<long long>(b) * W;
+    // COMPACT: the empty rows' zeros, the whole window's NC*W/4 16-byte
+    // chunks, this block's share [z, z1) of them. The threads store them
+    // interleaved with the first pass's cells (zstep a cell, T apart), so
+    // that they drain while the cells compute; the cluster barrier before
+    // the row sums orders them first.
+    [[maybe_unused]] int z = 0, z1 = 0, zstep = 0;
+    if constexpr (COMPACT) {
+      const int zn = NC * (W / 4);
+      const int zshare = (zn + CL - 1) / CL;
+      z = min(zn, rank * zshare) + static_cast<int>(threadIdx.x);
+      z1 = min(zn, rank * zshare + zshare);
+      const int rounds = max(1, (c1 - c0 + T - 1) / T);
+      zstep = (zshare + rounds * T - 1) / (rounds * T);
+    }
+    auto store_zeros = [&](int count) {
+      for (int k = 0; k < count && z < z1; ++k, z += T)
+        reinterpret_cast<float4*>(out_b + (z / (W / 4)) * plane)[z % (W / 4)] =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+    };
     // passes over whole rows [r0, r1) whose entries [e0, e1) fit the
-    // cluster's CL*cap staged values
-    for (int r0 = 0; r0 < W;) {
+    // cluster's CL*cap staged positions
+    for (int r0 = 0; r0 < R;) {
       const int e0 = rp[r0];
       const long long room = static_cast<long long>(CL) * cap;
-      const int r1 = rp[W] - e0 <= room ? W : row_at(rp, e0 + room + 1, r0, W) - 1;
+      const int r1 = rp[R] - e0 <= room ? R : row_at(rp, e0 + room + 1, r0, R) - 1;
       if (r1 <= r0) __trap();  // a row longer than the cluster's stage
       const int n = rp[r1] - e0;
       const Holder holder_of((n + CL - 1) / CL);  // positions [r*Q, +Q) on block r
       WINCLUSTER_MARK(1, tracing);
       for (int c = c0 + static_cast<int>(threadIdx.x); c < c1; c += T) {
+        if constexpr (COMPACT) store_zeros(zstep);
         auto result = cell(b, c);
 #pragma unroll
         for (int i = 0; i < NL; ++i) {
           const int q = pos_b[i * C + c] - e0;
           if (q < 0 || q >= n) continue;  // a padding cell, or another pass
-          const float value = result(i);
-          const int h = holder_of(q);
-          *cluster.map_shared_rank(stage_s + (q - h * holder_of.Q), h) = value;
+          if constexpr (NC == 1) {
+            const float value = result(i);
+            const int h = holder_of(q);
+            *cluster.map_shared_rank(stage_s + (q - h * holder_of.Q), h) = value;
+          } else {
+            const int h = holder_of(q);
+            float* dst = cluster.map_shared_rank(stage_s + (q - h * holder_of.Q), h);
+#pragma unroll
+            for (int m = 0; m < NC; ++m) dst[m * holder_of.Q] = result(i, m);
+          }
         }
       }
+      if constexpr (COMPACT) store_zeros(z1);  // what is left of them
 #ifdef WINCLUSTER_TRACE
       __syncthreads();
 #endif
@@ -170,16 +211,20 @@ __device__ __forceinline__ void stage_and_sum(const int* __restrict__ rowptr,
       for (int w0 = ra + static_cast<int>(threadIdx.x); w0 < rb; w0 += kRows * T) {
         // kRows rows a thread, T apart, their row pointers loaded together
         int first[kRows], last[kRows];
+        [[maybe_unused]] int row[kRows];  // COMPACT: the window rows of the slots
 #pragma unroll
         for (int k = 0; k < kRows; ++k) {
           const int w = min(w0 + k * T, rb);
           first[k] = rp[w] - e0;
           last[k] = rp[min(w + 1, rb)] - e0;
+          if constexpr (COMPACT) row[k] = w < rb ? rows[static_cast<long long>(b) * R + w] : W;
         }
 #pragma unroll
         for (int k = 0; k < kRows; ++k) {
           if (w0 + k * T >= rb) break;
-          float acc = 0.f;
+          float acc[NC];
+#pragma unroll
+          for (int m = 0; m < NC; ++m) acc[m] = 0.f;
           int q = first[k];
           if (q < last[k]) {
             // the row's positions run through one holder's stage, rarely
@@ -195,10 +240,17 @@ __device__ __forceinline__ void stage_and_sum(const int* __restrict__ rowptr,
                 off += Q;
                 held = h == rank ? stage_s : cluster.map_shared_rank(stage_s, h);
               }
-              acc += held[q - off];
+#pragma unroll
+              for (int m = 0; m < NC; ++m) acc[m] += held[m * Q + q - off];
             }
           }
-          out_b[w0 + k * T] = acc;
+          int w = w0 + k * T;
+          if constexpr (COMPACT) {
+            w = row[k];
+            if (w >= W) continue;  // a padding slot
+          }
+#pragma unroll
+          for (int m = 0; m < NC; ++m) out_b[m * plane + w] = acc[m];
         }
       }
 #ifdef WINCLUSTER_TRACE
@@ -213,19 +265,29 @@ __device__ __forceinline__ void stage_and_sum(const int* __restrict__ rowptr,
   }
 }
 
+// The walk of a scalar kernel (one value a position) over every row.
+template <int NL, typename Cell>
+__device__ __forceinline__ void stage_and_sum(const int* __restrict__ rowptr,
+                                              const int* __restrict__ pos,
+                                              float* __restrict__ out, int nb, int W,
+                                              int C, int cap, Cell&& cell) {
+  walk<NL, 1, false>(rowptr, nullptr, W, pos, out, nb, W, C, cap,
+                     static_cast<Cell&&>(cell));
+}
+
 // Launches kernel(args...) as `clusters` clusters of `cl` blocks of
 // `threads` threads (at most `max_threads`, the kernel's launch bounds),
-// each with 4*cap bytes of dynamic shared memory, through
+// each with 4*stage bytes of dynamic shared memory, through
 // cudaLaunchKernelEx with a cluster dimension. With `max_clusters` set it
 // launches nothing and writes there how many such clusters the card holds
 // at once (cudaOccupancyMaxActiveClusters). Returns the cudaError_t.
 template <typename... Params, typename... Args>
 int launch(void (*kernel)(Params...), int clusters, int cl, int threads, int max_threads,
-           int cap, void* stream, int* max_clusters, Args... args) {
+           int stage, void* stream, int* max_clusters, Args... args) {
   if (clusters <= 0 || cl < 1 || cl > kMaxCluster || threads < 32 ||
-      threads > max_threads || threads % 32 || cap <= 0 || cap > 227 * 1024 / 4)
+      threads > max_threads || threads % 32 || stage <= 0 || stage > 227 * 1024 / 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 4 * cap;
+  const int smem = 4 * stage;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

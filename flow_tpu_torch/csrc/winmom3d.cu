@@ -18,100 +18,146 @@
 // Replaces flow_tpu/attic/winmom.py::momentum_tables_apply with its kernels
 // _mom_kernel_3d and _mom_newton_kernel_3d (K3, lagged and Newton 3-D).
 //
-// Bound: operations (lagged) and bytes (Newton). Per cell the lagged apply
-// reads 10 indices, detJ, 9 G, 9 C, a mask, 81 transport values and 30
-// window values and does ~15,000 flops; the Newton apply reads 243
-// gradient values more (1.56 GB over the cavity's 1.57M cells at N=64).
-// The output windows are [DIM, nb, W] float32, W/S of them per block.
+// Bound: bytes, both variants (chip_smoke.py's count at the cavity's N=64
+// layout: 1,386 MB lagged, 414 us at 3.35 TB/s against 353 us of 23.7
+// GFLOP at 67 TFLOP/s; Newton 2,949 MB, 880 us, against 498 us). Per cell
+// the lagged apply reads 10 indices, detJ, 9 G, 9 C, a mask, 81 transport
+// values and 30 window values and does ~15,000 flops; the Newton apply
+// reads 243 gradient values more. The output windows are [DIM, nb, W]
+// float32 (645 MB at N=64), 93% of whose rows no local result lands on.
+// On the card the kernel is bound by neither: the cell's ~10,000
+// instructions at 16 warps an SM (128 registers a thread) issue at about
+// 40% of the SM's rate (PERF.md).
 //
-// Design, and how it differs from the 2-D kernel:
-// - Registers. The 2-D kernel holds the transport of every quadrature
-//   point and per-point temporaries (255 registers in Newton mode); at
-//   NQ=27 that would spill heavily. Here a thread holds only its cell's 30
-//   window values U, G and the 30 accumulators; the quadrature loop is the
-//   outermost loop of the convection and reaction terms, and reads the
-//   transport and gradient rows of each point from global memory (the
-//   [nb, rows, C] layout puts consecutive cells at consecutive addresses,
-//   so one thread per cell reads them coalesced). The convection is
-//   factored per point through T.grad phi_i (10 values) and the reaction
-//   through v.grad phi_i; the stress runs row by row through the element
-//   matrix sum_kl Cg[kl] Kref[kl] and through G^T U per (k, l).
-// - Local results. The cells of a block (C = 3,063 at N=64, 120 B each)
-//   do not fit in the 227 KB of shared memory a block may have. They go to
-//   a device scratch [nb, DIM, C*NL] that the wrapper allocates; after
-//   __syncthreads(), which makes the block's global writes visible to the
-//   block, each thread takes window dofs in turn and sums, per component,
-//   the local results of its dof along the block's scatter list (rowptr,
-//   ent), built on the host in ascending (cell, local dof) order: a fixed
-//   order, so the result is bitwise repeatable (no atomics), at any C.
-// - The small tables (phi, dphi, w, Mref, Kref: 2,107 floats) and the
-//   three weights are staged in shared memory and read through volatile
-//   pointers, so that they stay there. Every loop that indexes a register
-//   array is unrolled; the quadrature loop, which indexes only shared and
-//   global memory, is not.
+// Design: the thread-block-cluster walk of csrc/wincluster.cuh (shared with
+// winstiff.cu, winmass.cu and winform.cu) with three values a position:
+// - Local results. The cells of a window block (C = 3,063 at N=64) are
+//   split over a cluster of blocks, each cell's 10 local results stored,
+//   three components each, at their scatter-list positions in the shared
+//   memory of the cluster (three planes a block): 30,630 positions x 12 B
+//   = 359 KB, one pass of a cluster of two at N=64, of three at N=32
+//   (attic/winkernel.momentum_plan: the size whose one-wave grid takes the
+//   fewest rounds of cells). Each window row then sums its positions in
+//   list order, per component, from 0: the order of the device-scratch
+//   design this replaces, so the windows are bitwise those of a kernel
+//   that wrote every local result to a scratch and read it back along the
+//   lists. No scratch, no list (ent) read; a persistent grid of one wave.
+// - Rows. The walk takes the window block's compressed rows (the rows some
+//   local result lands on, attic/window.compact_lists, ~7% of them): the
+//   window is first zeroed with 16-byte stores interleaved with the cells,
+//   then only those rows are summed and written, so an empty row costs no
+//   pointer load.
+// - Tables. The small tables (phi, dphi, w, Mref, Kref and Kref by
+//   columns: 3,604 floats with padding) are staged in shared memory as rows
+//   of NL values at a 16-byte stride and read a row at a time by three
+//   16-byte loads (load_row), ~1 load to 5 multiply-adds against the one
+//   load each of volatile floats. As a kernel parameter (__grid_constant__)
+//   or __constant__ array, read from the constant bank, nvcc kept 1,000
+//   table values in registers and spilled 3-5 KB a thread. A thread holds
+//   its cell's 30 window values U, G and the 30 accumulators; the
+//   quadrature loop is the outermost loop of the convection and reaction
+//   terms and reads the transport and gradient rows of each point from
+//   global memory (the [nb, rows, C] layout puts consecutive cells at
+//   consecutive addresses, so one thread per cell reads them coalesced).
+//   The convection is factored per point through T.grad phi_i (10 values)
+//   and the reaction through v.grad phi_i; the stress runs row by row
+//   through the element matrix sum_kl Cg[kl] Kref[kl] and through G^T U per
+//   (k, l). Every local result is computed in the scratch design's order.
 //
-// Plain C interface (loaded with ctypes): the entry launches on the given
-// stream and returns the cudaError_t of the launch (0 on success).
+// Plain C interface (loaded with ctypes): the entries launch on the given
+// stream and return the cudaError_t of the launch (0 on success); the
+// query entry writes how many clusters of a launch the card holds at once.
 #include <cuda_runtime.h>
+
+#include "wincluster.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+// At most 512 threads a block, so 128 registers a thread.
+constexpr int kMaxThreads = 512;
 constexpr int DIM = 3, NL = 10, NQ = 27;
 constexpr int D2 = DIM * DIM;
 
-struct Tables {
-  static constexpr int kPhi = 0;                        // [NQ, NL]
-  static constexpr int kDphi = kPhi + NQ * NL;          // [DIM*NQ, NL]
-  static constexpr int kW = kDphi + DIM * NQ * NL;      // [NQ]
-  static constexpr int kMref = kW + NQ;                 // [NL, NL]
-  static constexpr int kKref = kMref + NL * NL;         // [DIM*DIM*NL, NL]
-  static constexpr int kSize = kKref + D2 * NL * NL;
-  static constexpr int kSmem = kSize + 3;               // + mass_w, s_rho, s_mu
+// The small tables as the kernel keeps them in shared memory: rows of NL
+// values at a 16-byte stride of kRow floats (two of padding), and Kref
+// twice, by rows and by columns, so that every table operand of the cell
+// comes with a row of three 16-byte loads.
+constexpr int kRow = 12;
+struct Smem {
+  static constexpr int kPhi = 0;                         // row q: phi[q, :]
+  static constexpr int kDphi = kPhi + NQ * kRow;         // row k*NQ + q: dphi[q, :, k]
+  static constexpr int kMref = kDphi + DIM * NQ * kRow;  // row i: Mref[i, :]
+  static constexpr int kKref = kMref + NL * kRow;        // row kl*NL + i: Kref[kl, i, :]
+  static constexpr int kKrefT = kKref + D2 * NL * kRow;  // row kl*NL + i: Kref[kl, :, i]
+  static constexpr int kW = kKrefT + D2 * NL * kRow;     // w[q]
+  static constexpr int kSize = kW + NQ;
+};
+// ... and where attic/winmom.py::smem_tables puts them, flat
+struct Flat {
+  static constexpr int kPhi = 0;                         // [NQ, NL]
+  static constexpr int kDphi = kPhi + NQ * NL;           // [DIM*NQ, NL]
+  static constexpr int kW = kDphi + DIM * NQ * NL;       // [NQ]
+  static constexpr int kMref = kW + NQ;                  // [NL, NL]
+  static constexpr int kKref = kMref + NL * NL;          // [DIM*DIM*NL, NL]
 };
 
+// The NL values of the table row at p (shared memory, 16-byte aligned),
+// into v, as three 16-byte loads. asm volatile, so that they stay in the
+// cell: the compiler neither hoists a table out of the cell loop (and
+// spills it) nor merges a row's loads across terms; plain ld.shared, so
+// that the assembler may still schedule them ahead of their use.
+__device__ __forceinline__ void load_row(const float* p, float (&v)[NL]) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  float pad0, pad1;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]) : "r"(a));
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4+16];"
+               : "=f"(v[4]), "=f"(v[5]), "=f"(v[6]), "=f"(v[7]) : "r"(a));
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4+32];"
+               : "=f"(v[8]), "=f"(v[9]), "=f"(pad0), "=f"(pad1) : "r"(a));
+}
+
 template <bool NEWTON>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 winmom3d_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
                 const float* __restrict__ valid, const float* __restrict__ detj,
                 const float* __restrict__ g4, const float* __restrict__ cg4,
                 const float* __restrict__ tq, const float* __restrict__ gu,
                 const float* __restrict__ tabs, const float* __restrict__ scal,
-                const int* __restrict__ rowptr, const int* __restrict__ ent,
-                float* __restrict__ scratch, float* __restrict__ out, int nb,
-                int S, int W, int C, int n_pad) {
-  __shared__ float tab[Tables::kSmem];
-  const int b = blockIdx.x;
-  for (int t = threadIdx.x; t < Tables::kSize; t += blockDim.x) tab[t] = tabs[t];
-  for (int t = threadIdx.x; t < 3; t += blockDim.x) tab[Tables::kSize + t] = scal[t];
-
-  // volatile: every use reads shared memory. Otherwise the compiler hoists
-  // the loop-invariant reads of the unrolled mass and stress terms (1,000
-  // floats) out of the cell loop and spills them to local memory
-  // (scripts/torch_ptxas_report.py shows the stack and spills)
-  const volatile float* phi = tab + Tables::kPhi;
-  const volatile float* dphi = tab + Tables::kDphi;
-  const volatile float* wq = tab + Tables::kW;
-  const volatile float* mref = tab + Tables::kMref;
-  const volatile float* kref = tab + Tables::kKref;
-
-  const long long boff = static_cast<long long>(b) * S;
-  const int* lidx_b = lidx + static_cast<long long>(b) * NL * C;
-  const float* valid_b = valid + static_cast<long long>(b) * C;
-  const float* detj_b = detj + static_cast<long long>(b) * C;
-  const float* g_b = g4 + static_cast<long long>(b) * D2 * C;
-  const float* cg_b = cg4 + static_cast<long long>(b) * D2 * C;
-  const float* tq_b = tq + static_cast<long long>(b) * DIM * NQ * C;
-  const float* gu_b = NEWTON ? gu + static_cast<long long>(b) * D2 * NQ * C : nullptr;
-  const int* rp = rowptr + static_cast<long long>(b) * (W + 1);
-  const int* en = ent + static_cast<long long>(b) * C * NL;
-  float* loc_g = scratch + static_cast<long long>(b) * DIM * C * NL;  // [DIM, C, NL]
-  __syncthreads();
-  const float mass_w = tab[Tables::kSize];
-  const float s_rho = tab[Tables::kSize + 1];
-  const float s_mu = tab[Tables::kSize + 2];
-
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+                const int* __restrict__ rptr, const int* __restrict__ rows,
+                const int* __restrict__ pos, float* __restrict__ out, int nb, int S,
+                int W, int C, int R, int n_pad, int cap) {
+  __shared__ __align__(16) float tab[Smem::kSize];
+  // stage the tables: every entry of every row, padding as zeros
+  for (int t = threadIdx.x; t < Smem::kW; t += blockDim.x) {
+    const int r = t / kRow, j = t % kRow;
+    float v = 0.f;
+    if (j < NL) {
+      if (t < Smem::kDphi) v = tabs[Flat::kPhi + r * NL + j];
+      else if (t < Smem::kMref) v = tabs[Flat::kDphi + (r - NQ) * NL + j];
+      else if (t < Smem::kKref) v = tabs[Flat::kMref + (r - NQ - DIM * NQ) * NL + j];
+      else if (t < Smem::kKrefT) v = tabs[Flat::kKref + (r - NQ - DIM * NQ - NL) * NL + j];
+      else {
+        const int rr = r - NQ - DIM * NQ - NL - D2 * NL;  // kl*NL + i
+        const int kl = rr / NL, i = rr % NL;
+        v = tabs[Flat::kKref + (kl * NL + j) * NL + i];
+      }
+    }
+    tab[t] = v;
+  }
+  for (int q = threadIdx.x; q < NQ; q += blockDim.x) tab[Smem::kW + q] = tabs[Flat::kW + q];
+  const volatile float* wq = tab + Smem::kW;
+  const float mass_w = scal[0];
+  const float s_rho = scal[1];
+  const float s_mu = scal[2];
+  // the walk's first cluster barrier orders the staged tables before any use
+  wincluster::walk<NL, DIM, true>(rptr, rows, R, pos, out, nb, W, C, cap, [&](int b, int c) {
+    const long long boff = static_cast<long long>(b) * S;
+    const int* lidx_b = lidx + static_cast<long long>(b) * NL * C;
+    const float* g_b = g4 + static_cast<long long>(b) * D2 * C;
+    const float* cg_b = cg4 + static_cast<long long>(b) * D2 * C;
+    const float* tq_b = tq + static_cast<long long>(b) * DIM * NQ * C;
+    const float* gu_b = NEWTON ? gu + static_cast<long long>(b) * D2 * NQ * C : nullptr;
     float U[DIM][NL];
 #pragma unroll
     for (int j = 0; j < NL; ++j) {
@@ -119,7 +165,7 @@ winmom3d_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
 #pragma unroll
       for (int m = 0; m < DIM; ++m) U[m][j] = x[static_cast<long long>(m) * n_pad + li];
     }
-    const float dj = detj_b[c];
+    const float dj = detj[static_cast<long long>(b) * C + c];
     float G[DIM][DIM];
 #pragma unroll
     for (int d = 0; d < DIM; ++d)
@@ -127,14 +173,16 @@ winmom3d_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
       for (int k = 0; k < DIM; ++k) G[d][k] = g_b[(DIM * d + k) * C + c];
 
     float loc[DIM][NL];
+    float r[NL];  // a table row
     // mass: mass_w detj Mref u
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
+      load_row(tab + Smem::kMref + i * kRow, r);
 #pragma unroll
       for (int m = 0; m < DIM; ++m) {
         float s = 0.f;
 #pragma unroll
-        for (int j = 0; j < NL; ++j) s += mref[i * NL + j] * U[m][j];
+        for (int j = 0; j < NL; ++j) s += r[j] * U[m][j];
         loc[m][i] = mass_w * dj * s;
       }
     }
@@ -149,9 +197,11 @@ winmom3d_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
 #pragma unroll
       for (int j = 0; j < NL; ++j) a[j] = 0.f;
 #pragma unroll
-      for (int kl = 0; kl < D2; ++kl)
+      for (int kl = 0; kl < D2; ++kl) {
+        load_row(tab + Smem::kKref + (kl * NL + i) * kRow, r);
 #pragma unroll
-        for (int j = 0; j < NL; ++j) a[j] += cg[kl] * kref[(kl * NL + i) * NL + j];
+        for (int j = 0; j < NL; ++j) a[j] += cg[kl] * r[j];
+      }
 #pragma unroll
       for (int m = 0; m < DIM; ++m) {
         float s = 0.f;
@@ -179,21 +229,24 @@ winmom3d_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
       for (int a = 0; a < DIM; ++a) gk[a] = smd * G[a][k];
 #pragma unroll
       for (int i = 0; i < NL; ++i) {
+        load_row(tab + Smem::kKrefT + (kl * NL + i) * kRow, r);  // Kref[kl, :, i]
         float t = 0.f;
 #pragma unroll
-        for (int j = 0; j < NL; ++j) t += kref[(kl * NL + j) * NL + i] * w[j];
+        for (int j = 0; j < NL; ++j) t += r[j] * w[j];
 #pragma unroll
         for (int a = 0; a < DIM; ++a) loc[a][i] += gk[a] * t;
       }
     }
     // convection (and the Newton reaction), one quadrature point at a time
+    // (unrolled by 3 or 27 it spilled and ran slower on the card, PERF.md)
 #pragma unroll 1
     for (int q = 0; q < NQ; ++q) {
-      const volatile float* ph = phi + q * NL;
-      const float hw = 0.5f * wq[q] * dj;
       float T[DIM], vq[DIM];
 #pragma unroll
       for (int d = 0; d < DIM; ++d) T[d] = tq_b[(d * NQ + q) * C + c];
+      float ph[NL];
+      load_row(tab + Smem::kPhi + q * kRow, ph);
+      const float hw = 0.5f * wq[q] * dj;
 #pragma unroll
       for (int m = 0; m < DIM; ++m) {
         float s = 0.f;
@@ -212,11 +265,12 @@ winmom3d_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
       }
       float tgphi[NL];
 #pragma unroll
-      for (int i = 0; i < NL; ++i) {
-        float s = 0.f;
+      for (int i = 0; i < NL; ++i) tgphi[i] = 0.f;
 #pragma unroll
-        for (int k = 0; k < DIM; ++k) s += tg[k] * dphi[(k * NQ + q) * NL + i];
-        tgphi[i] = s;
+      for (int k = 0; k < DIM; ++k) {
+        load_row(tab + Smem::kDphi + (k * NQ + q) * kRow, r);
+#pragma unroll
+        for (int i = 0; i < NL; ++i) tgphi[i] += tg[k] * r[i];
       }
       // c(T; v)_m,i = hw [(T.grad v_m) phi_i - (T.grad phi_i) v_m]
 #pragma unroll
@@ -241,11 +295,12 @@ winmom3d_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
         }
         float vgphi[NL];
 #pragma unroll
-        for (int i = 0; i < NL; ++i) {
-          float s = 0.f;
+        for (int i = 0; i < NL; ++i) vgphi[i] = 0.f;
 #pragma unroll
-          for (int k = 0; k < DIM; ++k) s += vg[k] * dphi[(k * NQ + q) * NL + i];
-          vgphi[i] = s;
+        for (int k = 0; k < DIM; ++k) {
+          load_row(tab + Smem::kDphi + (k * NQ + q) * kRow, r);
+#pragma unroll
+          for (int i = 0; i < NL; ++i) vgphi[i] += vg[k] * r[i];
         }
 #pragma unroll
         for (int m = 0; m < DIM; ++m) {
@@ -259,70 +314,67 @@ winmom3d_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
         }
       }
     }
-    const float v = valid_b[c];
-#pragma unroll
-    for (int m = 0; m < DIM; ++m)
-#pragma unroll
-      for (int i = 0; i < NL; ++i)
-        loc_g[(static_cast<long long>(m) * C + c) * NL + i] = loc[m][i] * v;
-  }
-  __syncthreads();
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    float acc[DIM];
-#pragma unroll
-    for (int m = 0; m < DIM; ++m) acc[m] = 0.f;
-    for (int p = rp[w]; p < rp[w + 1]; ++p) {
-      const int e = en[p];
-#pragma unroll
-      for (int m = 0; m < DIM; ++m) acc[m] += loc_g[static_cast<long long>(m) * C * NL + e];
-    }
-#pragma unroll
-    for (int m = 0; m < DIM; ++m)
-      out[(static_cast<long long>(m) * nb + b) * W + w] = acc[m];
-  }
+    const float v = valid[static_cast<long long>(b) * C + c];
+    return [=](int i, int m) { return loc[m][i] * v; };
+  });
 }
 
+// The launch of a variant (wincluster::launch): `clusters` clusters of
+// `cl` blocks of `threads` threads, each staging `cap` positions (3*cap
+// floats). With `max_clusters` set, instead of launching, the number of
+// such clusters the card holds at once (no pointer read).
 template <bool NEWTON>
 int launch(const void* x, const void* lidx, const void* valid, const void* detj,
            const void* g4, const void* cg4, const void* tq, const void* gu,
-           const void* tabs, const void* scal, const void* rowptr,
-           const void* ent, void* scratch, void* out, int nb, int S, int W,
-           int C, int n_pad, void* stream) {
-  if (nb <= 0 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  winmom3d_kernel<NEWTON><<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(lidx),
+           const void* tabs, const void* scal, const void* rptr, const void* rows,
+           const void* pos, void* out, int nb, int S, int W, int C, int R, int n_pad,
+           int clusters, int cl, int threads, int cap, void* stream,
+           int* max_clusters = nullptr) {
+  if (nb <= 0 || C <= 0 || W <= 0 || W % 4 || R <= 0 || cap <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return wincluster::launch(
+      winmom3d_kernel<NEWTON>, clusters, cl, threads, kMaxThreads, DIM * cap, stream,
+      max_clusters, static_cast<const float*>(x), static_cast<const int*>(lidx),
       static_cast<const float*>(valid), static_cast<const float*>(detj),
       static_cast<const float*>(g4), static_cast<const float*>(cg4),
       static_cast<const float*>(tq), static_cast<const float*>(gu),
       static_cast<const float*>(tabs), static_cast<const float*>(scal),
-      static_cast<const int*>(rowptr), static_cast<const int*>(ent),
-      static_cast<float*>(scratch), static_cast<float*>(out), nb, S, W, C,
-      n_pad);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const int*>(rptr), static_cast<const int*>(rows),
+      static_cast<const int*>(pos), static_cast<float*>(out), nb, S, W, C, R, n_pad, cap);
 }
 
 }  // namespace
 
-extern "C" int winmom_p2_3d_lagged(const void* x, const void* lidx,
-                                   const void* valid, const void* detj,
-                                   const void* g4, const void* cg4,
+extern "C" int winmom_p2_3d_lagged(const void* x, const void* lidx, const void* valid,
+                                   const void* detj, const void* g4, const void* cg4,
                                    const void* tq, const void* tabs,
-                                   const void* scal, const void* rowptr,
-                                   const void* ent, void* scratch, void* out,
-                                   int nb, int S, int W, int C, int n_pad,
-                                   void* stream) {
-  return launch<false>(x, lidx, valid, detj, g4, cg4, tq, nullptr, tabs, scal,
-                       rowptr, ent, scratch, out, nb, S, W, C, n_pad, stream);
+                                   const void* scal, const void* rptr, const void* rows,
+                                   const void* pos, void* out, int nb, int S, int W,
+                                   int C, int R, int n_pad, int clusters, int cl,
+                                   int threads, int cap, void* stream) {
+  return launch<false>(x, lidx, valid, detj, g4, cg4, tq, nullptr, tabs, scal, rptr,
+                       rows, pos, out, nb, S, W, C, R, n_pad, clusters, cl, threads, cap,
+                       stream);
 }
 
-extern "C" int winmom_p2_3d_newton(const void* x, const void* lidx,
-                                   const void* valid, const void* detj,
-                                   const void* g4, const void* cg4,
-                                   const void* tq, const void* gu,
-                                   const void* tabs, const void* scal,
-                                   const void* rowptr, const void* ent,
-                                   void* scratch, void* out, int nb, int S,
-                                   int W, int C, int n_pad, void* stream) {
-  return launch<true>(x, lidx, valid, detj, g4, cg4, tq, gu, tabs, scal,
-                      rowptr, ent, scratch, out, nb, S, W, C, n_pad, stream);
+extern "C" int winmom_p2_3d_newton(const void* x, const void* lidx, const void* valid,
+                                   const void* detj, const void* g4, const void* cg4,
+                                   const void* tq, const void* gu, const void* tabs,
+                                   const void* scal, const void* rptr, const void* rows,
+                                   const void* pos, void* out, int nb, int S, int W,
+                                   int C, int R, int n_pad, int clusters, int cl,
+                                   int threads, int cap, void* stream) {
+  return launch<true>(x, lidx, valid, detj, g4, cg4, tq, gu, tabs, scal, rptr, rows,
+                      pos, out, nb, S, W, C, R, n_pad, clusters, cl, threads, cap, stream);
+}
+
+// cudaOccupancyMaxActiveClusters of a launch of either variant (NEWTON 0
+// or 1), into *out.
+extern "C" int winmom_p2_3d_clusters(int newton, int cl, int threads, int cap, int* out) {
+  auto query = [&](auto kernel_launch) {
+    return kernel_launch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 0,
+                         4, 1, 1, 0, 1, cl, threads, cap, nullptr, out);
+  };
+  return newton ? query(launch<true>) : query(launch<false>);
 }

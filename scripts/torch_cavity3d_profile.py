@@ -2,7 +2,7 @@
 """Where the time goes in flow_tpu_torch's 3-D cavity step, on one GPU.
 
     python3 scripts/torch_cavity3d_profile.py [--route box|window] [--n 64]
-        [--steps 3] [--json PATH]
+        [--steps 3] [--root DIR] [--json PATH]
 
 1. The stencil kernel against its plain PyTorch version on the V-cycle grids
    of cavity N=64 (65^3, 33^3, 17^3), float32 and float64: device time per
@@ -21,7 +21,9 @@
    per step (K3 3-D lagged and Newton, K4b 3-D, K1).
 
 Prints a summary, and writes the full result as JSON to --json if given.
-Imports neither jax nor flow_tpu.
+--root imports flow_tpu_torch from another checkout (the parent commit,
+say), so that both trees run the same script. Imports neither jax nor
+flow_tpu.
 """
 import argparse
 import json
@@ -34,7 +36,9 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+# --root DIR, read before the imports below
+sys.path.insert(0, sys.argv[sys.argv.index("--root") + 1] if "--root" in sys.argv
+                else str(ROOT))
 
 from flow_tpu_torch.models.cavity3d import (  # noqa: E402
     Cavity3DProblem, run_cavity3d_fast,
@@ -248,6 +252,7 @@ def main():
     ap.add_argument("--route", choices=("box", "window"), default="box")
     ap.add_argument("--n", type=int, default=64)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--root", default=str(ROOT))
     ap.add_argument("--json", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -257,7 +262,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    print("[device]", smi, flush=True)
+    print("[device]", smi, "root", args.root, flush=True)
     if args.route == "window":
         result = {"device": smi, "step": window_step_breakdown(args.n, args.steps)}
     else:

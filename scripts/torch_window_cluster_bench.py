@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """Device times of the cluster kernels K4a (csrc/winmass.cu), K5
 (csrc/winform.cu), K4b 3-D P1 and K4b P2 (csrc/winstiff.cu's winstiff_p1_3d,
-winstiff_p2_2d and winstiff_p2_3d) at the layouts of their paths, for an A/B
-between two checkouts and a sweep of the cluster launch of K4a, K5 and K4b
-P2.
+winstiff_p2_2d and winstiff_p2_3d) and K3 3-D (csrc/winmom3d.cu, lagged and
+Newton) at the layouts of their paths, for an A/B between two checkouts and a
+sweep of the cluster launch of K4a, K5, K4b P2 and K3 3-D.
 
     python3 scripts/torch_window_cluster_bench.py [--root DIR] [--save F]
-        [--compare F] [--sweep] [--json F]
+        [--compare F] [--sweep] [--only TEXT] [--json F]
 
 Layouts: the NL = 10 P2 tet layout of box_mesh N=32 (nb = 68, C = 3,038)
 for K4a, K5 and K4b 3-D P2, the NL = 6 formwin2d layout of
 unit_square_mesh(1024, "right") P2 (nb = 1,026, C = 2,048) for K4a and K5,
 the NL = 6 layout of unit_square_mesh(256, "right") P2 (nb = 121, C =
 1,086) for K4b 2-D P2 (the layouts of chip_smoke.py's P2 Poisson solves),
-and the cavity's N=64 P1 pressure layout (nb = 68, C = 23,958) for K4b 3-D
-P1; float32, inputs and element matrices made from a seed.
+the cavity's N=64 P1 pressure layout (nb = 68, C = 23,958) for K4b 3-D
+P1, and the cavity's vector-P2 velocity layouts at N=64 (nb = 525, C =
+3,063) and N=32 (nb = 68, C = 3,038) for K3 3-D, whose tables come from a
+random velocity field (0.1 x a standard normal) and the weights of a
+momentum matvec at dt = 1e-3; float32, inputs and element matrices made
+from a seed. --only keeps the layouts whose name holds TEXT.
 For each kernel: device µs per call from torch.profiler with the L2 cache
 warm and cold (after a 64 MB write), wall µs from CUDA events over
 back-to-back calls, and host µs per call (perf_counter over 200 calls
@@ -41,11 +45,16 @@ ROOT = Path(__file__).resolve().parents[1]
 # (blocks a cluster, threads a block) of each layout's sweep
 SWEEP = {"tets N=32": ((1, 1024), (1, 512), (2, 512), (2, 256), (4, 256), (2, 1024)),
          "formwin2d": ((1, 512), (1, 256), (1, 1024), (2, 512)),
-         "tri n=256": ((1, 1024), (1, 512), (1, 256), (2, 512), (2, 1024))}
+         "tri n=256": ((1, 1024), (1, 512), (1, 256), (2, 512), (2, 1024)),
+         "cavity N=64 velocity": ((2, 512), (2, 384), (2, 256), (3, 512), (3, 384),
+                                  (3, 256), (4, 512), (4, 256)),
+         "cavity N=32 velocity": ((2, 512), (2, 384), (2, 256), (3, 512), (3, 384),
+                                  (3, 256), (4, 512), (4, 256))}
 # the name of each operator's kernel in the profiler (K4b P2: the scratch
 # kernel winstiff_kernel of an earlier checkout, or the cluster kernel)
 KERNEL_NAMES = {"winmass": "winmass_kernel", "winform": "winform_kernel",
-                "winstiff_cluster": "winstiff_cluster_kernel", "winstiff_p2": "winstiff"}
+                "winstiff_cluster": "winstiff_cluster_kernel", "winstiff_p2": "winstiff",
+                "winmom3d": "winmom3d_kernel", "winmom3d_newton": "winmom3d_kernel"}
 
 
 def device_us(fn, name, reps=30):
@@ -95,8 +104,10 @@ def host_us(fn, calls=200, loops=5):
 
 def counter_of(name, NL):
     """The launch counter (a Kernel) of an operator of layouts()."""
-    from flow_tpu_torch.attic import winform, winkernel
+    from flow_tpu_torch.attic import winform, winkernel, winmom
 
+    if name.startswith("winmom3d"):
+        return winmom.WINMOM3D_NEWTON if name.endswith("newton") else winmom.WINMOM3D
     if name == "winstiff_p2":
         return winkernel.WINSTIFF_P2 if NL == 6 else winkernel.WINSTIFF3D_P2
     return {"winmass": winkernel.WINMASS, "winform": winform.WINFORM,
@@ -110,35 +121,80 @@ def _padded(op, seed):
     return x
 
 
-def layouts():
+class Momentum3D:
+    """K3 3-D at a layout, as the bench takes an operator: windows(x) of one
+    variant with fixed tables, and the layout's lidx, valid, wl and lists."""
+
+    def __init__(self, op, Tq, weights, extra=()):
+        self.op, self.Tq, self.weights, self.extra = op, Tq, weights, extra
+        self.lidx, self.valid, self.wl = op.lidx, op.valid, op.wl
+        self.positions = getattr(op, "positions", None)
+
+    def windows(self, x):
+        return self.op.windows(x, self.Tq, *self.weights, *self.extra)
+
+
+def _momentum3d(n):
+    from flow_tpu_torch.attic import winmom
+    from flow_tpu_torch.fem.spaces import VectorFunctionSpace
+    from flow_tpu_torch.mesh3d import box_mesh
+
+    V = VectorFunctionSpace(box_mesh((0, 0, 0), (1, 1, 1), n, n, n, dtype=torch.float32,
+                                     device="cuda"), 2, n_components=3)
+    op = winmom.WindowLaggedMomentum(V)
+    rng = np.random.default_rng(n)
+    U = torch.as_tensor(0.1 * rng.standard_normal((V.n_dofs, 3)), dtype=torch.float32,
+                        device="cuda")
+    Tq, Uq, Gu = op.state_qp(U)
+    x = torch.zeros((3, op.wl.n_pad), device="cuda")
+    x[:, :op.wl.n] = torch.as_tensor(rng.standard_normal((3, op.wl.n)),
+                                     dtype=torch.float32)
+    # the weights of a momentum matvec at dt = 1e-3 (rho = 1, mu = 1e-2)
+    weights = (1.0, 1e-3, 1e-5)
+    return x, {"winmom3d": Momentum3D(op, Tq, weights),
+               "winmom3d_newton": Momentum3D(op, Tq, weights, (Uq, Gu))}
+
+
+def layouts(only=None):
+    """{layout: (input, {name: operator})} of the layouts whose name holds
+    `only` (all by default), each built when it is asked for."""
     from flow_tpu_torch.attic import winform, winkernel
     from flow_tpu_torch.fem.spaces import FunctionSpace
     from flow_tpu_torch.mesh import unit_square_mesh
     from flow_tpu_torch.mesh3d import box_mesh
 
-    out = {}
-    for tag, mesh in (
-            ("tets N=32", lambda: box_mesh((0, 0, 0), (1, 1, 1), 32, 32, 32,
-                                           dtype=torch.float32, device="cuda")),
-            ("formwin2d", lambda: unit_square_mesh(1024, "right", dtype=torch.float32,
-                                                   device="cuda"))):
+    def scalar(tag, mesh):
         V = FunctionSpace(mesh(), 2)
         M = winkernel.WindowMassOperator(V)
         nb, NL, C = M.lidx.shape
         g = torch.Generator(device="cuda").manual_seed(7)
         loc = torch.randn((V.mesh.n_cells, NL, NL), generator=g, device="cuda")
         K = winform.WindowElementOperator(V, loc=loc)
-        out[tag] = (_padded(M, 4), {"winmass": M, "winform": K})
+        ops = {"winmass": M, "winform": K}
         if tag == "tets N=32":
-            out[tag][1]["winstiff_p2"] = winkernel.WindowStiffnessOperator(V)
-    V = FunctionSpace(unit_square_mesh(256, "right", dtype=torch.float32, device="cuda"), 2)
-    op = winkernel.WindowStiffnessOperator(V)
-    out["tri n=256"] = (_padded(op, 6), {"winstiff_p2": op})
-    Q = FunctionSpace(box_mesh((0, 0, 0), (1, 1, 1), 64, 64, 64, dtype=torch.float32,
-                               device="cuda"), 1)
-    op = winkernel.WindowStiffnessOperator(Q)
-    out["cavity N=64 pressure"] = (_padded(op, 5), {"winstiff_cluster": op})
-    return out
+            ops["winstiff_p2"] = winkernel.WindowStiffnessOperator(V)
+        return _padded(M, 4), ops
+
+    def stiffness(mesh, degree, name, seed):
+        op = winkernel.WindowStiffnessOperator(FunctionSpace(mesh, degree))
+        return _padded(op, seed), {name: op}
+
+    makers = {
+        "tets N=32": lambda: scalar("tets N=32", lambda: box_mesh(
+            (0, 0, 0), (1, 1, 1), 32, 32, 32, dtype=torch.float32, device="cuda")),
+        "formwin2d": lambda: scalar("formwin2d", lambda: unit_square_mesh(
+            1024, "right", dtype=torch.float32, device="cuda")),
+        "tri n=256": lambda: stiffness(unit_square_mesh(
+            256, "right", dtype=torch.float32, device="cuda"), 2, "winstiff_p2", 6),
+        "cavity N=64 pressure": lambda: stiffness(box_mesh(
+            (0, 0, 0), (1, 1, 1), 64, 64, 64, dtype=torch.float32, device="cuda"), 1,
+            "winstiff_cluster", 5),
+        "cavity N=64 velocity": lambda: _momentum3d(64),
+        "cavity N=32 velocity": lambda: _momentum3d(32),
+    }
+    for tag, make in makers.items():
+        if only is None or only in tag:
+            yield tag, make()
 
 
 def main():
@@ -147,6 +203,7 @@ def main():
     ap.add_argument("--save")
     ap.add_argument("--compare")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--only")
     ap.add_argument("--json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -160,7 +217,7 @@ def main():
     print(f"[device] {smi.stdout.strip()} root={args.root}", flush=True)
     flush = torch.empty(16 << 20, device="cuda")
     report, windows = [], {}
-    for tag, (x, ops) in layouts().items():
+    for tag, (x, ops) in layouts(args.only):
         for name, op in ops.items():
             nb, NL, C = op.lidx.shape
             kname = KERNEL_NAMES[name]
@@ -181,12 +238,14 @@ def main():
             print(json.dumps(row), flush=True)
             report.append(row)
             if args.sweep and name != "winstiff_cluster":
-                rule = winkernel.window_plan
+                # K3 3-D follows momentum_plan, the others window_plan
+                rule_name = "momentum_plan" if name.startswith("winmom3d") else "window_plan"
+                rule = getattr(winkernel, rule_name)
                 try:
                     for cl, threads in SWEEP[tag]:
-                        winkernel.window_plan = (
-                            lambda nb_, C_, NL_, sms, cl=cl, threads=threads:
-                            (cl, threads, -(-C_ * NL_ // cl)))
+                        setattr(winkernel, rule_name,
+                                lambda nb_, C_, NL_, sms, *_, cl=cl, threads=threads:
+                                (cl, threads, -(-C_ * NL_ // cl)))
                         plan = winkernel.cluster_launch(kernel, nb, C, NL, "cuda")
                         same = torch.equal(op.windows(x), y)
                         point = dict(layout=tag, kernel=name, sweep=True, **plan._asdict(),
@@ -198,7 +257,7 @@ def main():
                             raise SystemExit(f"{tag} {name}: cl={cl} threads={threads} "
                                              "differs bitwise")
                 finally:
-                    winkernel.window_plan = rule
+                    setattr(winkernel, rule_name, rule)
     if args.save:
         torch.save(windows, args.save)
     if args.compare:

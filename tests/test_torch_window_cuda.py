@@ -4,11 +4,11 @@
 # equal to the lagged one where its reaction term vanishes, and taking a
 # block of more cells than shared memory would hold; their 3-D variants
 # (csrc/winmom3d.cu, winstiff.cu's winstiff_p1_3d) the same on box_mesh
-# tet layouts, taking a block of any size (K3 3-D's local results live in a
-# device scratch; K4b 3-D, a cluster launch, stages them at their list
-# positions in the cluster's shared memory and runs in passes where they
-# exceed it, summing in one order at every cluster and block size) and
-# refusing inputs they do not take; the window mass
+# tet layouts, taking a block of any size (cluster launches: they stage the
+# local results at their list positions in the cluster's shared memory,
+# K3 3-D three components a position over its compressed rows, and run in
+# passes where they exceed it, summing in one order at every cluster and
+# block size) and refusing inputs they do not take; the window mass
 # kernel (K4a, csrc/winmass.cu), the element-matrix kernel (K5,
 # csrc/winform.cu) and K4b's P2 variants on P1/P2 triangle and tet layouts
 # (NL = 3, 6, 4, 10), the same; K4a, K5 and K4b P2, cluster launches like
@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from flow_tpu_torch.attic import winform, winkernel, winmom
-from flow_tpu_torch.attic.window import scatter_positions
+from flow_tpu_torch.attic.window import WindowLayout, compact_lists, scatter_positions
 from flow_tpu_torch.fem import assembly, formlang
 from flow_tpu_torch.fem.spaces import FunctionSpace, VectorFunctionSpace
 from flow_tpu_torch.mesh import unit_square_mesh
@@ -198,6 +198,8 @@ def _inputs_3d(V, op, seed):
 def test_momentum_3d_kernels_match_plain(box, S):
     V, _ = box
     op = winmom.WindowLaggedMomentum(V, S=S)
+    # a cluster kernel: it reads the compressed rows and positions
+    assert op.positions is not None and op.scatter is None
     x, x_pad = _inputs_3d(V, op, 5)
     Tq, Uq, Gu = op.state_qp(x)
     weights = (1.0, 0.37, 0.021)
@@ -303,26 +305,90 @@ def test_3d_kernels_take_blocks_beyond_shared_memory_and_refuse_bad_inputs(box, 
     with pytest.raises(ValueError, match="contiguous"):
         winkernel.stiffness_windows(x, lidx, valid, cg.transpose(1, 2).contiguous()
                                     .transpose(1, 2), kref, S, W, **lists)
-    C = 5000
-    before = winmom.WINMOM3D.launches
-    out = winmom.momentum_windows(
-        torch.zeros((3, S + W), **z), torch.zeros((1, 10, C), dtype=torch.int32, **z),
-        torch.zeros((1, C), **z), torch.zeros((1, C), **z),
-        torch.zeros((1, 9, C), **z), torch.zeros((1, 9, C), **z),
-        torch.zeros((1, 81, C), **z), torch.zeros(2107, **z), torch.zeros(3, **z),
-        S, W, (torch.zeros((1, W + 1), dtype=torch.int32, **z),
-               torch.zeros((1, 10 * C), dtype=torch.int32, **z)))
+    # K3 3-D on one block of C = 20,000 real cells, three components a
+    # position past the stage of a cluster of MAX_CLUSTER blocks (so it runs
+    # in passes): cell c puts local dof i on window dof 2 ((c*NL + i) mod
+    # 128) of a window of 256 (the odd rows empty, so the compressed rows
+    # are half of them), where component m of x is m + 1; with only the
+    # mass term (Mref = 1, detJ = 1) every local result of component m is
+    # 10 (m + 1), exact in float32, and the Newton kernel with Gu = 0 gives
+    # the same windows
+    S = W = 256
+    C, NL = 20000, 10
+    dof = 2 * ((np.arange(C)[:, None] * NL + np.arange(NL)) % 128)  # [C, NL]
+    wl = WindowLayout(None, None, S, W, 1, C, None, np.ones((1, C), np.float32),
+                      dof[None].astype(np.int32))
+    positions = tuple(torch.as_tensor(a, **z) for a in compact_lists(wl))
+    assert positions[1].shape[1] == 128
+    lidx = torch.as_tensor(dof.T[None].astype(np.int32), **z).contiguous()
+    ones = torch.ones((1, C), **z)
+    zeros9 = torch.zeros((1, 9, C), **z)
+    Tq = torch.zeros((1, 81, C), **z)
+    tabs = torch.zeros(2107, **z)
+    tabs[270 + 810 + 27:270 + 810 + 27 + 100] = 1.0  # Mref
+    scal = torch.tensor([1.0, 0.0, 0.0], **z)
+    xm = torch.zeros((3, S + W), **z)
+    xm[:, :W] = torch.arange(1, 4, dtype=torch.float32, **z)[:, None]
+    plan = winkernel.cluster_launch(winmom.WINMOM3D, 1, C, NL, "cuda")
+    assert C * NL > plan.cl * plan.cap and plan.cl == winkernel.MAX_CLUSTER
+    counts = torch.zeros(W, **z)
+    counts[0::2] = torch.as_tensor(np.bincount(dof.reshape(-1) // 2, minlength=128),
+                                   dtype=torch.float32, **z)
+    want = 10.0 * torch.arange(1, 4, dtype=torch.float32, **z)[:, None] * counts
+    args = (xm, lidx, ones, ones, zeros9, zeros9, Tq, tabs, scal, S, W)
+    before = winmom.WINMOM3D.launches, winmom.WINMOM3D_NEWTON.launches
+    y = winmom.momentum_windows(*args, positions=positions)
+    yn = winmom.momentum_windows(*args, Uq=Tq, Gu=torch.zeros((1, 243, C), **z),
+                                 positions=positions)
     torch.cuda.synchronize()
-    assert winmom.WINMOM3D.launches == before + 1 and float(out.abs().max()) == 0.0
+    assert (winmom.WINMOM3D.launches, winmom.WINMOM3D_NEWTON.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(y[:, 0], want) and torch.equal(yn, y)
+    # refused before any launch: no lists, tables of another size, lists of
+    # another shape
+    with pytest.raises(ValueError, match="lists"):
+        winmom.momentum_windows(*args)
     with pytest.raises(ValueError, match="inconsistent layout shapes"):
-        winmom.momentum_windows(
-            torch.zeros((3, S + W), **z), torch.zeros((1, 10, C), dtype=torch.int32, **z),
-            torch.zeros((1, C), **z), torch.zeros((1, C), **z),
-            torch.zeros((1, 9, C), **z), torch.zeros((1, 9, C), **z),
-            torch.zeros((1, 81, C), **z), torch.zeros(2000, **z), torch.zeros(3, **z),
-            S, W, (torch.zeros((1, W + 1), dtype=torch.int32, **z),
-                   torch.zeros((1, 10 * C), dtype=torch.int32, **z)))
-    assert winmom.WINMOM3D.launches == before + 1
+        winmom.momentum_windows(xm, lidx, ones, ones, zeros9, zeros9, Tq, tabs[:2000], scal,
+                                S, W, positions=positions)
+    with pytest.raises(ValueError, match="inconsistent layout shapes"):
+        winmom.momentum_windows(*args, positions=(positions[0], positions[1][:, 1:].contiguous(),
+                                                  positions[2]))
+    assert (winmom.WINMOM3D.launches, winmom.WINMOM3D_NEWTON.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_momentum_3d_kernels_sum_in_one_order_at_every_cluster_size(box, monkeypatch):
+    # K3 3-D's launch constants steer momentum_plan: clusters of 1-8 blocks,
+    # 32-512 threads a block and stages of a few dozen positions (several
+    # passes); both variants give the windows of the default launch bitwise
+    V, _ = box
+    op = winmom.WindowLaggedMomentum(V, S=128)
+    x, x_pad = _inputs_3d(V, op, 13)
+    Tq, Uq, Gu = op.state_qp(x)
+    weights = (1.0, 0.37, 0.021)
+    nb, NL, C = op.lidx.shape
+    entries = int(op.positions[0][:, -1].max())
+    for newton in (False, True):
+        extra = (Uq, Gu) if newton else ()
+        counter = winmom.WINMOM3D_NEWTON if newton else winmom.WINMOM3D
+        y = op.windows(x_pad, Tq, *weights, *extra)
+        passes = []
+        with monkeypatch.context() as m:
+            for cl, threads, loc_bytes in ((1, 512, 224 * 1024), (2, 128, 12 * 300),
+                                           (3, 256, 12 * 60), (8, 32, 12 * 40),
+                                           (4, 384, 224 * 1024)):
+                m.setattr(winkernel, "MOMENTUM_CLUSTER", cl)
+                m.setattr(winkernel, "MOMENTUM_THREADS", threads)
+                m.setattr(winkernel, "MOMENTUM_LOC_BYTES", loc_bytes)
+                plan = winkernel.cluster_launch(counter, nb, C, NL, "cuda")
+                assert plan.threads == threads and 0 < plan.clusters <= plan.resident
+                passes.append(entries > plan.cl * plan.cap)
+                before = counter.launches
+                assert torch.equal(op.windows(x_pad, Tq, *weights, *extra), y)
+                assert counter.launches == before + 1
+        assert passes == [False, False, True, True, False]
 
 
 _SPACES = {
