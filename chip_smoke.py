@@ -28,7 +28,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    layouts, relative error <= 1e-5 (float32 in both, another summation
    order), two calls on one input bitwise equal; times of the kernel, the
    plain version and, as the yardstick, one torch.sparse CSR matvec of the
-   same assembled operator;
+   same assembled operator; K3's cluster launch (csrc/wincluster.cuh:
+   blocks per cluster, threads, positions staged a block, passes, the
+   clusters launched and the clusters the card holds at once), its
+   compressed rows and its host µs a call;
 7. Karman parity, lagged: KarmanProblem(lcar=0.2, n_refine=1) in float64,
    backward Euler, for 3 steps on the card (kernels) and on the CPU (plain
    versions): equal per-step iteration counts, U within 2e-6 and P within
@@ -36,7 +39,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    another summation order);
 8. Karman lagged path: 1 warm-up step and 5 timed steps in float32, then
    one step with its substeps timed. Fails on a non-finite state, an
-   unconverged solve, or no launch of K3 or K4b;
+   unconverged solve, no launch of K3 or K4b, or if the BiCGStab, pressure
+   and correction iterations are not KARMAN_LAGGED_ITERS (K3 2-D sums in
+   the order it always did);
 9. Karman parity, Newton: as 7 with Newton convection and BDF2 at the
    driver's tolerances: equal per-step Newton, linear, pressure and
    correction iterations, U within 2e-6 and P within 1e-4 of max|P|;
@@ -45,12 +50,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    KarmanProblem(lcar=0.02, n_refine=5) in float32, one step per chunk:
    1 warm-up step and 5 timed steps, then one step with its substeps timed.
    Fails on a non-finite state or force, a last drag <= 0, an unconverged solve,
-   or a step without its K3 Newton launches (2 per BiCGStab iteration), K3
-   lagged launches (the velocity correction) or K4b launches;
+   a step without its K3 Newton launches (2 per BiCGStab iteration), K3
+   lagged launches (the velocity correction) or K4b launches, or if the
+   Newton, BiCGStab, pressure and correction iterations are not
+   KARMAN_NEWTON_ITERS;
 11. K3 Newton at the main path's velocity layout, with the tables of the
    Newton path's final state: against its plain version (<= 1e-5
-   relative), bitwise repeat, wall time (CUDA events), the plain version's
-   time and the CSR yardstick of the assembled tangent;
+   relative), bitwise repeat, wall time (CUDA events), host µs a call, the
+   plain version's time and the CSR yardstick of the assembled tangent;
+   its cluster launch and compressed rows;
 12. 3-D parity: run_cavity3d_fast(n=4, winkernel=True) in float64 for 3
    steps on the card (kernels) and on the CPU (plain versions), lambda_max
    carried across: equal per-step iteration counts, U within 2e-6 and P
@@ -110,8 +118,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    and 4 on the P1 layouts of the same meshes;
 19. big blocks: K4b 2-D P1 and K3 2-D lagged and Newton on
    unit_square_mesh(128) layouts with S=16,384, whose blocks hold more cells
-   than shared memory could (C=32,318 and 8,158), against their plain
-   versions (the local results live in a device scratch);
+   than one block's shared memory could (C=32,318 and 8,158), against
+   their plain versions (K4b's local results live in a device scratch,
+   K3's in the shared memory of a cluster of blocks);
 20. einsum parity: run_karman_fast(winkernel=False) at its defaults on
    KarmanProblem(lcar=0.2, n_refine=2) in float64 for 3 steps on the card
    (the ELL kernels) and on the CPU (plain versions), lambda_max carried
@@ -141,13 +150,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    width it reads;
 24. device times (torch.profiler, last, since profiling slows later host
    code) of the ELL kernels at every shape of 23 (with the L2 cache warm,
-   and cold: after a 64 MB write), K3 2-D lagged and Newton, K4b 2-D, the
-   three 3-D kernels (L2 warm and cold; K4b 3-D also at its 2-pass
-   layout), K2, K4a and K5 at NL = 6 and 10 (L2 warm and cold), and K4b 2-D
-   and 3-D P2 (L2 warm and cold). Every K4b row also carries host_us:
-   perf_counter over 200 calls enqueued with no synchronisation, divided by
-   the count, the least of five such loops; the K3 3-D rows the same over
-   20 calls, the least of three loops.
+   and cold: after a 64 MB write), K3 2-D lagged and Newton (L2 warm and
+   cold), K4b 2-D, the three 3-D kernels (L2 warm and cold; K4b 3-D also at
+   its 2-pass layout), K2, K4a and K5 at NL = 6 and 10 (L2 warm and cold),
+   and K4b 2-D and 3-D P2 (L2 warm and cold). Every K4b and K3 2-D row
+   also carries host_us: perf_counter over 200 calls enqueued with no
+   synchronisation, divided by the count, the least of five such loops;
+   the K3 3-D rows the same over 20 calls, the least of three loops.
 
 The line before the last holds the kernel report, the one before it the
 card; the last line is {"ok": true, "device": {...}}. Imports neither jax
@@ -204,6 +213,18 @@ CAVITY3D_STEPS = 4  # 1 warm-up + 3 timed
 # order, so the steps, and these counts, must not move
 CAVITY3D_ITERS = {"newton_iters": [1, 2, 2, 2], "linear_iters": [9, 20, 26, 34],
                   "pressure_iters": [4, 4, 3, 3], "correction_iters": [20, 20, 20, 20]}
+# the Karman window routes' iterations a step at 1.9M DoF on the card (H100
+# 80GB HBM3) with K3 2-D summing its local results from a device scratch
+# along the scatter lists: the lagged route of phase 8 and run_karman_fast's
+# Newton route of phase 10. The cluster walk sums every window row in the
+# same order, so the steps, and these counts, must not move
+KARMAN_LAGGED_ITERS = {"linear_iters": [3, 2, 3, 2, 3, 3],
+                       "pressure_iters": [3, 3, 3, 3, 3, 3],
+                       "correction_iters": [6, 6, 8, 8, 8, 8]}
+KARMAN_NEWTON_ITERS = {"newton_iters": [1, 1, 2, 1, 2, 2],
+                       "linear_iters": [6, 4, 10, 5, 10, 12],
+                       "pressure_iters": [4, 4, 3, 3, 3, 3],
+                       "correction_iters": [8, 8, 10, 10, 10, 10]}
 # the einsum 3-D route's Newton tangent: "linearize" keeps x's quadrature
 # tables for a Newton iteration (the JAX default; JAX needed "jvp" where
 # linearize's storage did not fit)
@@ -674,6 +695,26 @@ def _check_kernel(name, fn, plain, tol=1e-5):
     return abs_err, rel_err
 
 
+def _winmom_launch(op, newton):
+    """K3's cluster launch at the layout of the momentum operator `op`
+    (csrc/wincluster.cuh): its plan, the passes over the window blocks'
+    compressed rows and the rows, as a log fragment and a dict."""
+    from flow_tpu_torch.attic import winkernel, winmom
+
+    nb, NL, C = op.lidx.shape
+    if op.dim == 2:
+        kernel = winmom.WINMOM_NEWTON if newton else winmom.WINMOM
+    else:
+        kernel = winmom.WINMOM3D_NEWTON if newton else winmom.WINMOM3D
+    plan = winkernel.cluster_launch(kernel, nb, C, NL, "cuda")
+    rows = op.positions[1]
+    info = dict(cluster=plan.cl, threads=plan.threads, staged_per_block=plan.cap,
+                passes=_cluster_passes(op, plan), clusters=plan.clusters,
+                max_active_clusters=plan.resident, compressed_rows=rows.shape[1],
+                listed_rows=int((rows < op.wl.W).sum()))
+    return " ".join(f"{k}={v}" for k, v in info.items()), info
+
+
 def phase_window_kernels(st, hier):
     """K4b and K3 lagged against their plain versions on small ragged
     layouts and at the Karman main path's layouts, with the CSR yardsticks.
@@ -773,6 +814,7 @@ def phase_window_kernels(st, hier):
         if tag == "momentum":
             err_main = abs_err
     ms = cuda_time_ms(lambda: op.windows(xp, Tq, *w), 100)
+    h_us = host_us(lambda: op.windows(xp, Tq, *w))
     plain_ms = cuda_time_ms(lambda: winmom.momentum_windows_plain(
         xp, op.lidx, op.valid, op.detj, op.G4, op.Cg4, Tq, op.tabs, scal,
         op.wl.S, op.wl.W), 5)
@@ -784,12 +826,19 @@ def phase_window_kernels(st, hier):
     lib_ms = cuda_time_ms(lambda: A @ xf, 100)
     nbytes, nops = _winmom_work(op)
     b_ms, b_by = bound_ms(nbytes, nops)
-    log(f"[window] winmom main: n={op.wl.n} kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+    launch, info = _winmom_launch(op, newton=False)
+    log(f"[window] winmom main: n={op.wl.n} nb={op.wl.nb} S={op.wl.S} W={op.wl.W} "
+        f"C={op.wl.C} {launch} kernel_ms={ms:.5f} host_us={h_us:.3f} "
+        f"plain_ms={plain_ms:.5f} "
         f"csr_ms={lib_ms:.5f} (nnz {A.values().numel()}) bytes={nbytes} ops={nops} "
         f"bound_ms={b_ms:.6f} ({b_by})")
+    check(info["clusters"] <= info["max_active_clusters"],
+          "winmom: the card does not hold the launch's clusters at once")
     report["winmom"] = dict(max_abs_err=err_main, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    jobs["winmom"] = lambda: op.windows(xp, Tq, *w)
+                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, host_us=h_us,
+                            cluster=info["cluster"], threads=info["threads"])
+    jobs["winmom"] = {"warm": lambda: op.windows(xp, Tq, *w),
+                      "cold": lambda: (_l2_flush().zero_(), op.windows(xp, Tq, *w))}
     del A
     torch.cuda.empty_cache()
     return report, jobs
@@ -888,6 +937,9 @@ def phase_karman_main(prob, st, setup):
     _check_solves(tel, "karman")
     check(launches["winmom"] > 0, "karman: the window momentum kernel was never launched")
     check(launches["winstiff"] > 0, "karman: the window stiffness kernel was never launched")
+    for key, want in KARMAN_LAGGED_ITERS.items():
+        check(tel_all[key] == want,
+              f"karman: {key} {tel_all[key]} are not KARMAN_LAGGED_ITERS' {want}")
     umax = float(U.abs().max())
     # the inflow and outflow profiles peak at u_in = 0.01 on Dirichlet dofs
     check(0.0099 <= umax <= 0.1, f"karman: max |u| {umax} out of range")
@@ -954,6 +1006,9 @@ def phase_newton_main():
     check(launches["winmom"] == int(tel["correction_iters"].sum()) + 6,
           "newton: K3 lagged launches do not match the correction iterations")
     check(launches["winstiff"] > 0, "newton: the window stiffness kernel was never launched")
+    for key, want in KARMAN_NEWTON_ITERS.items():
+        check(tel[key].tolist() == want,
+              f"newton: {key} {tel[key].tolist()} are not KARMAN_NEWTON_ITERS' {want}")
     umax = float(U.abs().max())
     check(0.0099 <= umax <= 0.1, f"newton: max |u| {umax} out of range")
     log(f"[newton] traction drag/lift at the final state: {prob.forces(U, P)}")
@@ -989,6 +1044,7 @@ def phase_newton_kernel(st, U):
 
     abs_err, rel_err = _check_kernel("winmom newton main", kernel, plain)
     ms = cuda_time_ms(kernel, 100)
+    h_us = host_us(kernel)
     plain_ms = cuda_time_ms(plain, 5)
     A = _momentum_csr(op, Tq, scal, Uq, Gu)
     xf = xp.reshape(-1)
@@ -1001,12 +1057,17 @@ def phase_newton_kernel(st, U):
     torch.cuda.empty_cache()
     nbytes, nops = _winmom_work(op, newton=True)
     b_ms, b_by = bound_ms(nbytes, nops)
-    log(f"[window] winmom newton main: n={op.wl.n} nb={op.wl.nb} C={op.wl.C} "
+    launch, info = _winmom_launch(op, newton=True)
+    log(f"[window] winmom newton main: n={op.wl.n} nb={op.wl.nb} C={op.wl.C} {launch} "
         f"max_abs_err={abs_err:.3e} rel_err={rel_err:.3e} kernel_ms={ms:.5f} "
-        f"plain_ms={plain_ms:.5f} csr_ms={lib_ms:.5f} "
+        f"host_us={h_us:.3f} plain_ms={plain_ms:.5f} csr_ms={lib_ms:.5f} "
         f"(nnz {nnz}) bytes={nbytes} ops={nops} bound_ms={b_ms:.6f} ({b_by})")
+    check(info["clusters"] <= info["max_active_clusters"],
+          "winmom newton: the card does not hold the launch's clusters at once")
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms), kernel
+                bound_by=b_by, library_ms=lib_ms, host_us=h_us, cluster=info["cluster"],
+                threads=info["threads"]), {
+                    "warm": kernel, "cold": lambda: (_l2_flush().zero_(), kernel())}
 
 
 def phase_cavity3d_parity():
@@ -1247,19 +1308,15 @@ def phase_window3d_kernels(st, U):
         plain_ms = cuda_time_ms(plain, 3)
         nbytes, nops = _winmom_work(op, newton=bool(extra))
         b_ms, b_by = bound_ms(nbytes, nops)
-        plan = winkernel.cluster_launch(winmom.WINMOM3D_NEWTON if extra else winmom.WINMOM3D,
-                                        op.wl.nb, op.wl.C, 10, "cuda")
+        launch, info = _winmom_launch(op, newton=bool(extra))
         log(f"[window3d] {name} main: n={op.wl.n} nb={op.wl.nb} S={op.wl.S} W={op.wl.W} "
-            f"C={op.wl.C} compressed_rows={op.positions[1].shape[1]} cluster={plan.cl} "
-            f"threads={plan.threads} staged_per_block={plan.cap} "
-            f"passes={_cluster_passes(op, plan)} clusters={plan.clusters} "
-            f"max_active_clusters={plan.resident} max_abs_err={abs_err:.3e} "
+            f"C={op.wl.C} {launch} max_abs_err={abs_err:.3e} "
             f"rel_err={rel_err:.3e} kernel_ms={ms:.5f} host_us={h_us:.3f} "
             f"plain_ms={plain_ms:.5f} bytes={nbytes} ops={nops} "
             f"bound_ms={b_ms:.6f} ({b_by})")
         report[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, host_us=h_us, cluster=plan.cl,
-                            threads=plan.threads)
+                            bound_by=b_by, host_us=h_us, cluster=info["cluster"],
+                            threads=info["threads"])
         jobs[name] = {"warm": kernel, "cold": lambda kernel=kernel: (_l2_flush().zero_(),
                                                                      kernel())}
     # the overlap-add of the velocity windows, which every K3 apply on the
@@ -1788,7 +1845,8 @@ def phase_window_bigblock():
     """K4b 2-D P1 and K3 2-D lagged and Newton on layouts whose blocks hold
     more cells than one block's shared memory could (unit_square_mesh(128),
     S=16,384: C=32,318 P1 and 8,158 P2 cells), against their plain
-    versions: the local results live in a device scratch."""
+    versions: K4b's local results live in a device scratch, K3's in the
+    shared memory of a cluster of blocks."""
     import torch
     from flow_tpu_torch.attic import winkernel, winmom
     from flow_tpu_torch.fem.spaces import FunctionSpace, VectorFunctionSpace
@@ -1820,8 +1878,8 @@ def phase_window_bigblock():
                 xp, mo.lidx, mo.valid, mo.detj, mo.G4, mo.Cg4, Tq, mo.tabs,
                 mo._scal(*w), mo.wl.S, mo.wl.W, *extra)))
     log(f"[bigblock] winstiff P1 2-D nb={op.wl.nb} C={op.wl.C} rel_err={err[1]:.3e}; "
-        f"winmom 2-D nb={mo.wl.nb} C={mo.wl.C} lagged rel_err={errs[0][1]:.3e} "
-        f"newton rel_err={errs[1][1]:.3e}")
+        f"winmom 2-D nb={mo.wl.nb} C={mo.wl.C} {_winmom_launch(mo, newton=False)[0]} "
+        f"lagged rel_err={errs[0][1]:.3e} newton rel_err={errs[1][1]:.3e}")
 
 
 def phase_einsum_parity():
@@ -2154,9 +2212,15 @@ def main():
         # device times from the profiler, last: a profiler session slows
         # later host code in the process
         _ell_device_times(kell, ell_jobs)
-        kwin["winmom"]["device_ms"] = device_ms(win_jobs["winmom"], 50)
+        for row, jobs in ((kwin["winmom"], win_jobs["winmom"]), (knewton, newton_job)):
+            row["device_ms"] = device_ms(jobs["warm"], 50, kernel="winmom_kernel")
+            row["device_cold_ms"] = device_ms(jobs["cold"], 50, kernel="winmom_kernel")
+        log("[profile] K3 2-D device ms per call, L2 warm / cold (wall; host us; CSR): "
+            + ", ".join(f"{tag}={r['device_ms']:.5f}/{r['device_cold_ms']:.5f} "
+                        f"({r['ms']:.5f}; {r['host_us']:.3f}; {r['library_ms']:.5f})"
+                        for tag, r in (("winmom lagged", kwin["winmom"]),
+                                       ("winmom newton", knewton))))
         kwin["winstiff"]["device_ms"] = device_ms(win_jobs["winstiff"], 100)
-        knewton["device_ms"] = device_ms(newton_job, 50)
         for name in ("winmom3d", "winmom3d_newton"):
             k3d[name]["device_ms"] = device_ms(jobs3[name]["warm"], 20,
                                                kernel="winmom3d_kernel")
@@ -2285,7 +2349,7 @@ def main():
     log(f"[done] launches by path: {json.dumps(paths)}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # host_us: the host µs per call of the K4b and K3 3-D rows
+    # host_us: the host µs per call of the K4b and K3 rows
     print(json.dumps({"kernels": [{k: r[k] for k in keys + ("host_us",) if k in keys or k in r}
                                   for r in rows]}))
     print(smi)

@@ -14,7 +14,7 @@
 # mass_windows and stiffness_windows launch their kernels for CUDA tensors
 # and take the plain versions only for CPU tensors. K4a and the stiffness
 # variants but 2-D P1 run as thread-block clusters (csrc/wincluster.cuh,
-# shared with K5 in attic/winform.py and K3 3-D in attic/winmom.py, whose
+# shared with K5 in attic/winform.py and K3 in attic/winmom.py, whose
 # launches cluster_launch plans too) that stage the local results in their
 # shared memory at their scatter-list positions (the lists' inverse, the
 # operators' `positions`; cluster_launch); the 2-D P1 stiffness (the Karman
@@ -103,12 +103,14 @@ WINDOW_LOC_BYTES = 128 * 1024
 WINDOW_THREADS = 512
 WINDOW_THREADS_FEW = 1024
 MAX_CLUSTER = 8  # blocks a cluster, at most (portable cluster size)
-# K3 3-D's cluster launch (csrc/winmom3d.cu, attic/winmom.py; momentum_plan):
-# blocks a cluster at least, threads a block (at most 512, the kernel's
-# launch bounds), and the bytes a block stages in one pass (three floats a
-# position; with the kernel's 14.4 KB of tables, at most the 227 KB a
-# block may have).
-MOMENTUM_CLUSTER = 2
+# K3's cluster launch (csrc/winmom.cu in 2-D, winmom3d.cu in 3-D,
+# attic/winmom.py; momentum_plan): blocks a cluster at least, threads a
+# block (at most 512, the kernels' launch bounds), and the bytes a block
+# stages in one pass (two or three floats a position; with the 3-D
+# kernel's 14.4 KB of tables, at most the 227 KB a block may have). The
+# least size binds no layout of the paths: their stages take two blocks in
+# 3-D, and one block stages a 2-D window block.
+MOMENTUM_CLUSTER = 1
 MOMENTUM_THREADS = 512
 MOMENTUM_LOC_BYTES = 208 * 1024
 WINMASS = Kernel("winmass", {
@@ -213,24 +215,28 @@ def window_plan(nb, C, NL, sms):
     return cl, threads, min(-(-entries // cl), room)
 
 
-def momentum_plan(nb, C, NL, sms, resident=None):
-    """K3 3-D's cluster launch at a layout of nb window blocks of C cells
-    (the arguments of window_plan): (blocks a cluster CL, threads a block,
-    positions a block stages in a pass). A position holds the three
-    components of a local result. CL is, of the sizes from the least that
-    stages a window block's C*NL positions in one pass of
+def momentum_plan(nb, C, NL, sms, resident=None, nc=3):
+    """K3's cluster launch at a layout of nb window blocks of C cells (the
+    arguments of window_plan): (blocks a cluster CL, threads a block,
+    positions a block stages in a pass). A position holds the nc components
+    of a local result (3 in 3-D, 2 in 2-D). CL is, of the sizes from the
+    least that stages a window block's C*NL positions in one pass of
     MOMENTUM_LOC_BYTES a block (at least MOMENTUM_CLUSTER; passes compute
-    every cell again) up to MAX_CLUSTER, the one whose one-wave grid takes
-    the fewest rounds of cells a block: ceil(nb / resident clusters) window
-    blocks a cluster, ceil(C / CL / MOMENTUM_THREADS) rounds each, the
-    fewest window blocks on a tie. resident(CL, cap) is how many clusters
-    of CL blocks staging cap positions each the card holds at once; where
-    it is None, one block an SM."""
+    every cell again) up to MAX_CLUSTER, the one whose one-wave grid gives
+    a cluster the fewest window blocks, ceil(nb / resident clusters), and
+    on a tie the fewest rounds of cells a block, ceil(C / CL /
+    MOMENTUM_THREADS) a window block: a window block costs its cluster
+    barriers, row sums and first loads on top of its rounds (the card's
+    sweeps in PERF.md: at the Karman 1.9M layout one block of 512 a window
+    block, 5 window blocks of two rounds, beat clusters of two, 9 of one).
+    resident(CL, cap) is how many clusters of CL blocks staging cap
+    positions each the card holds at once; where it is None, one block an
+    SM."""
     def ceil(a, b):
         return -(-a // b)
 
     entries = C * NL
-    room = max(1, MOMENTUM_LOC_BYTES // (4 * 3))
+    room = max(1, MOMENTUM_LOC_BYTES // (4 * nc))
     least = min(MAX_CLUSTER, max(MOMENTUM_CLUSTER, ceil(entries, room)))
     threads = MOMENTUM_THREADS
     held = resident or (lambda cl, cap: sms // cl)
@@ -238,11 +244,11 @@ def momentum_plan(nb, C, NL, sms, resident=None):
     def cap(cl):
         return min(ceil(entries, cl), room)
 
-    def rounds(cl):
+    def cost(cl):
         windows = ceil(nb, max(1, min(nb, held(cl, cap(cl)))))
-        return windows * ceil(ceil(C, cl), threads), windows
+        return windows, windows * ceil(ceil(C, cl), threads)
 
-    cl = min(range(least, MAX_CLUSTER + 1), key=rounds)
+    cl = min(range(least, MAX_CLUSTER + 1), key=cost)
     return cl, threads, cap(cl)
 
 
@@ -259,7 +265,7 @@ def _launch_consts(kernel):
     """The module constants that a cluster kernel's launch follows."""
     if kernel is WINSTIFF3D:
         return CLUSTER_3D, THREADS_3D, LOC_BYTES_3D
-    if kernel.name == "winmom3d":
+    if kernel.name in ("winmom", "winmom3d"):
         return (momentum_plan, MOMENTUM_CLUSTER, MOMENTUM_THREADS, MOMENTUM_LOC_BYTES,
                 MAX_CLUSTER)
     return window_plan, WINDOW_LOC_BYTES, WINDOW_THREADS, WINDOW_THREADS_FEW, MAX_CLUSTER
@@ -267,10 +273,10 @@ def _launch_consts(kernel):
 
 def cluster_launch(kernel, nb, C, NL, device):
     """The launch of a cluster kernel (WINSTIFF3D, WINSTIFF_P2,
-    WINSTIFF3D_P2, WINMASS, winform.WINFORM, winmom.WINMOM3D or
-    winmom.WINMOM3D_NEWTON) at a layout of nb window blocks of C cells on
-    `device`: K4b 3-D P1's constants (CLUSTER_3D, THREADS_3D,
-    cluster_plan), K3 3-D's rule (momentum_plan, with the card's answer of
+    WINSTIFF3D_P2, WINMASS, winform.WINFORM, or K3's winmom.WINMOM,
+    WINMOM_NEWTON, WINMOM3D and WINMOM3D_NEWTON) at a layout of nb window
+    blocks of C cells on `device`: K4b 3-D P1's constants (CLUSTER_3D,
+    THREADS_3D, cluster_plan), K3's rule (momentum_plan, with the card's answer of
     how many clusters of each size it holds), or the rule of K4a, K5 and
     K4b P2 (window_plan). It launches at most the clusters the card holds
     at once, so the grid is one wave and each cluster walks its share of the window
@@ -284,11 +290,11 @@ def cluster_launch(kernel, nb, C, NL, device):
 
 @functools.lru_cache(maxsize=256)
 def _cluster_launch(kernel, nb, C, NL, index, consts):
-    momentum = kernel.name == "winmom3d"
+    momentum = kernel.name in ("winmom", "winmom3d")
     # the queries of K4b's variants, each instantiated at one NL, take no NL;
-    # K3 3-D's takes the variant
+    # K3's takes the variant
     if momentum:
-        lead = (int("winmom_p2_3d_newton" in kernel.signatures),)
+        lead = (int(any(fn.endswith("_newton") for fn in kernel.signatures)),)
     else:
         lead = () if kernel in (WINSTIFF3D, WINSTIFF_P2, WINSTIFF3D_P2) else (NL,)
     query = getattr(kernel.lib(), next(fn for fn in kernel.signatures
@@ -306,7 +312,8 @@ def _cluster_launch(kernel, nb, C, NL, index, consts):
     elif momentum:
         sms = torch.cuda.get_device_properties(index).multi_processor_count
         cl, threads, cap = momentum_plan(
-            nb, C, NL, sms, lambda cl_, cap_: held(cl_, MOMENTUM_THREADS, cap_))
+            nb, C, NL, sms, lambda cl_, cap_: held(cl_, MOMENTUM_THREADS, cap_),
+            nc=3 if kernel.name == "winmom3d" else 2)
     else:
         sms = torch.cuda.get_device_properties(index).multi_processor_count
         cl, threads, cap = window_plan(nb, C, NL, sms)

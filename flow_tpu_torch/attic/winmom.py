@@ -27,11 +27,14 @@
 # momentum_windows launches the kernel for CUDA tensors and takes the plain
 # version only for CPU tensors. It counts its launches in WINMOM.launches
 # (2-D lagged), WINMOM_NEWTON.launches (2-D Newton), WINMOM3D.launches (3-D
-# lagged) and WINMOM3D_NEWTON.launches (3-D Newton). The 2-D kernels write
-# the local results to a device scratch and sum them along the scatter
-# lists; the 3-D ones run the cluster walk of csrc/wincluster.cuh
-# (attic/winkernel.cluster_launch, momentum_plan) on the layout's
-# compressed rows and positions (window.compact_lists).
+# lagged) and WINMOM3D_NEWTON.launches (3-D Newton). All four run the
+# cluster walk of csrc/wincluster.cuh (attic/winkernel.cluster_launch,
+# momentum_plan) on the layout's compressed rows and positions
+# (window.compact_lists), two components a position in 2-D and three in
+# 3-D. WindowLaggedMomentum checks its tables and resolves its launches
+# once (_MomentumLaunch), and checks the transport and gradient tables only
+# when a call hands new ones, so that an apply costs the host little more
+# than the launch itself.
 from __future__ import annotations
 
 import ctypes
@@ -43,8 +46,8 @@ import torch
 from .._build import Kernel
 from ..fem import assembly
 from ..mesh3d import _device
-from .window import build_scatter_lists, build_window_layout, compact_lists
-from .winkernel import cluster_launch
+from .window import build_window_layout, compact_lists
+from .winkernel import _cluster_launch, _launch_consts, check_window_input
 
 __all__ = ["WindowLaggedMomentum", "momentum_windows", "momentum_windows_plain",
            "momentum_local_plain", "smem_tables", "WINMOM", "WINMOM_NEWTON",
@@ -52,21 +55,24 @@ __all__ = ["WindowLaggedMomentum", "momentum_windows", "momentum_windows_plain",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# the 2-D variants take a device scratch for the local results
+# K3's variants: a library for 2-D and one for 3-D, an entry point and a
+# count each. Every entry takes the launch's fixed arguments as one struct
+# (_WinmomArgs), then x, the three weights, out and the stream; each
+# library also has its occupancy query
 WINMOM = Kernel("winmom", {
-    "winmom_p2_2d_lagged": [_P] * 13 + [_I] * 5 + [_P],
+    "winmom_p2_2d_lagged": [_P] * 5,
+    "winmom_p2_2d_clusters": [_I] * 4 + [_P],
 })
-# the Newton variant: the same library, its own entry point and count
 WINMOM_NEWTON = Kernel("winmom", {
-    "winmom_p2_2d_newton": [_P] * 14 + [_I] * 5 + [_P],
+    "winmom_p2_2d_newton": [_P] * 5,
+    "winmom_p2_2d_clusters": [_I] * 4 + [_P],
 })
-# the 3-D variants: cluster launches, with their occupancy query
 WINMOM3D = Kernel("winmom3d", {
-    "winmom_p2_3d_lagged": [_P] * 13 + [_I] * 10 + [_P],
+    "winmom_p2_3d_lagged": [_P] * 5,
     "winmom_p2_3d_clusters": [_I] * 4 + [_P],
 })
 WINMOM3D_NEWTON = Kernel("winmom3d", {
-    "winmom_p2_3d_newton": [_P] * 14 + [_I] * 10 + [_P],
+    "winmom_p2_3d_newton": [_P] * 5,
     "winmom_p2_3d_clusters": [_I] * 4 + [_P],
 })
 
@@ -166,89 +172,151 @@ def momentum_windows_plain(x_pad, lidx, valid, detj, g4, cg4, Tq, tabs, scal,
     return out.view(DIM, nb, W)
 
 
+class _WinmomArgs(ctypes.Structure):
+    """The fixed arguments of a K3 launch (csrc/winmom.cuh, struct
+    WinmomArgs): the tables' pointers, the layout and the cluster launch."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in
+                 ("lidx", "valid", "detj", "g4", "cg4", "tq", "gu", "tabs", "rptr", "rows",
+                  "pos")]
+                + [(name, ctypes.c_int) for name in
+                   ("nb", "S", "W", "C", "R", "n_pad", "clusters", "cl", "threads", "cap")])
+
+
+def _check_tensors(device, ints=(), floats=()):
+    """The kernels' tensors: contiguous, on `device`, int32 or float32."""
+    for t in (*ints, *floats):
+        if t.device != device or not t.is_contiguous():
+            raise ValueError("momentum_windows: tensors must be contiguous and on one device")
+    if any(t.dtype != torch.float32 for t in floats):
+        raise TypeError("momentum_windows: float tensors must be float32")
+    if any(t.dtype != torch.int32 for t in ints):
+        raise TypeError("momentum_windows: index tensors must be int32")
+
+
+class _MomentumLaunch:
+    """K3's launch at fixed layout tables (see momentum_windows): lidx,
+    valid, detj, g4, cg4, the small tables and the compressed rows and
+    positions are checked once, here, and their pointers kept in a
+    _WinmomArgs struct per variant with its cluster launch. The transport
+    (and, Newton, gradient) tables are checked when a call hands tables
+    other than the last ones, and the weights `scal` are the caller's
+    (WindowLaggedMomentum._scal builds them); a call then checks only
+    x_pad and allocates only the output. The launch follows the module's
+    launch constants: a call that finds them changed plans again. The
+    tables must not change while the launch lives (it holds them, and
+    their pointers)."""
+
+    def __init__(self, lidx, valid, detj, g4, cg4, tabs, S, W, positions, DIM, NQ):
+        nb, NL, C = lidx.shape
+        if (DIM, NL, NQ) not in _ENTRIES:
+            raise ValueError(
+                f"momentum_windows: the kernels take (DIM, NL, NQ) = (2, 6, 7) or "
+                f"(3, 10, 27), got ({DIM}, {NL}, {NQ})"
+            )
+        if positions is None:
+            raise ValueError("momentum_windows: the kernel needs the layout's lists")
+        _check_tensors(lidx.device, (lidx, *positions), (valid, detj, g4, cg4, tabs))
+        rptr, rows, pos = positions
+        R = rows.shape[-1]
+        ntab = NQ * NL + DIM * NQ * NL + NQ + NL * NL + DIM * DIM * NL * NL
+        if (tuple(rptr.shape) != (nb, R + 1)
+                or tuple(rows.shape) != (nb, R) or tuple(pos.shape) != (nb, NL * C)
+                or W % 4 or tuple(valid.shape) != (nb, C) or tuple(detj.shape) != (nb, C)
+                or tuple(g4.shape) != (nb, DIM * DIM, C)
+                or tuple(cg4.shape) != (nb, DIM * DIM, C) or tabs.numel() != ntab
+                or DIM * (nb * S + W) >= 2**31 or DIM * DIM * NQ * nb * C >= 2**31):
+            raise ValueError("momentum_windows: inconsistent layout shapes")
+        self.device = lidx.device
+        self.DIM, self.NQ = DIM, NQ
+        self.layout = (nb, C, NL)
+        self.n_pad = nb * S + W
+        self.tables = (lidx, valid, detj, g4, cg4, tabs, *positions)
+        self.entries = _ENTRIES[(DIM, NL, NQ)]
+        self.args = tuple(_WinmomArgs(
+            lidx.data_ptr(), valid.data_ptr(), detj.data_ptr(), g4.data_ptr(),
+            cg4.data_ptr(), None, None, tabs.data_ptr(), rptr.data_ptr(), rows.data_ptr(),
+            pos.data_ptr(), nb, S, W, C, R, self.n_pad) for _ in self.entries)
+        self.argp = tuple(ctypes.c_void_p(ctypes.addressof(a)) for a in self.args)
+        self.consts = [None, None]
+        self.Tq = self.Gu = None
+        # the output by empty_like of one value expanded to its shape:
+        # contiguous, at a fraction of torch.empty's host cost
+        one = torch.empty(1, dtype=torch.float32, device=self.device)
+        self.out_like = one.expand(DIM, nb, W)
+
+    def _transport(self, Tq, Gu):
+        """Check and take the transport (and gradient) tables of a call."""
+        nb, C, _ = self.layout
+        DIM, NQ = self.DIM, self.NQ
+        _check_tensors(self.device, floats=(Tq,) if Gu is None else (Tq, Gu))
+        if (tuple(Tq.shape) != (nb, DIM * NQ, C)
+                or (Gu is not None and tuple(Gu.shape) != (nb, DIM * DIM * NQ, C))):
+            raise ValueError("momentum_windows: inconsistent layout shapes")
+        for a in self.args:
+            a.tq = Tq.data_ptr()
+            a.gu = None if Gu is None else Gu.data_ptr()
+        self.Tq, self.Gu = Tq, Gu
+
+    def _plan(self, newton, consts):
+        nb, C, NL = self.layout
+        kernel = self.entries[newton][0]
+        plan = _cluster_launch(kernel, nb, C, NL, self.device.index, consts)
+        a = self.args[newton]
+        a.clusters, a.cl, a.threads, a.cap = (plan.clusters, plan.cl, plan.threads,
+                                              plan.cap)
+        self.consts[newton] = consts
+
+    def __call__(self, x_pad, Tq, scal, Uq=None, Gu=None):
+        if (Uq is None) != (Gu is None) or (Uq is not None and Uq is not Tq):
+            raise ValueError("momentum_windows: the Newton kernel takes Uq that is "
+                             "Tq (the state is the transport) and Gu")
+        device = self.device
+        if (x_pad.device != device or x_pad.dtype != torch.float32
+                or not x_pad.is_contiguous() or x_pad.numel() != self.DIM * self.n_pad):
+            check_window_input("momentum_windows", x_pad, device, self.DIM * self.n_pad)
+        if Tq is not self.Tq or (Gu is not None and Gu is not self.Gu):
+            self._transport(Tq, Gu)
+        newton = int(Gu is not None)
+        kernel, entry = self.entries[newton]
+        consts = _launch_consts(kernel)
+        if consts != self.consts[newton]:
+            self._plan(newton, consts)
+        out = torch.empty_like(self.out_like)
+        args = (self.argp[newton], x_pad.data_ptr(), scal.data_ptr(), out.data_ptr())
+        index = device.index
+        if index == torch.cuda.current_device():
+            kernel.launch(entry, *args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                kernel.launch(entry, *args, torch._C._cuda_getCurrentRawStream(index))
+        return out
+
+
 def momentum_windows(x_pad, lidx, valid, detj, g4, cg4, Tq, tabs, scal, S, W,
-                     scatter=None, Uq=None, Gu=None, positions=None):
+                     positions=None, Uq=None, Gu=None):
     """Per-block output windows [DIM, nb, W] of the momentum apply (see
     momentum_windows_plain). CPU tensors take the plain version; CUDA
-    tensors launch the kernel. The 2-D kernel writes a block's local
-    results to a device scratch [nb, DIM, C*NL], so any C fits, and sums
-    each window dof along the layout's scatter lists `scatter` = (rowptr,
-    ent). The 3-D kernel reads `positions` = (rptr, rows, pos), the
-    layout's compressed rows and the lists' inverse (window.compact_lists):
-    each cell stores its local results, three components each, at their
-    list positions in the shared memory of a cluster of blocks
-    (winkernel.cluster_launch, momentum_plan), in passes where they exceed
-    it, and each listed row sums its positions in order; the other rows are
-    zero. The Newton kernels read the state values from Tq, so they take
-    only Uq that is Tq (as state_qp returns them)."""
+    tensors launch the kernel, after checking every argument. The kernels
+    read `positions` = (rptr, rows, pos), the layout's compressed rows and
+    the lists' inverse (window.compact_lists): each cell stores its local
+    results, all components each, at their list positions in the shared
+    memory of a cluster of blocks (winkernel.cluster_launch,
+    momentum_plan), in passes where they exceed it, and each listed row
+    sums its positions in order; the other rows are zero. The Newton
+    kernels read the state values from Tq, so they take only Uq that is Tq
+    (as state_qp returns them)."""
     if x_pad.device.type == "cpu":
         return momentum_windows_plain(x_pad, lidx, valid, detj, g4, cg4, Tq,
                                       tabs, scal, S, W, Uq, Gu)
     if x_pad.device.type != "cuda":
         raise ValueError(f"momentum_windows: no kernel for device {x_pad.device}")
     DIM = x_pad.shape[0]
-    nb, NL, C = lidx.shape
-    NQ = Tq.shape[1] // DIM
-    if (DIM, NL, NQ) not in _ENTRIES:
-        raise ValueError(
-            f"momentum_windows: the kernels take (DIM, NL, NQ) = (2, 6, 7) or "
-            f"(3, 10, 27), got ({DIM}, {NL}, {NQ})"
-        )
-    lagged, newton_entry = _ENTRIES[(DIM, NL, NQ)]
-    newton = Uq is not None
-    if newton and (Uq is not Tq or Gu is None):
-        raise ValueError("momentum_windows: the Newton kernel takes Uq that is "
-                         "Tq (the state is the transport) and Gu")
-    lists = scatter if DIM == 2 else positions
-    if lists is None:
-        raise ValueError("momentum_windows: the kernel needs the layout's lists")
-    floats = (x_pad, valid, detj, g4, cg4, Tq, tabs, scal) + ((Gu,) if newton else ())
-    for t in (lidx, *lists, *floats):
-        if t.device != x_pad.device or not t.is_contiguous():
-            raise ValueError("momentum_windows: tensors must be contiguous and "
-                             "on one device")
-    if any(t.dtype != torch.float32 for t in floats):
-        raise TypeError("momentum_windows: float tensors must be float32")
-    if any(t.dtype != torch.int32 for t in (lidx, *lists)):
-        raise TypeError("momentum_windows: index tensors must be int32")
-    n_pad = nb * S + W
-    ntab = NQ * NL + DIM * NQ * NL + NQ + NL * NL + DIM * DIM * NL * NL
-    if DIM == 2:
-        lists_ok = (tuple(lists[0].shape) == (nb, W + 1)
-                    and tuple(lists[1].shape) == (nb, C * NL))
-    else:
-        R = lists[1].shape[-1]
-        lists_ok = (tuple(lists[0].shape) == (nb, R + 1) and tuple(lists[1].shape) == (nb, R)
-                    and tuple(lists[2].shape) == (nb, NL * C) and W % 4 == 0)
-    if (not lists_ok or tuple(x_pad.shape) != (DIM, n_pad)
-            or tuple(valid.shape) != (nb, C) or tuple(detj.shape) != (nb, C)
-            or tuple(g4.shape) != (nb, DIM * DIM, C)
-            or tuple(cg4.shape) != (nb, DIM * DIM, C)
-            or tuple(Tq.shape) != (nb, DIM * NQ, C) or tabs.numel() != ntab
-            or scal.numel() != 3
-            or (newton and tuple(Gu.shape) != (nb, DIM * DIM * NQ, C))
-            or x_pad.numel() >= 2**31 or Tq.numel() >= 2**31
-            or (newton and Gu.numel() >= 2**31)):
+    launch = _MomentumLaunch(lidx, valid, detj, g4, cg4, tabs, S, W, positions, DIM,
+                             Tq.shape[1] // DIM)
+    _check_tensors(launch.device, floats=(scal,))
+    if scal.numel() != 3 or tuple(x_pad.shape) != (DIM, launch.n_pad):
         raise ValueError("momentum_windows: inconsistent layout shapes")
-    out = torch.empty((DIM, nb, W), dtype=torch.float32, device=x_pad.device)
-    kernel, entry = newton_entry if newton else lagged
-    tables = (x_pad.data_ptr(), lidx.data_ptr(), valid.data_ptr(), detj.data_ptr(),
-              g4.data_ptr(), cg4.data_ptr(), Tq.data_ptr(),
-              *((Gu.data_ptr(),) if newton else ()))
-    with torch.cuda.device(x_pad.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if DIM == 2:
-            scratch = torch.empty((nb, DIM, C * NL), dtype=torch.float32,
-                                  device=x_pad.device)
-            kernel.launch(entry, *tables, tabs.data_ptr(), scal.data_ptr(),
-                          *(t.data_ptr() for t in lists), scratch.data_ptr(),
-                          out.data_ptr(), nb, S, W, C, n_pad, stream)
-        else:
-            plan = cluster_launch(kernel, nb, C, NL, x_pad.device)
-            kernel.launch(entry, *tables, tabs.data_ptr(), scal.data_ptr(),
-                          *(t.data_ptr() for t in lists), out.data_ptr(), nb, S, W, C, R,
-                          n_pad, plan.clusters, plan.cl, plan.threads, plan.cap, stream)
-    return out
+    return launch(x_pad, Tq, scal, Uq, Gu)
 
 
 class WindowLaggedMomentum:
@@ -257,9 +325,10 @@ class WindowLaggedMomentum:
     tets. Tables live in float32 on `device` (default: the mesh's). State
     convention: [n, DIM] in the original numbering (apply), or in the
     layout's permuted row order (apply_perm_rows, the solve-side path).
-    On the card the operator holds the lists its kernel reads (see
-    momentum_windows): `scatter` in 2-D, `positions` in 3-D; the other is
-    None.
+    The operator holds the lists its kernel reads, `positions` (see
+    momentum_windows), and on the card its launch (_MomentumLaunch),
+    whose tables are checked once, here: windows() then checks only its
+    input, and the transport tables when they change.
     layout_seconds: the host seconds of the layout, its tables and lists."""
 
     def __init__(self, V, S=None, device=None):
@@ -292,12 +361,14 @@ class WindowLaggedMomentum:
         self.tab = assembly.tabulation(V, assembly.CONV_RULE)
         self.nq = self.tab.nq
         self.tabs = dev(smem_tables(self.tab, V.degree, dim))
-        self.scatter = self.positions = None
+        # the compressed rows and positions the kernels read (the plain
+        # version reads none of them)
+        self.positions = tuple(dev(a, torch.int32) for a in compact_lists(wl))
+        self._launch = None
         if self.device.type == "cuda":
-            if dim == 2:
-                self.scatter = tuple(dev(a, torch.int32) for a in build_scatter_lists(wl))
-            else:
-                self.positions = tuple(dev(a, torch.int32) for a in compact_lists(wl))
+            self._launch = _MomentumLaunch(self.lidx, self.valid, self.detj, self.G4,
+                                           self.Cg4, self.tabs, wl.S, wl.W, self.positions,
+                                           dim, self.nq)
         self._scal_cache = {}
         self.layout_seconds = time.perf_counter() - t0
 
@@ -346,11 +417,13 @@ class WindowLaggedMomentum:
     # -- applies -------------------------------------------------------------
     def windows(self, x_pad, Tq, mass_w, s_rho, s_mu, Uq=None, Gu=None):
         """[DIM, n_pad] float32 permuted, padded components -> [DIM, nb, W]."""
+        scal = self._scal(mass_w, s_rho, s_mu)
+        if self._launch is not None:
+            return self._launch(x_pad, Tq, scal, Uq, Gu)
         wl = self.wl
         return momentum_windows(
             x_pad, self.lidx, self.valid, self.detj, self.G4, self.Cg4, Tq,
-            self.tabs, self._scal(mass_w, s_rho, s_mu), wl.S, wl.W,
-            self.scatter, Uq, Gu, self.positions,
+            self.tabs, scal, wl.S, wl.W, self.positions, Uq, Gu,
         )
 
     def apply_perm_rows(self, v, Tq, mass_w, s_rho, s_mu, Uq=None, Gu=None):

@@ -23,219 +23,333 @@
 // scatter with one-hot MXU contractions. The arithmetic per cell is the
 // same, term by term (_mom_body, winmom.py:47).
 //
-// Bound: memory bandwidth and operations about equally. Per cell the lagged
-// apply reads 6 indices, detJ, 4 G, 4 C, a mask, 14 transport values and
-// 12 window values (~47 values) and does ~3,600 flops; the Newton apply
-// reads 28 gradient values more and does ~900 flops more. Both write 12
-// local results to the scratch and read them back. The scatter lists and
-// the scratch, which only this design needs, add one index per (cell, local
-// dof), one row pointer per window dof and two floats per local result on
-// top of the function's own bytes.
+// Bound: operations (lagged) and bytes (Newton) on paper (chip_smoke.py's
+// count at the Karman 1.9M velocity layout: lagged ~3,600 flops a cell,
+// 22.7 us at 67 TFLOP/s; Newton 28 gradient values a cell more, 35.6 us of
+// bytes at 3.35 TB/s). Per cell the lagged apply reads 6 indices, detJ, 4
+// G, 4 C, a mask, 14 transport values and 12 window values; the output
+// windows [DIM, nb, W] are 13.6 MB there, a third of whose rows no local
+// result lands on. On the card the cells bound it (75% of a window block's
+// time): 1,629 FFMA a lagged cell and 2,005 a Newton one, issued by at
+// most 16 warps an SM (128 registers a thread), and a grid of whole window
+// blocks, 5 on some SMs against 4.18 on average (PERF.md).
 //
-// Design: one block per window block b. The small tables (phi, dphi, w,
-// Mref, Kref: 313 floats) and the three weights are staged in shared
-// memory and read through volatile pointers. Threads take cells in turn, gather the 12 window values through
-// L1/L2 (a block's window is a few thousand contiguous floats per
-// component), and write the 12 local results to a device scratch
-// [nb, DIM, C*NL] that the wrapper allocates, as the 3-D kernel
-// (csrc/winmom3d.cu) does, so a block of any C cells fits. After
-// __syncthreads(), which makes the block's global writes visible to the
-// block, each thread takes window dofs in turn and sums, per component, the
-// local results of its dof along the block's scatter list (rowptr, ent),
-// built on the host in ascending (cell, local dof) order: a fixed order, so
-// the result is bitwise repeatable (no atomics). The Newton variant is the same kernel with the reaction term added
-// after the lagged terms (template parameter NEWTON; the lagged
-// instantiation is unchanged). It needs the direction values of both
-// components at every quadrature point, so it loops over quadrature points
-// outside the components and reads gu at each point, instead of holding the
-// 28 gradients in registers.
+// Design: the thread-block-cluster walk of csrc/wincluster.cuh (shared with
+// winmom3d.cu, winstiff.cu, winmass.cu and winform.cu) with two values a
+// position:
+// - Local results. The cells of a window block are split over a cluster of
+//   blocks, each cell's 6 local results stored, both components, at their
+//   scatter-list positions in the shared memory of the cluster (two planes
+//   a block). At the Karman 1.9M layout (C = 771) one block of 512 threads
+//   stages a window block's 4,626 positions (37 KB) in one pass, in two
+//   rounds of cells (attic/winkernel.momentum_plan: the cluster size whose
+//   one-wave grid gives a cluster the fewest window blocks). Each listed
+//   window row then sums its positions in list order, per component, from
+//   0: the order of the device-scratch design this replaces, so the
+//   windows are bitwise those of a kernel that wrote every local result to
+//   a scratch and read it back along the lists (rowptr, ent). No scratch,
+//   no list read; a persistent grid of one wave.
+// - Rows. The walk takes the window block's compressed rows (the rows some
+//   local result lands on, attic/window.compact_lists): the window is
+//   zeroed with 16-byte stores interleaved with the cells, then only those
+//   rows are summed and written.
+// - Tables. The small tables sit in shared memory as rows of at most 8
+//   values at a 16-byte stride, each read by two 16-byte loads (load_row)
+//   that serve both components: phi by points and by local dofs, dphi by
+//   (direction, point) and by (direction, local dof), Mref, Kref by rows
+//   and by columns. That is ~240 loads a Newton cell against ~1,650 loads
+//   of a volatile float, one per operand. The transport and C values are
+//   loaded where they are used (load_once), not held for the whole cell.
+// - Order. Every local result is computed in the order of operations of
+//   the scratch kernel it replaces: the convection weights point by point
+//   from the values and physical gradients there, then per local dof the
+//   mass, the convection and the component-diagonal stress, then the
+//   stress coupling in (k, l, n) order per result, then, in Newton mode,
+//   the reaction summed over the points in order and added last. Only
+//   loads and loops moved, so the results round alike.
 //
-// Plain C interface (loaded with ctypes): the entry launches on the given
-// stream and returns the cudaError_t of the launch (0 on success).
+// Plain C interface (loaded with ctypes): the fixed arguments of a launch
+// come in one WinmomArgs struct (winmom.cuh) that the caller keeps; each
+// entry launches on the given stream and returns the cudaError_t of the
+// launch (0 on success); the query entry writes how many clusters of a
+// launch the card holds at once.
 #include <cuda_runtime.h>
+
+#include "wincluster.cuh"
+#include "winmom.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+// At most 512 threads a block, so 128 registers a thread.
+constexpr int kMaxThreads = 512;
+constexpr int DIM = 2, NL = 6, NQ = 7;
+constexpr int D2 = DIM * DIM;
 
-template <int DIM, int NL, int NQ>
-struct Tables {
-  static constexpr int kPhi = 0;                        // [NQ, NL]
-  static constexpr int kDphi = kPhi + NQ * NL;          // [DIM*NQ, NL]
-  static constexpr int kW = kDphi + DIM * NQ * NL;      // [NQ]
-  static constexpr int kMref = kW + NQ;                 // [NL, NL]
-  static constexpr int kKref = kMref + NL * NL;         // [DIM*DIM*NL, NL]
-  static constexpr int kSize = kKref + DIM * DIM * NL * NL;
-  static constexpr int kSmem = kSize + 3;               // + mass_w, s_rho, s_mu
+// The small tables as the kernel keeps them in shared memory: rows of at
+// most kRow values at a 16-byte stride (padding as zeros).
+constexpr int kRow = 8;
+struct Smem {
+  static constexpr int kPhi = 0;                         // row q: phi[q, :]
+  static constexpr int kPhiT = kPhi + NQ * kRow;         // row i: phi[:, i]
+  static constexpr int kDphi = kPhiT + NL * kRow;        // row k*NQ + q: dphi[q, :, k]
+  static constexpr int kDphiT = kDphi + DIM * NQ * kRow; // row k*NL + i: dphi[:, i, k]
+  static constexpr int kMref = kDphiT + DIM * NL * kRow; // row i: Mref[i, :]
+  static constexpr int kKref = kMref + NL * kRow;        // row kl*NL + i: Kref[kl, i, :]
+  static constexpr int kKrefT = kKref + D2 * NL * kRow;  // row kl*NL + i: Kref[kl, :, i]
+  static constexpr int kW = kKrefT + D2 * NL * kRow;     // one row: w[:]
+  static constexpr int kSize = kW + kRow;
+};
+// ... and where attic/winmom.py::smem_tables puts them, flat
+struct Flat {
+  static constexpr int kPhi = 0;                         // [NQ, NL]
+  static constexpr int kDphi = kPhi + NQ * NL;           // [DIM*NQ, NL]
+  static constexpr int kW = kDphi + DIM * NQ * NL;       // [NQ]
+  static constexpr int kMref = kW + NQ;                  // [NL, NL]
+  static constexpr int kKref = kMref + NL * NL;          // [DIM*DIM*NL, NL]
 };
 
-template <int DIM, int NL, int NQ, bool NEWTON>
-__global__ void __launch_bounds__(kThreads)
+// Entry t of the shared-memory tables (Smem), from the flat ones.
+__device__ __forceinline__ float table_entry(const float* __restrict__ tabs, int t) {
+  const int r = t / kRow, j = t % kRow;
+  if (t < Smem::kPhiT) return j < NL ? tabs[Flat::kPhi + r * NL + j] : 0.f;
+  if (t < Smem::kDphi) {
+    const int i = r - Smem::kPhiT / kRow;
+    return j < NQ ? tabs[Flat::kPhi + j * NL + i] : 0.f;
+  }
+  if (t < Smem::kDphiT) {
+    const int kq = r - Smem::kDphi / kRow;
+    return j < NL ? tabs[Flat::kDphi + kq * NL + j] : 0.f;
+  }
+  if (t < Smem::kMref) {
+    const int ki = r - Smem::kDphiT / kRow, k = ki / NL, i = ki % NL;
+    return j < NQ ? tabs[Flat::kDphi + (k * NQ + j) * NL + i] : 0.f;
+  }
+  if (t < Smem::kKref) {
+    const int i = r - Smem::kMref / kRow;
+    return j < NL ? tabs[Flat::kMref + i * NL + j] : 0.f;
+  }
+  if (t < Smem::kKrefT) {
+    const int kli = r - Smem::kKref / kRow;
+    return j < NL ? tabs[Flat::kKref + kli * NL + j] : 0.f;
+  }
+  if (t < Smem::kW) {
+    const int kli = r - Smem::kKrefT / kRow, kl = kli / NL, i = kli % NL;
+    return j < NL ? tabs[Flat::kKref + (kl * NL + j) * NL + i] : 0.f;
+  }
+  return j < NQ ? tabs[Flat::kW + j] : 0.f;
+}
+
+// The kRow values of the table row at p (shared memory, 16-byte aligned),
+// into v, as two 16-byte loads. asm volatile, so that they stay where they
+// are used: the compiler neither hoists a table out of the cell loop (and
+// spills it) nor merges a row's loads across terms. VOLATILE: as
+// ld.volatile, which the assembler does not merge either. The Newton cell
+// reads the rows of phi and dphi twice, in the convection and in the
+// reaction; with plain loads the assembler kept the first reads in
+// registers for the second and spilled 1.6 KB a thread (PERF.md). The
+// lagged cell reads each row once, and plain loads may be scheduled early.
+template <bool VOLATILE>
+__device__ __forceinline__ void load_row(const float* p, float (&v)[kRow]) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if constexpr (VOLATILE) {
+    asm volatile("ld.volatile.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]) : "r"(a));
+    asm volatile("ld.volatile.shared.v4.f32 {%0, %1, %2, %3}, [%4+16];"
+                 : "=f"(v[4]), "=f"(v[5]), "=f"(v[6]), "=f"(v[7]) : "r"(a));
+  } else {
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]) : "r"(a));
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4+16];"
+                 : "=f"(v[4]), "=f"(v[5]), "=f"(v[6]), "=f"(v[7]) : "r"(a));
+  }
+}
+
+// The float at p (global memory, read-only), loaded where it is used: asm
+// volatile, so that the compiler does not keep a table that each component
+// reads again in registers for the whole cell.
+__device__ __forceinline__ float load_once(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+template <bool NEWTON>
+__global__ void __launch_bounds__(kMaxThreads)
 winmom_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
               const float* __restrict__ valid, const float* __restrict__ detj,
               const float* __restrict__ g4, const float* __restrict__ cg4,
               const float* __restrict__ tq, const float* __restrict__ gu,
-              const float* __restrict__ tabs,
-              const float* __restrict__ scal, const int* __restrict__ rowptr,
-              const int* __restrict__ ent, float* __restrict__ scratch,
-              float* __restrict__ out, int nb, int S, int W, int C, int n_pad) {
-  using T = Tables<DIM, NL, NQ>;
-  constexpr int D2 = DIM * DIM;
-  __shared__ float tab[T::kSmem];         // T::kSize tables, then 3 weights
-
-  const int b = blockIdx.x;
-  for (int t = threadIdx.x; t < T::kSize; t += blockDim.x) tab[t] = tabs[t];
-  for (int t = threadIdx.x; t < 3; t += blockDim.x) tab[T::kSize + t] = scal[t];
-
-  // volatile: every use reads shared memory. With the local results in
-  // global memory nothing in the cell loop can alias the tables, and nvcc
-  // then hoists their loop-invariant reads into registers and spills
-  // (~1 KB a thread; scripts/torch_ptxas_report.py), as in winmom3d.cu
-  const volatile float* phi = tab + T::kPhi;
-  const volatile float* dphi = tab + T::kDphi;
-  const volatile float* wq = tab + T::kW;
-  const volatile float* mref = tab + T::kMref;
-  const volatile float* kref = tab + T::kKref;
-
-  const long long boff = static_cast<long long>(b) * S;
-  const int* lidx_b = lidx + static_cast<long long>(b) * NL * C;
-  const float* valid_b = valid + static_cast<long long>(b) * C;
-  const float* detj_b = detj + static_cast<long long>(b) * C;
-  const float* g_b = g4 + static_cast<long long>(b) * D2 * C;
-  const float* cg_b = cg4 + static_cast<long long>(b) * D2 * C;
-  const float* tq_b = tq + static_cast<long long>(b) * DIM * NQ * C;
-  const int* rp = rowptr + static_cast<long long>(b) * (W + 1);
-  const int* en = ent + static_cast<long long>(b) * C * NL;
-  float* loc_g = scratch + static_cast<long long>(b) * DIM * C * NL;  // [DIM, C, NL]
-  __syncthreads();
-  const float mass_w = tab[T::kSize];
-  const float s_rho = tab[T::kSize + 1];
-  const float s_mu = tab[T::kSize + 2];
-
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    int li[NL];
-#pragma unroll
-    for (int j = 0; j < NL; ++j) li[j] = lidx_b[j * C + c];
+              const float* __restrict__ tabs, const float* __restrict__ scal,
+              const int* __restrict__ rptr, const int* __restrict__ rows,
+              const int* __restrict__ pos, float* __restrict__ out, int nb, int S, int W,
+              int C, int R, int n_pad, int cap) {
+  __shared__ __align__(16) float tab[Smem::kSize];
+  for (int t = threadIdx.x; t < Smem::kSize; t += blockDim.x) tab[t] = table_entry(tabs, t);
+  const volatile float* wq = tab + Smem::kW;
+  const float mass_w = scal[0];
+  const float s_rho = scal[1];
+  const float s_mu = scal[2];
+  // the walk's first cluster barrier orders the staged tables before any use
+  wincluster::walk<NL, DIM, true>(rptr, rows, R, pos, out, nb, W, C, cap, [&](int b, int c) {
+    const long long boff = static_cast<long long>(b) * S;
+    const int* lidx_b = lidx + static_cast<long long>(b) * NL * C;
+    const float* g_b = g4 + static_cast<long long>(b) * D2 * C;
+    const float* cg_b = cg4 + static_cast<long long>(b) * D2 * C;
+    // Tq[d][q] of this cell at tq_c[(d*NQ + q) * C]
+    const float* tq_c = tq + static_cast<long long>(b) * DIM * NQ * C + c;
     float U[DIM][NL];
 #pragma unroll
-    for (int m = 0; m < DIM; ++m)
+    for (int j = 0; j < NL; ++j) {
+      const long long li = boff + lidx_b[j * C + c];
 #pragma unroll
-      for (int j = 0; j < NL; ++j)
-        U[m][j] = x[static_cast<long long>(m) * n_pad + boff + li[j]];
-    const float dj = detj_b[c];
+      for (int m = 0; m < DIM; ++m) U[m][j] = x[static_cast<long long>(m) * n_pad + li];
+    }
+    const float dj = detj[static_cast<long long>(b) * C + c];
     float G[DIM][DIM];
 #pragma unroll
     for (int d = 0; d < DIM; ++d)
 #pragma unroll
       for (int k = 0; k < DIM; ++k) G[d][k] = g_b[(DIM * d + k) * C + c];
-    float Cg[D2];
-#pragma unroll
-    for (int kl = 0; kl < D2; ++kl) Cg[kl] = cg_b[kl * C + c];
-    float Tq[DIM][NQ];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d)
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) Tq[d][q] = tq_b[(d * NQ + q) * C + c];
-    float wd[NQ];
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) wd[q] = wq[q] * dj;
+    float r[kRow];  // a table row
 
-    float loc[DIM][NL];
+    // skew convection c(T; v): 0.5 (T.grad v) phi - 0.5 (T.grad phi) v,
+    // its weights point by point from the values and the reference, then
+    // physical, gradients there, both components from each table row
+    float wv[DIM][NQ];
+    float wg[DIM][DIM][NQ];
 #pragma unroll
-    for (int m = 0; m < DIM; ++m) {
-      const float* u = U[m];
-      float vq[NQ];
+    for (int q = 0; q < NQ; ++q) {
+      load_row<NEWTON>(tab + Smem::kPhi + q * kRow, r);
+      float vq[DIM];
 #pragma unroll
-      for (int q = 0; q < NQ; ++q) {
+      for (int m = 0; m < DIM; ++m) {
         float s = 0.f;
 #pragma unroll
-        for (int j = 0; j < NL; ++j) s += phi[q * NL + j] * u[j];
-        vq[q] = s;
+        for (int j = 0; j < NL; ++j) s += r[j] * U[m][j];
+        vq[m] = s;
       }
-      // reference gradients, then physical, at the quadrature points
-      float gv[DIM][NQ];
+      float rg[DIM][DIM];  // [m][k]
 #pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        float rg[DIM];
+      for (int k = 0; k < DIM; ++k) {
+        load_row<NEWTON>(tab + Smem::kDphi + (k * NQ + q) * kRow, r);
 #pragma unroll
-        for (int k = 0; k < DIM; ++k) {
-          float s = 0.f;
+        for (int m = 0; m < DIM; ++m) {
+          float t = 0.f;
 #pragma unroll
-          for (int j = 0; j < NL; ++j) s += dphi[(k * NQ + q) * NL + j] * u[j];
-          rg[k] = s;
+          for (int j = 0; j < NL; ++j) t += r[j] * U[m][j];
+          rg[m][k] = t;
         }
+      }
+      float T[DIM];
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) T[d] = load_once(tq_c + (d * NQ + q) * C);
+      const float wd = wq[q] * dj;
+#pragma unroll
+      for (int m = 0; m < DIM; ++m) {
+        float gv[DIM];
 #pragma unroll
         for (int d = 0; d < DIM; ++d) {
-          float s = 0.f;
+          float t = 0.f;
 #pragma unroll
-          for (int k = 0; k < DIM; ++k) s += G[d][k] * rg[k];
-          gv[d][q] = s;
+          for (int k = 0; k < DIM; ++k) t += G[d][k] * rg[m][k];
+          gv[d] = t;
         }
-      }
-      // skew convection c(T; v): 0.5 (T.grad v) phi - 0.5 (T.grad phi) v
-      float wv[NQ];
-      float wg[DIM][NQ];
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
         float s = 0.f;
 #pragma unroll
-        for (int d = 0; d < DIM; ++d) s += Tq[d][q] * gv[d][q];
-        wv[q] = wd[q] * 0.5f * s;
+        for (int d = 0; d < DIM; ++d) s += T[d] * gv[d];
+        wv[m][q] = wd * 0.5f * s;
 #pragma unroll
-        for (int d = 0; d < DIM; ++d) wg[d][q] = wd[q] * (-0.5f) * Tq[d][q] * vq[q];
+        for (int d = 0; d < DIM; ++d) wg[m][d][q] = wd * (-0.5f) * T[d] * vq[m];
       }
+    }
+    // per local dof: the mass, the convection and the component-diagonal
+    // stress, both components from each table row
+    const float* cg_c = cg_b + c;
+    float loc[DIM][NL];
 #pragma unroll
-      for (int i = 0; i < NL; ++i) {
+    for (int i = 0; i < NL; ++i) {
+      float lm[DIM], conv[DIM];
+      load_row<NEWTON>(tab + Smem::kMref + i * kRow, r);
+#pragma unroll
+      for (int m = 0; m < DIM; ++m) {
         float mm = 0.f;
 #pragma unroll
-        for (int j = 0; j < NL; ++j) mm += mref[i * NL + j] * u[j];
-        float lm = mass_w * dj * mm;
-        float conv = 0.f;
+        for (int j = 0; j < NL; ++j) mm += r[j] * U[m][j];
+        lm[m] = mass_w * dj * mm;
+      }
+      load_row<NEWTON>(tab + Smem::kPhiT + i * kRow, r);  // phi[:, i]
 #pragma unroll
-        for (int q = 0; q < NQ; ++q) conv += wv[q] * phi[q * NL + i];
+      for (int m = 0; m < DIM; ++m) {
+        float t = 0.f;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) t += wv[m][q] * r[q];
+        conv[m] = t;
+      }
+      // sum_q wg[d][q] dphi[q, i, k] for each (d, k), a row of dphi by
+      // local dofs at a time, added to conv in (d, k) order
+      float sdk[DIM][DIM][DIM];  // [m][d][k]
+#pragma unroll
+      for (int k = 0; k < DIM; ++k) {
+        load_row<NEWTON>(tab + Smem::kDphiT + (k * NL + i) * kRow, r);  // dphi[:, i, k]
+#pragma unroll
+        for (int m = 0; m < DIM; ++m)
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) {
+            float t = 0.f;
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) t += wg[m][d][q] * r[q];
+            sdk[m][d][k] = t;
+          }
+      }
+#pragma unroll
+      for (int m = 0; m < DIM; ++m) {
 #pragma unroll
         for (int d = 0; d < DIM; ++d)
 #pragma unroll
-          for (int k = 0; k < DIM; ++k) {
-            float s = 0.f;
-#pragma unroll
-            for (int q = 0; q < NQ; ++q) s += wg[d][q] * dphi[(k * NQ + q) * NL + i];
-            conv += G[d][k] * s;
-          }
-        lm += s_rho * conv;
-        // stress, component-diagonal part: Cg[k,l] Kref[k,l,i,j] u_j
-        float st = 0.f;
-#pragma unroll
-        for (int kl = 0; kl < D2; ++kl) {
-          float s = 0.f;
-#pragma unroll
-          for (int j = 0; j < NL; ++j) s += kref[(kl * NL + i) * NL + j] * u[j];
-          st += Cg[kl] * s;
-        }
-        loc[m][i] = lm + s_mu * st;
+          for (int k = 0; k < DIM; ++k) conv[m] += G[d][k] * sdk[m][d][k];
+        lm[m] += s_rho * conv[m];
       }
+      // stress, component-diagonal part: Cg[k,l] Kref[k,l,i,j] u_j
+      float st[DIM] = {};
+#pragma unroll
+      for (int kl = 0; kl < D2; ++kl) {
+        load_row<NEWTON>(tab + Smem::kKref + (kl * NL + i) * kRow, r);
+        const float cg = load_once(cg_c + kl * C);
+#pragma unroll
+        for (int m = 0; m < DIM; ++m) {
+          float t = 0.f;
+#pragma unroll
+          for (int j = 0; j < NL; ++j) t += r[j] * U[m][j];
+          st[m] += cg * t;
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < DIM; ++m) loc[m][i] = lm[m] + s_mu * st[m];
     }
-    // stress coupling: loc[a][i] += s_mu detj G[a,k] G[n,l] K[k,l,j,i] u_n_j
+    // stress coupling: loc[a][i] += s_mu detj G[a,k] G[n,l] K[k,l,j,i] u_n_j,
+    // per result in (k, l, n) order
 #pragma unroll
     for (int k = 0; k < DIM; ++k)
 #pragma unroll
       for (int l = 0; l < DIM; ++l)
 #pragma unroll
-        for (int n = 0; n < DIM; ++n)
+        for (int i = 0; i < NL; ++i) {
+          load_row<NEWTON>(tab + Smem::kKrefT + ((DIM * k + l) * NL + i) * kRow, r);  // Kref[k, l, :, i]
 #pragma unroll
-          for (int i = 0; i < NL; ++i) {
+          for (int n = 0; n < DIM; ++n) {
             float mb = 0.f;
 #pragma unroll
-            for (int j = 0; j < NL; ++j)
-              mb += kref[((DIM * k + l) * NL + j) * NL + i] * U[n][j];
+            for (int j = 0; j < NL; ++j) mb += r[j] * U[n][j];
             const float smb = s_mu * dj * mb;
 #pragma unroll
             for (int a = 0; a < DIM; ++a) loc[a][i] += G[a][k] * G[n][l] * smb;
           }
+        }
     if constexpr (NEWTON) {
       // Newton reaction c(v; x): 0.5 [(v.grad x)_m phi_i - (v.grad phi_i) x_m]
-      // with x_m = Tq[m] at the quadrature points and d_d x_m from gu
-      const float* gu_b = gu + static_cast<long long>(b) * DIM * DIM * NQ * C;
+      // with x_m = Tq[m] at the quadrature points and d_d x_m from gu,
+      // summed over the points in order and added last
+      const float* gu_c = gu + static_cast<long long>(b) * DIM * DIM * NQ * C + c;
       float re[DIM][NL];
 #pragma unroll
       for (int m = 0; m < DIM; ++m)
@@ -243,16 +357,20 @@ winmom_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
         for (int i = 0; i < NL; ++i) re[m][i] = 0.f;
 #pragma unroll
       for (int q = 0; q < NQ; ++q) {
+        load_row<NEWTON>(tab + Smem::kPhi + q * kRow, r);
         float vq[DIM];
 #pragma unroll
         for (int d = 0; d < DIM; ++d) {
           float s = 0.f;
 #pragma unroll
-          for (int j = 0; j < NL; ++j) s += phi[q * NL + j] * U[d][j];
+          for (int j = 0; j < NL; ++j) s += r[j] * U[d][j];
           vq[d] = s;
         }
-        const float hw = 0.5f * wd[q];
-        // v.grad phi_i at q, with grad phi_i = G dphi_i
+        const float hw = 0.5f * (wq[q] * dj);
+        // v.grad phi_i at q, with grad phi_i = G dphi_i, over (d, k) in order
+        float r1[kRow];
+        load_row<NEWTON>(tab + Smem::kDphi + q * kRow, r);          // dphi[q, :, 0]
+        load_row<NEWTON>(tab + Smem::kDphi + (NQ + q) * kRow, r1);  // dphi[q, :, 1]
         float vg[NL];
 #pragma unroll
         for (int i = 0; i < NL; ++i) {
@@ -260,19 +378,19 @@ winmom_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
 #pragma unroll
           for (int d = 0; d < DIM; ++d)
 #pragma unroll
-            for (int k = 0; k < DIM; ++k)
-              s += vq[d] * G[d][k] * dphi[(k * NQ + q) * NL + i];
+            for (int k = 0; k < DIM; ++k) s += vq[d] * G[d][k] * (k == 0 ? r[i] : r1[i]);
           vg[i] = s;
         }
+        load_row<NEWTON>(tab + Smem::kPhi + q * kRow, r);
 #pragma unroll
         for (int m = 0; m < DIM; ++m) {
           float a = 0.f;  // (v.grad x)_m
 #pragma unroll
-          for (int d = 0; d < DIM; ++d) a += vq[d] * gu_b[((d * DIM + m) * NQ + q) * C + c];
+          for (int d = 0; d < DIM; ++d) a += vq[d] * gu_c[((d * DIM + m) * NQ + q) * C];
           const float wt = hw * a;
-          const float xs = hw * Tq[m][q];
+          const float xs = hw * load_once(tq_c + (m * NQ + q) * C);
 #pragma unroll
-          for (int i = 0; i < NL; ++i) re[m][i] += wt * phi[q * NL + i] - xs * vg[i];
+          for (int i = 0; i < NL; ++i) re[m][i] += wt * r[i] - xs * vg[i];
         }
       }
 #pragma unroll
@@ -280,73 +398,52 @@ winmom_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
 #pragma unroll
         for (int i = 0; i < NL; ++i) loc[m][i] += s_rho * re[m][i];
     }
-    const float v = valid_b[c];
-#pragma unroll
-    for (int m = 0; m < DIM; ++m)
-#pragma unroll
-      for (int i = 0; i < NL; ++i)
-        loc_g[(static_cast<long long>(m) * C + c) * NL + i] = loc[m][i] * v;
-  }
-  __syncthreads();
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    float acc[DIM];
-#pragma unroll
-    for (int m = 0; m < DIM; ++m) acc[m] = 0.f;
-    for (int p = rp[w]; p < rp[w + 1]; ++p) {
-      const int e = en[p];
-#pragma unroll
-      for (int m = 0; m < DIM; ++m) acc[m] += loc_g[static_cast<long long>(m) * C * NL + e];
-    }
-#pragma unroll
-    for (int m = 0; m < DIM; ++m)
-      out[(static_cast<long long>(m) * nb + b) * W + w] = acc[m];
-  }
+    const float v = valid[static_cast<long long>(b) * C + c];
+    return [=](int i, int m) { return loc[m][i] * v; };
+  });
 }
 
-template <int DIM, int NL, int NQ, bool NEWTON>
-int launch(const void* x, const void* lidx, const void* valid,
-           const void* detj, const void* g4, const void* cg4, const void* tq,
-           const void* gu, const void* tabs, const void* scal, const void* rowptr,
-           const void* ent, void* scratch, void* out, int nb, int S, int W,
-           int C, int n_pad, void* stream) {
-  if (nb <= 0 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  winmom_kernel<DIM, NL, NQ, NEWTON><<<nb, kThreads, 0,
-                                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(lidx),
-      static_cast<const float*>(valid), static_cast<const float*>(detj),
-      static_cast<const float*>(g4), static_cast<const float*>(cg4),
-      static_cast<const float*>(tq), static_cast<const float*>(gu),
-      static_cast<const float*>(tabs),
-      static_cast<const float*>(scal), static_cast<const int*>(rowptr),
-      static_cast<const int*>(ent), static_cast<float*>(scratch),
-      static_cast<float*>(out), nb, S, W, C, n_pad);
-  return static_cast<int>(cudaGetLastError());
+// The launch of a variant (wincluster::launch) with the arguments of `a`:
+// a->clusters clusters of a->cl blocks of a->threads threads, each staging
+// a->cap positions (2*cap floats). With `max_clusters` set, instead of
+// launching, the number of such clusters the card holds at once (no
+// pointer read).
+template <bool NEWTON>
+int launch(const WinmomArgs* a, const void* x, const void* scal, void* out, void* stream,
+           int* max_clusters = nullptr) {
+  if (a == nullptr || a->nb <= 0 || a->C <= 0 || a->W <= 0 || a->W % 4 || a->R <= 0 ||
+      a->cap <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return wincluster::launch(
+      winmom_kernel<NEWTON>, a->clusters, a->cl, a->threads, kMaxThreads, DIM * a->cap,
+      stream, max_clusters, static_cast<const float*>(x), a->lidx, a->valid, a->detj,
+      a->g4, a->cg4, a->tq, a->gu, a->tabs, static_cast<const float*>(scal), a->rptr,
+      a->rows, a->pos, static_cast<float*>(out), a->nb, a->S, a->W, a->C, a->R, a->n_pad,
+      a->cap);
 }
 
 }  // namespace
 
-extern "C" int winmom_p2_2d_lagged(const void* x, const void* lidx,
-                                   const void* valid, const void* detj,
-                                   const void* g4, const void* cg4,
-                                   const void* tq, const void* tabs,
-                                   const void* scal, const void* rowptr,
-                                   const void* ent, void* scratch, void* out,
-                                   int nb, int S, int W, int C, int n_pad,
-                                   void* stream) {
-  return launch<2, 6, 7, false>(x, lidx, valid, detj, g4, cg4, tq, nullptr,
-                                tabs, scal, rowptr, ent, scratch, out, nb, S,
-                                W, C, n_pad, stream);
+extern "C" int winmom_p2_2d_lagged(const WinmomArgs* a, const void* x, const void* scal,
+                                   void* out, void* stream) {
+  return launch<false>(a, x, scal, out, stream);
 }
 
-extern "C" int winmom_p2_2d_newton(const void* x, const void* lidx,
-                                   const void* valid, const void* detj,
-                                   const void* g4, const void* cg4,
-                                   const void* tq, const void* gu,
-                                   const void* tabs, const void* scal,
-                                   const void* rowptr, const void* ent,
-                                   void* scratch, void* out, int nb, int S,
-                                   int W, int C, int n_pad, void* stream) {
-  return launch<2, 6, 7, true>(x, lidx, valid, detj, g4, cg4, tq, gu, tabs,
-                               scal, rowptr, ent, scratch, out, nb, S, W, C,
-                               n_pad, stream);
+extern "C" int winmom_p2_2d_newton(const WinmomArgs* a, const void* x, const void* scal,
+                                   void* out, void* stream) {
+  return launch<true>(a, x, scal, out, stream);
+}
+
+// cudaOccupancyMaxActiveClusters of a launch of either variant (NEWTON 0
+// or 1) of clusters of `cl` blocks of `threads` threads staging `cap`
+// positions each, into *out.
+extern "C" int winmom_p2_2d_clusters(int newton, int cl, int threads, int cap, int* out) {
+  WinmomArgs a = {};
+  a.nb = a.C = a.R = a.clusters = 1;
+  a.W = 4;
+  a.cl = cl;
+  a.threads = threads;
+  a.cap = cap;
+  return newton ? launch<true>(&a, nullptr, nullptr, nullptr, nullptr, out)
+                : launch<false>(&a, nullptr, nullptr, nullptr, nullptr, out);
 }

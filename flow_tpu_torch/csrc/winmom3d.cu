@@ -64,12 +64,15 @@
 //   through the element matrix sum_kl Cg[kl] Kref[kl] and through G^T U per
 //   (k, l). Every local result is computed in the scratch design's order.
 //
-// Plain C interface (loaded with ctypes): the entries launch on the given
-// stream and return the cudaError_t of the launch (0 on success); the
-// query entry writes how many clusters of a launch the card holds at once.
+// Plain C interface (loaded with ctypes): the fixed arguments of a launch
+// come in one WinmomArgs struct (winmom.cuh) that the caller keeps; each
+// entry launches on the given stream and returns the cudaError_t of the
+// launch (0 on success); the query entry writes how many clusters of a
+// launch the card holds at once.
 #include <cuda_runtime.h>
 
 #include "wincluster.cuh"
+#include "winmom.cuh"
 
 namespace {
 
@@ -319,62 +322,47 @@ winmom3d_kernel(const float* __restrict__ x, const int* __restrict__ lidx,
   });
 }
 
-// The launch of a variant (wincluster::launch): `clusters` clusters of
-// `cl` blocks of `threads` threads, each staging `cap` positions (3*cap
-// floats). With `max_clusters` set, instead of launching, the number of
-// such clusters the card holds at once (no pointer read).
+// The launch of a variant (wincluster::launch) with the arguments of `a`:
+// a->clusters clusters of a->cl blocks of a->threads threads, each staging
+// a->cap positions (3*cap floats). With `max_clusters` set, instead of
+// launching, the number of such clusters the card holds at once (no
+// pointer read).
 template <bool NEWTON>
-int launch(const void* x, const void* lidx, const void* valid, const void* detj,
-           const void* g4, const void* cg4, const void* tq, const void* gu,
-           const void* tabs, const void* scal, const void* rptr, const void* rows,
-           const void* pos, void* out, int nb, int S, int W, int C, int R, int n_pad,
-           int clusters, int cl, int threads, int cap, void* stream,
+int launch(const WinmomArgs* a, const void* x, const void* scal, void* out, void* stream,
            int* max_clusters = nullptr) {
-  if (nb <= 0 || C <= 0 || W <= 0 || W % 4 || R <= 0 || cap <= 0)
+  if (a == nullptr || a->nb <= 0 || a->C <= 0 || a->W <= 0 || a->W % 4 || a->R <= 0 ||
+      a->cap <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return wincluster::launch(
-      winmom3d_kernel<NEWTON>, clusters, cl, threads, kMaxThreads, DIM * cap, stream,
-      max_clusters, static_cast<const float*>(x), static_cast<const int*>(lidx),
-      static_cast<const float*>(valid), static_cast<const float*>(detj),
-      static_cast<const float*>(g4), static_cast<const float*>(cg4),
-      static_cast<const float*>(tq), static_cast<const float*>(gu),
-      static_cast<const float*>(tabs), static_cast<const float*>(scal),
-      static_cast<const int*>(rptr), static_cast<const int*>(rows),
-      static_cast<const int*>(pos), static_cast<float*>(out), nb, S, W, C, R, n_pad, cap);
+      winmom3d_kernel<NEWTON>, a->clusters, a->cl, a->threads, kMaxThreads, DIM * a->cap,
+      stream, max_clusters, static_cast<const float*>(x), a->lidx, a->valid, a->detj,
+      a->g4, a->cg4, a->tq, a->gu, a->tabs, static_cast<const float*>(scal), a->rptr,
+      a->rows, a->pos, static_cast<float*>(out), a->nb, a->S, a->W, a->C, a->R, a->n_pad,
+      a->cap);
 }
 
 }  // namespace
 
-extern "C" int winmom_p2_3d_lagged(const void* x, const void* lidx, const void* valid,
-                                   const void* detj, const void* g4, const void* cg4,
-                                   const void* tq, const void* tabs,
-                                   const void* scal, const void* rptr, const void* rows,
-                                   const void* pos, void* out, int nb, int S, int W,
-                                   int C, int R, int n_pad, int clusters, int cl,
-                                   int threads, int cap, void* stream) {
-  return launch<false>(x, lidx, valid, detj, g4, cg4, tq, nullptr, tabs, scal, rptr,
-                       rows, pos, out, nb, S, W, C, R, n_pad, clusters, cl, threads, cap,
-                       stream);
+extern "C" int winmom_p2_3d_lagged(const WinmomArgs* a, const void* x, const void* scal,
+                                   void* out, void* stream) {
+  return launch<false>(a, x, scal, out, stream);
 }
 
-extern "C" int winmom_p2_3d_newton(const void* x, const void* lidx, const void* valid,
-                                   const void* detj, const void* g4, const void* cg4,
-                                   const void* tq, const void* gu, const void* tabs,
-                                   const void* scal, const void* rptr, const void* rows,
-                                   const void* pos, void* out, int nb, int S, int W,
-                                   int C, int R, int n_pad, int clusters, int cl,
-                                   int threads, int cap, void* stream) {
-  return launch<true>(x, lidx, valid, detj, g4, cg4, tq, gu, tabs, scal, rptr, rows,
-                      pos, out, nb, S, W, C, R, n_pad, clusters, cl, threads, cap, stream);
+extern "C" int winmom_p2_3d_newton(const WinmomArgs* a, const void* x, const void* scal,
+                                   void* out, void* stream) {
+  return launch<true>(a, x, scal, out, stream);
 }
 
 // cudaOccupancyMaxActiveClusters of a launch of either variant (NEWTON 0
-// or 1), into *out.
+// or 1) of clusters of `cl` blocks of `threads` threads staging `cap`
+// positions each, into *out.
 extern "C" int winmom_p2_3d_clusters(int newton, int cl, int threads, int cap, int* out) {
-  auto query = [&](auto kernel_launch) {
-    return kernel_launch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                         nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 0,
-                         4, 1, 1, 0, 1, cl, threads, cap, nullptr, out);
-  };
-  return newton ? query(launch<true>) : query(launch<false>);
+  WinmomArgs a = {};
+  a.nb = a.C = a.R = a.clusters = 1;
+  a.W = 4;
+  a.cl = cl;
+  a.threads = threads;
+  a.cap = cap;
+  return newton ? launch<true>(&a, nullptr, nullptr, nullptr, nullptr, out)
+                : launch<false>(&a, nullptr, nullptr, nullptr, nullptr, out);
 }

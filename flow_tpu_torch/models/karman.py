@@ -251,12 +251,12 @@ def run_karman_fast(
     if backend == "packed":
         raise NotImplementedError(
             "run_karman_fast: the packed backend (PackedPatchStepper) is not "
-            "ported (ROADMAP queue 1 item 2)"
+            "ported (ROADMAP queue 1 item 1)"
         )
     if initial_state is None and not from_rest:
         raise NotImplementedError(
             "run_karman_fast: the Stokes bootstrap (from_rest=False) is not "
-            "ported (ROADMAP queue 1 item 5: stokes.py)"
+            "ported (ROADMAP queue 1 item 3: stokes.py)"
         )
     if problem is None:
         problem = KarmanProblem(lcar=lcar, n_refine=n_refine, mu=mu,

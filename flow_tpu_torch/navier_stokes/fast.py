@@ -114,11 +114,13 @@ class FastStepper:
         cfl_target=1.0,
         dt_max=1.0,
         forces_probe=None,
+        divergence_probe=False,
         assembled_jacobian="auto",
         momentum_precond=None,
         packed="auto",
         convection="newton",
         momentum_solver="bicgstab",
+        patches=None,
         winkernel=False,
         winkernel_S=None,
         tangent_mode="linearize",
@@ -143,6 +145,10 @@ class FastStepper:
             raise NotImplementedError(
                 f"FastStepper: the vertex momentum preconditioner is {_TODO}"
             )
+        if patches is not None:
+            raise NotImplementedError(f"FastStepper: patch mode (patches=) is {_TODO}")
+        if divergence_probe:
+            raise NotImplementedError(f"FastStepper: the divergence probe is {_TODO}")
         mesh = V.mesh
         # packed="auto" as the JAX stepper resolves it: the lane-packed
         # layout for 2-D Taylor-Hood from PACKED_MIN_DOFS, never with the

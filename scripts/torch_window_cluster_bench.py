@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Device times of the cluster kernels K4a (csrc/winmass.cu), K5
 (csrc/winform.cu), K4b 3-D P1 and K4b P2 (csrc/winstiff.cu's winstiff_p1_3d,
-winstiff_p2_2d and winstiff_p2_3d) and K3 3-D (csrc/winmom3d.cu, lagged and
-Newton) at the layouts of their paths, for an A/B between two checkouts and a
-sweep of the cluster launch of K4a, K5, K4b P2 and K3 3-D.
+winstiff_p2_2d and winstiff_p2_3d) and K3 (csrc/winmom.cu in 2-D,
+winmom3d.cu in 3-D, lagged and Newton) at the layouts of their paths, for
+an A/B between two checkouts and a sweep of the cluster launch of K4a, K5,
+K4b P2 and K3.
 
     python3 scripts/torch_window_cluster_bench.py [--root DIR] [--save F]
         [--compare F] [--sweep] [--only TEXT] [--json F]
@@ -14,11 +15,14 @@ unit_square_mesh(1024, "right") P2 (nb = 1,026, C = 2,048) for K4a and K5,
 the NL = 6 layout of unit_square_mesh(256, "right") P2 (nb = 121, C =
 1,086) for K4b 2-D P2 (the layouts of chip_smoke.py's P2 Poisson solves),
 the cavity's N=64 P1 pressure layout (nb = 68, C = 23,958) for K4b 3-D
-P1, and the cavity's vector-P2 velocity layouts at N=64 (nb = 525, C =
+P1, the cavity's vector-P2 velocity layouts at N=64 (nb = 525, C =
 3,063) and N=32 (nb = 68, C = 3,038) for K3 3-D, whose tables come from a
 random velocity field (0.1 x a standard normal) and the weights of a
-momentum matvec at dt = 1e-3; float32, inputs and element matrices made
-from a seed. --only keeps the layouts whose name holds TEXT.
+momentum matvec at dt = 1e-3, and the Karman 1.9M velocity layout
+(KarmanProblem(lcar=0.02, n_refine=5): nb = 552, C = 771) for K3 2-D,
+from a random velocity field (0.01 x a standard normal) and the weights
+of a momentum matvec at dt = 1e-3; float32, inputs and element matrices
+made from a seed. --only keeps the layouts whose name holds TEXT.
 For each kernel: device µs per call from torch.profiler with the L2 cache
 warm and cold (after a 64 MB write), wall µs from CUDA events over
 back-to-back calls, and host µs per call (perf_counter over 200 calls
@@ -49,12 +53,15 @@ SWEEP = {"tets N=32": ((1, 1024), (1, 512), (2, 512), (2, 256), (4, 256), (2, 10
          "cavity N=64 velocity": ((2, 512), (2, 384), (2, 256), (3, 512), (3, 384),
                                   (3, 256), (4, 512), (4, 256)),
          "cavity N=32 velocity": ((2, 512), (2, 384), (2, 256), (3, 512), (3, 384),
-                                  (3, 256), (4, 512), (4, 256))}
+                                  (3, 256), (4, 512), (4, 256)),
+         "karman 1.9M velocity": ((1, 512), (1, 416), (2, 512), (2, 416), (2, 384),
+                                  (3, 288), (3, 512), (4, 256), (6, 160), (8, 128))}
 # the name of each operator's kernel in the profiler (K4b P2: the scratch
 # kernel winstiff_kernel of an earlier checkout, or the cluster kernel)
 KERNEL_NAMES = {"winmass": "winmass_kernel", "winform": "winform_kernel",
                 "winstiff_cluster": "winstiff_cluster_kernel", "winstiff_p2": "winstiff",
-                "winmom3d": "winmom3d_kernel", "winmom3d_newton": "winmom3d_kernel"}
+                "winmom3d": "winmom3d_kernel", "winmom3d_newton": "winmom3d_kernel",
+                "winmom": "winmom_kernel", "winmom_newton": "winmom_kernel"}
 
 
 def device_us(fn, name, reps=30):
@@ -108,6 +115,8 @@ def counter_of(name, NL):
 
     if name.startswith("winmom3d"):
         return winmom.WINMOM3D_NEWTON if name.endswith("newton") else winmom.WINMOM3D
+    if name.startswith("winmom"):
+        return winmom.WINMOM_NEWTON if name.endswith("newton") else winmom.WINMOM
     if name == "winstiff_p2":
         return winkernel.WINSTIFF_P2 if NL == 6 else winkernel.WINSTIFF3D_P2
     return {"winmass": winkernel.WINMASS, "winform": winform.WINFORM,
@@ -121,8 +130,8 @@ def _padded(op, seed):
     return x
 
 
-class Momentum3D:
-    """K3 3-D at a layout, as the bench takes an operator: windows(x) of one
+class Momentum:
+    """K3 at a layout, as the bench takes an operator: windows(x) of one
     variant with fixed tables, and the layout's lidx, valid, wl and lists."""
 
     def __init__(self, op, Tq, weights, extra=()):
@@ -151,8 +160,27 @@ def _momentum3d(n):
                                      dtype=torch.float32)
     # the weights of a momentum matvec at dt = 1e-3 (rho = 1, mu = 1e-2)
     weights = (1.0, 1e-3, 1e-5)
-    return x, {"winmom3d": Momentum3D(op, Tq, weights),
-               "winmom3d_newton": Momentum3D(op, Tq, weights, (Uq, Gu))}
+    return x, {"winmom3d": Momentum(op, Tq, weights),
+               "winmom3d_newton": Momentum(op, Tq, weights, (Uq, Gu))}
+
+
+def _momentum2d():
+    from flow_tpu_torch.attic import winmom
+    from flow_tpu_torch.models.karman import KarmanProblem
+
+    prob = KarmanProblem(lcar=0.02, n_refine=5, dtype=torch.float32, device="cuda")
+    op = winmom.WindowLaggedMomentum(prob.V)
+    rng = np.random.default_rng(11)
+    U = torch.as_tensor(0.01 * rng.standard_normal((prob.V.n_dofs, 2)), dtype=torch.float32,
+                        device="cuda")
+    Tq, Uq, Gu = op.state_qp(U)
+    x = torch.zeros((2, op.wl.n_pad), device="cuda")
+    x[:, :op.wl.n] = torch.as_tensor(rng.standard_normal((2, op.wl.n)),
+                                     dtype=torch.float32)
+    # the weights of a momentum matvec at dt = 1e-3
+    weights = (1.0, 1e-3, 1e-3 * prob.mu / prob.rho)
+    return x, {"winmom": Momentum(op, Tq, weights),
+               "winmom_newton": Momentum(op, Tq, weights, (Uq, Gu))}
 
 
 def layouts(only=None):
@@ -191,6 +219,7 @@ def layouts(only=None):
             "winstiff_cluster", 5),
         "cavity N=64 velocity": lambda: _momentum3d(64),
         "cavity N=32 velocity": lambda: _momentum3d(32),
+        "karman 1.9M velocity": _momentum2d,
     }
     for tag, make in makers.items():
         if only is None or only in tag:
@@ -238,13 +267,13 @@ def main():
             print(json.dumps(row), flush=True)
             report.append(row)
             if args.sweep and name != "winstiff_cluster":
-                # K3 3-D follows momentum_plan, the others window_plan
-                rule_name = "momentum_plan" if name.startswith("winmom3d") else "window_plan"
+                # K3 follows momentum_plan, the others window_plan
+                rule_name = "momentum_plan" if name.startswith("winmom") else "window_plan"
                 rule = getattr(winkernel, rule_name)
                 try:
                     for cl, threads in SWEEP[tag]:
                         setattr(winkernel, rule_name,
-                                lambda nb_, C_, NL_, sms, *_, cl=cl, threads=threads:
+                                lambda nb_, C_, NL_, sms, *_, cl=cl, threads=threads, **__:
                                 (cl, threads, -(-C_ * NL_ // cl)))
                         plan = winkernel.cluster_launch(kernel, nb, C, NL, "cuda")
                         same = torch.equal(op.windows(x), y)

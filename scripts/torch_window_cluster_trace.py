@@ -3,11 +3,11 @@
 
     python3 scripts/torch_window_cluster_trace.py [--only TEXT] [--json F]
 
-Builds csrc/winmass.cu, winform.cu, winstiff.cu and winmom3d.cu with
+Builds csrc/winmass.cu, winform.cu, winstiff.cu, winmom.cu and winmom3d.cu with
 -DWINCLUSTER_TRACE (the phase marks of csrc/wincluster.cuh: thread 0 of each
 block reads %globaltimer at each phase of its first window block's first
 pass) into a temporary directory, runs K4a, K5, K4b 3-D P1, K4b P2 and K3
-3-D (lagged and Newton) once at the layouts of
+2-D and 3-D (lagged and Newton) once at the layouts of
 scripts/torch_window_cluster_bench.py (--only: those whose name holds TEXT)
 through that build, and prints the
 share of each layout's window rows that no local result lands on and, over
@@ -50,7 +50,7 @@ def main():
     if not torch.cuda.is_available():
         print("torch_window_cluster_trace: needs a CUDA device", file=sys.stderr)
         return 2
-    names = ("winmass", "winform", "winstiff", "winmom3d")
+    names = ("winmass", "winform", "winstiff", "winmom", "winmom3d")
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
         for name in names:
@@ -68,8 +68,8 @@ def main():
     # the kernels' launches go through the traced build
     _build.load = lambda name: libs[name]
     for kernel in (winkernel.WINMASS, winform.WINFORM, winkernel.WINSTIFF3D,
-                   winkernel.WINSTIFF_P2, winkernel.WINSTIFF3D_P2, winmom.WINMOM3D,
-                   winmom.WINMOM3D_NEWTON):
+                   winkernel.WINSTIFF_P2, winkernel.WINSTIFF3D_P2, winmom.WINMOM,
+                   winmom.WINMOM_NEWTON, winmom.WINMOM3D, winmom.WINMOM3D_NEWTON):
         kernel._lib = None
     winkernel._cluster_launch.cache_clear()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

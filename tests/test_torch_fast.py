@@ -94,26 +94,30 @@ def test_state_round_trip_through_interop():
     np.testing.assert_array_equal(Pn, P)
 
 
-@pytest.mark.parametrize("route", [
+@pytest.mark.parametrize("route, item", [
     # the einsum route itself is ported (tests/test_torch_fast_einsum.py);
     # its assembled-ELL momentum Jacobian and vertex preconditioner are not
-    dict(winkernel=False, assembled_jacobian=True),
-    dict(winkernel=False, momentum_precond="vertex"),
-    dict(time_step_method="forward euler"),
-    dict(momentum_solver="gmres"),
-    dict(packed=True),
-    dict(driver=True, backend="packed"),
-    dict(driver=True, from_rest=False),
+    (dict(winkernel=False, assembled_jacobian=True), 5),
+    (dict(winkernel=False, momentum_precond="vertex"), 5),
+    (dict(time_step_method="forward euler"), 5),
+    (dict(momentum_solver="gmres"), 5),
+    (dict(packed=True), 5),
+    (dict(driver=True, backend="packed"), 1),
+    (dict(driver=True, from_rest=False), 3),
+    (dict(patches=object()), 5),
+    (dict(divergence_probe=True), 5),
 ], ids=["einsum", "einsum-vertex", "forward-euler", "gmres", "packed",
-        "driver-packed", "driver-stokes"])
-def test_unported_routes_raise(route):
+        "driver-packed", "driver-stokes", "patches", "divergence-probe"])
+def test_unported_routes_raise(route, item):
+    # each route raises NotImplementedError naming its ROADMAP item
     tp = KarmanProblem(lcar=0.2, dtype=torch.float64, device="cpu")
     route = dict(route)
+    match = f"ROADMAP queue 1 item {item}\\b"
     if route.pop("driver", False):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match=match):
             run_karman_fast(num_steps=1, problem=tp, winkernel=True, **route)
         return
     kw = dict(BENCH, winkernel=True)
     kw.update(route)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=match):
         FastStepper(tp.V, tp.Q, tp.u_bcs, tp.p_bcs, tp.rho, tp.mu, **kw)

@@ -6,10 +6,10 @@
 # (csrc/winmom3d.cu, winstiff.cu's winstiff_p1_3d) the same on box_mesh
 # tet layouts, taking a block of any size (cluster launches: they stage the
 # local results at their list positions in the cluster's shared memory,
-# K3 3-D three components a position over its compressed rows, and run in
-# passes where they exceed it, summing in one order at every cluster and
-# block size) and refusing inputs they do not take; the window mass
-# kernel (K4a, csrc/winmass.cu), the element-matrix kernel (K5,
+# K3 two (2-D) or three (3-D) components a position over its compressed
+# rows, and run in passes where they exceed it, summing in one order at
+# every cluster and block size) and refusing inputs they do not take; the
+# window mass kernel (K4a, csrc/winmass.cu), the element-matrix kernel (K5,
 # csrc/winform.cu) and K4b's P2 variants on P1/P2 triangle and tet layouts
 # (NL = 3, 6, 4, 10), the same; K4a, K5 and K4b P2, cluster launches like
 # K4b 3-D (csrc/wincluster.cuh), also in passes and at every cluster and
@@ -140,8 +140,9 @@ def test_newton_kernel_without_reaction_is_the_lagged_kernel(problem):
 @pytest.mark.cuda
 def test_kernels_take_cells_beyond_shared_memory(problem):
     # blocks of more cells than 227 KB of shared memory would hold at once
-    # (K4b P1: 12 B a cell, K3: 48 B): the local results go to the device
-    # scratch, so the kernels take them and agree with their plain versions
+    # (K4b P1: 12 B a cell, K3: 48 B): K4b P1 writes the local results to a
+    # device scratch, K3 stages them over a cluster of blocks, so the
+    # kernels take them and agree with their plain versions
     mesh = unit_square_mesh(128, "right", dtype=torch.float32, device="cuda")
     S = 16384
     op = winkernel.WindowStiffnessOperator(FunctionSpace(mesh, 1), S=S)
@@ -175,6 +176,83 @@ def test_kernels_take_cells_beyond_shared_memory(problem):
         assert _rel(y, plain) <= TOL
 
 
+@pytest.mark.cuda
+def test_momentum_kernels_sum_in_one_order_at_every_cluster_size(problem, monkeypatch):
+    # K3 2-D's launch follows momentum_plan: clusters of 1-8 blocks, 32-512
+    # threads a block and stages of a few dozen positions (several passes);
+    # both variants give the windows of the default launch bitwise
+    op = winmom.WindowLaggedMomentum(problem.V, S=128)
+    assert len(op.positions) == 3
+    x, x_pad = _momentum_inputs(problem, op, 12)
+    Tq, Uq, Gu = op.state_qp(x)
+    weights = (1.0, 0.37, 0.021)
+    nb, NL, C = op.lidx.shape
+    entries = int(op.positions[0][:, -1].max())
+    for newton in (False, True):
+        extra = (Uq, Gu) if newton else ()
+        counter = winmom.WINMOM_NEWTON if newton else winmom.WINMOM
+        y = op.windows(x_pad, Tq, *weights, *extra)
+        passes = []
+        with monkeypatch.context() as m:
+            for cl, threads, loc_bytes in ((1, 512, 224 * 1024), (2, 128, 8 * 300),
+                                           (3, 256, 8 * 20), (8, 32, 8 * 40),
+                                           (4, 384, 224 * 1024)):
+                m.setattr(winkernel, "MOMENTUM_CLUSTER", cl)
+                m.setattr(winkernel, "MOMENTUM_THREADS", threads)
+                m.setattr(winkernel, "MOMENTUM_LOC_BYTES", loc_bytes)
+                plan = winkernel.cluster_launch(counter, nb, C, NL, "cuda")
+                assert plan.threads == threads and 0 < plan.clusters <= plan.resident
+                passes.append(entries > plan.cl * plan.cap)
+                before = counter.launches
+                assert torch.equal(op.windows(x_pad, Tq, *weights, *extra), y)
+                assert counter.launches == before + 1
+        assert passes == [False, False, True, True, False]
+
+
+@pytest.mark.cuda
+def test_momentum_kernels_take_blocks_beyond_shared_memory_in_passes(problem):
+    # K3 2-D on one block of C = 40,000 real cells, two components a
+    # position past the stage of a cluster of MAX_CLUSTER blocks (so it runs
+    # in passes): cell c puts local dof i on window dof 2 ((c*NL + i) mod
+    # 128) of a window of 256 (the odd rows empty, so the compressed rows
+    # are half of them), where component m of x is m + 1; with only the
+    # mass term (Mref = 1, detJ = 1) every local result of component m is
+    # 6 (m + 1), exact in float32, and the Newton kernel with Gu = 0 gives
+    # the same windows
+    z = dict(device="cuda")
+    S = W = 256
+    C, NL = 40000, 6
+    dof = 2 * ((np.arange(C)[:, None] * NL + np.arange(NL)) % 128)  # [C, NL]
+    wl = WindowLayout(None, None, S, W, 1, C, None, np.ones((1, C), np.float32),
+                      dof[None].astype(np.int32))
+    positions = tuple(torch.as_tensor(a, **z) for a in compact_lists(wl))
+    assert positions[1].shape[1] == 128
+    lidx = torch.as_tensor(dof.T[None].astype(np.int32), **z).contiguous()
+    ones = torch.ones((1, C), **z)
+    zeros4 = torch.zeros((1, 4, C), **z)
+    Tq = torch.zeros((1, 14, C), **z)
+    tabs = torch.zeros(313, **z)
+    tabs[42 + 84 + 7:42 + 84 + 7 + 36] = 1.0  # Mref
+    scal = torch.tensor([1.0, 0.0, 0.0], **z)
+    xm = torch.zeros((2, S + W), **z)
+    xm[:, :W] = torch.arange(1, 3, dtype=torch.float32, **z)[:, None]
+    plan = winkernel.cluster_launch(winmom.WINMOM, 1, C, NL, "cuda")
+    assert C * NL > plan.cl * plan.cap and plan.cl == winkernel.MAX_CLUSTER
+    counts = torch.zeros(W, **z)
+    counts[0::2] = torch.as_tensor(np.bincount(dof.reshape(-1) // 2, minlength=128),
+                                   dtype=torch.float32, **z)
+    want = 6.0 * torch.arange(1, 3, dtype=torch.float32, **z)[:, None] * counts
+    args = (xm, lidx, ones, ones, zeros4, zeros4, Tq, tabs, scal, S, W)
+    before = winmom.WINMOM.launches, winmom.WINMOM_NEWTON.launches
+    y = winmom.momentum_windows(*args, positions=positions)
+    yn = winmom.momentum_windows(*args, Uq=Tq, Gu=torch.zeros((1, 28, C), **z),
+                                 positions=positions)
+    torch.cuda.synchronize()
+    assert (winmom.WINMOM.launches, winmom.WINMOM_NEWTON.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(y[:, 0], want) and torch.equal(yn, y)
+
+
 @pytest.fixture(scope="module")
 def box():
     if not torch.cuda.is_available():
@@ -199,7 +277,7 @@ def test_momentum_3d_kernels_match_plain(box, S):
     V, _ = box
     op = winmom.WindowLaggedMomentum(V, S=S)
     # a cluster kernel: it reads the compressed rows and positions
-    assert op.positions is not None and op.scatter is None
+    assert op.positions is not None and len(op.positions) == 3
     x, x_pad = _inputs_3d(V, op, 5)
     Tq, Uq, Gu = op.state_qp(x)
     weights = (1.0, 0.37, 0.021)
