@@ -11,14 +11,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    started together, and the meshkit library (g++) beside them;
 2. stencils against plain: the 27-point kernel (K1) on the 3-D cavity
    path's grids and the 9-point kernel (K2) on the 2-D multigrid levels of
-   2,049^2 down, plus ragged grids, against their plain PyTorch versions, in
-   float64 (relative error <= 1e-13 for K1, 1e-12 for K2) and float32
-   (<= 1e-5: another summation order); cuDNN's convolution as the yardstick;
+   2,049^2 down, plus ragged grids (partial tiles, strips and chunks; sides
+   of 1, 2 and 3), against their plain PyTorch versions, in float64
+   (relative error <= 1e-13 for K1, 1e-12 for K2) and float32 (<= 1e-5:
+   another summation order), two calls bitwise equal; at every level grid
+   the operator's launch (StencilLaunch, fixed at construction) bitwise
+   equal to the wrapper's, its wall time, its host µs a call and the
+   checked wrapper's; cuDNN's convolution as the yardstick;
 3. cavity parity: Cavity3DProblem(n=8) in float64 for 3 steps on the card
    and on the CPU: equal per-step iteration counts, U within 1e-10 and the
    mean-removed P within 1e-8;
 4. cavity main path: Cavity3DProblem(n=64), 6,714,692 DoF, float32, the
-   benchmark's box-path settings: 1 warm-up step and 5 timed steps;
+   benchmark's box-path settings: 1 warm-up step and 5 timed steps; K1's
+   launches by grid; fails if the iterations are not BOX_ITERS (K1 sums in
+   the order it always did);
 5. Karman setup: KarmanProblem(lcar=0.02, n_refine=5), 1,905,056 DoF, the
    FastStepper window route with the benchmark's lagged FastStepper
    settings and a P1Hierarchy with window levels from 20,000 dofs;
@@ -92,8 +98,10 @@ Phases, in order; any failure exits non-zero and prints no result:
 16. 2-D structured main path: unit_square_mesh(2048), P1, 4,198,401 DoF,
    float32, the same two solves at rtol 1e-6 with a 6-level
    StructuredHierarchy; fails on no convergence, no K2 launch, a solution
-   more than 1e-4 (relative) from the float64 solve, or a true float64
-   residual above 3e-4 of |b|;
+   more than 1e-4 (relative) from the float64 solve, a true float64
+   residual above 3e-4 of |b|, or if the CG iterations of the two solves
+   and of their float64 references are not STRUCTURED2D_ITERS; K2's
+   launches by grid;
 17. formwin2d: unit_square_mesh(1024) P2, 4,198,401 DoF, float32: 1 + 5
    implicit Euler steps of a rotating convection-diffusion operator
    compiled by formlang, applied by K5 (window_operator) with the mass
@@ -152,14 +160,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    code) of the ELL kernels at every shape of 23 (with the L2 cache warm,
    and cold: after a 64 MB write), K3 2-D lagged and Newton (L2 warm and
    cold), K4b 2-D, the three 3-D kernels (L2 warm and cold; K4b 3-D also at
-   its 2-pass layout), K2, K4a and K5 at NL = 6 and 10 (L2 warm and cold),
+   its 2-pass layout), K1 and K2 at every level grid of their paths (L2
+   warm and cold, the operator's launch) with cuDNN's convolution at the
+   finest, K4a and K5 at NL = 6 and 10 (L2 warm and cold),
    and K4b 2-D and 3-D P2 (L2 warm and cold). Every K4b and K3 2-D row
    also carries host_us: perf_counter over 200 calls enqueued with no
    synchronisation, divided by the count, the least of five such loops;
    the K3 3-D rows the same over 20 calls, the least of three loops.
 
-The line before the last holds the kernel report, the one before it the
-card; the last line is {"ok": true, "device": {...}}. Imports neither jax
+Then K1's and K2's launches by grid on each path, with launches x (device
+time - bound) a grid. The line before the last holds the kernel report, the
+one before it the card; the last line is {"ok": true, "device": {...}}. Imports neither jax
 nor flow_tpu.
 """
 import contextlib
@@ -218,6 +229,14 @@ CAVITY3D_ITERS = {"newton_iters": [1, 2, 2, 2], "linear_iters": [9, 20, 26, 34],
 # along the scatter lists: the lagged route of phase 8 and run_karman_fast's
 # Newton route of phase 10. The cluster walk sums every window row in the
 # same order, so the steps, and these counts, must not move
+# the box cavity's iterations a step at N=64 (phase 4, 1 + 5 steps) and
+# the structured2d solves' CG iterations at 2,049^2 (float32 at rtol 1e-6,
+# the float64 reference at 1e-10) on the card (H100 80GB HBM3) with the
+# one-thread-a-point stencil kernels: the tiled kernels sum every point in
+# the same order, so the steps, and these counts, must not move
+BOX_ITERS = {"linear_iters": [4, 4, 6, 10, 11, 11], "pressure_iters": [4, 4, 3, 3, 3, 3],
+             "correction_iters": [20, 20, 20, 20, 20, 20]}
+STRUCTURED2D_ITERS = {"neumann": [4, 7], "dirichlet": [4, 7]}
 KARMAN_LAGGED_ITERS = {"linear_iters": [3, 2, 3, 2, 3, 3],
                        "pressure_iters": [3, 3, 3, 3, 3, 3],
                        "correction_iters": [6, 6, 8, 8, 8, 8]}
@@ -385,32 +404,52 @@ def phase_build():
         f"(nvcc seconds {secs}) into {_build.BUILD_DIR}")
 
 
+# the grids each stencil runs on along the main paths: K1 on the box
+# cavity's and the 3-D window route's pressure grid and the next level (the
+# 17^3 level is the dense coarse solve), K2 on the structured2d hierarchy's
+# levels 2,049^2 down to 129^2 (65^2 is the dense coarse solve)
+STENCIL_LEVELS = {3: [(65, 65, 65), (33, 33, 33)],
+                  2: [(2049, 2049), (1025, 1025), (513, 513), (257, 257), (129, 129)]}
+STENCIL_KERNEL_NAMES = {3: "stencil27_kernel", 2: "stencil9_kernel"}
+
+
+def _stencil_bound(shape, dim):
+    """The stencil's bound in float32: x read and y written once, 2 3^dim
+    operations a point."""
+    n = int(np.prod(shape))
+    return bound_ms(2 * 4 * n + 4 * 3**dim, 2 * 3**dim * n)
+
+
 def phase_stencil(dim):
     """K1 (dim 3) or K2 (dim 2) against its plain version on the main path's
-    grids (every multigrid level) and ragged ones; the cuDNN convolution of
-    the same stencil as the yardstick at the finest grid. Returns the
-    report of the finest grid in float32 and, to time its device time
-    later, a call of the kernel there."""
+    grids (every multigrid level) and ragged ones, in float64 and float32;
+    the launch of an operator (ops/stencil.StencilLaunch, fixed at
+    construction) bitwise equal to the public wrapper's at every level
+    grid, and the host µs a call of both; the cuDNN
+    convolution of the same stencil as the yardstick at the finest grid.
+    Returns the report of the finest grid in float32, the per-level rows,
+    and the calls whose device times are taken last (L2 warm and cold at
+    every level grid; the convolution)."""
     import torch
     import torch.nn.functional as F
     from flow_tpu_torch.ops import stencil
 
     if dim == 3:
-        shapes = [(65, 65, 65), (33, 33, 33), (17, 17, 17), (9, 9, 9), (5, 5, 5),
-                  (5, 6, 7), (2, 7, 9), (1, 4, 3), (1, 1, 1)]
+        ragged = [(17, 17, 17), (9, 9, 9), (5, 5, 5), (5, 6, 7), (2, 7, 9), (1, 4, 3),
+                  (3, 1, 70), (1, 1, 1)]
         apply, plain, conv, tag = (stencil.stencil_apply_3d, stencil.stencil_apply_3d_plain,
                                    F.conv3d, "stencil")
         tols = {torch.float64: 1e-13, torch.float32: 1e-5}
     else:
-        shapes = [(2049, 2049), (1025, 1025), (513, 513), (257, 257), (129, 129),
-                  (65, 65), (1, 257), (257, 1), (7, 13), (1, 1)]
+        ragged = [(65, 65), (1, 257), (257, 1), (7, 13), (2, 3), (3, 2), (1, 1)]
         apply, plain, conv, tag = (stencil.stencil_apply_2d, stencil.stencil_apply_2d_plain,
                                    F.conv2d, "stencil2d")
         tols = {torch.float64: 1e-12, torch.float32: 1e-5}
+    levels = STENCIL_LEVELS[dim]
     rng = np.random.default_rng(0)
-    report = {}
+    report, rows, jobs = {}, {}, {}
     for dtype, tol in tols.items():
-        for shape in shapes:
+        for shape in levels + ragged:
             x = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device="cuda")
             k = torch.as_tensor(rng.standard_normal((3,) * dim), dtype=dtype,
                                 device="cuda")
@@ -419,6 +458,7 @@ def phase_stencil(dim):
             torch.cuda.synchronize()
             abs_err = float((y - y_plain).abs().max())
             rel_err = abs_err / max(float(y_plain.abs().max()), 1e-300)
+            check(torch.equal(apply(x, k), y), f"{tag} {shape} {dtype}: calls differ")
             reps = 200 if x.numel() > 1000 else 50
             ms = cuda_time_ms(lambda: apply(x, k), reps)
             plain_ms = cuda_time_ms(lambda: plain(x, k), reps)
@@ -426,16 +466,61 @@ def phase_stencil(dim):
                 f"rel_err={rel_err:.3e} kernel_ms={ms:.5f} plain_ms={plain_ms:.5f}")
             check(rel_err <= tol, f"{tag} {shape} {dtype}: rel err {rel_err} > {tol}")
             report[(dtype, shape)] = (abs_err, ms, plain_ms)
+            if dtype != torch.float32 or shape not in levels:
+                continue
+            # the operator's launch, as StructuredLaplacian makes it
+            launch = stencil.StencilLaunch(k, shape)
+            xf = x.reshape(-1)
+            check(torch.equal(launch(xf).reshape(shape), y),
+                  f"{tag} {shape}: StencilLaunch differs from stencil_apply")
+            b_ms, b_by = _stencil_bound(shape, dim)
+            rows[shape] = dict(wall_ms=cuda_time_ms(lambda: launch(xf), reps),
+                               host_us=host_us(lambda: launch(xf)),
+                               host_us_checked=host_us(lambda: apply(x, k)),
+                               bound_ms=b_ms, plan=launch.plan)
+            kname = STENCIL_KERNEL_NAMES[dim]
+            jobs[shape] = {
+                "warm": (lambda launch=launch, xf=xf: launch(xf), kname),
+                # after a 64 MB write, more than the 50 MB L2
+                "cold": (lambda launch=launch, xf=xf: (_l2_flush().zero_(), launch(xf)),
+                         kname)}
+            log(f"[{tag}] {shape} f32 lean launch {launch.plan}: wall_ms="
+                f"{rows[shape]['wall_ms']:.5f} host_us={rows[shape]['host_us']:.3f} "
+                f"(checked wrapper {rows[shape]['host_us_checked']:.3f}) "
+                f"bound_ms={b_ms:.6f} ({b_by})")
     # the yardstick: a cuDNN convolution of the same stencil (TF32 is off)
-    x = torch.as_tensor(rng.standard_normal(shapes[0]), dtype=torch.float32, device="cuda")
+    x = torch.as_tensor(rng.standard_normal(levels[0]), dtype=torch.float32, device="cuda")
     k = torch.as_tensor(rng.standard_normal((3,) * dim), dtype=torch.float32, device="cuda")
     lib_ms = cuda_time_ms(lambda: conv(x[None, None], k[None, None], padding=1), 200)
-    n = x.numel()
-    b_ms, b_by = bound_ms(2 * 4 * n + 4 * 3**dim, 2 * 3**dim * n)
-    abs_err, ms, plain_ms = report[(torch.float32, shapes[0])]
-    log(f"[{tag}] {shapes[0]} f32 conv{dim}d_ms={lib_ms:.5f} bound_ms={b_ms:.6f} ({b_by})")
+    jobs["conv"] = (lambda: conv(x[None, None], k[None, None], padding=1), None)
+    b_ms, b_by = _stencil_bound(levels[0], dim)
+    abs_err, ms, plain_ms = report[(torch.float32, levels[0])]
+    log(f"[{tag}] {levels[0]} f32 conv{dim}d_ms={lib_ms:.5f} bound_ms={b_ms:.6f} ({b_by})")
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms), lambda: apply(x, k)
+                bound_by=b_by, library_ms=lib_ms,
+                host_us=rows[levels[0]]["host_us"]), rows, jobs
+
+
+def _stencil_device_times(tag, row, rows, jobs):
+    """Device ms a call (profiler) at every level grid, L2 warm and cold,
+    into `rows`, the finest grid's into `row`, and cuDNN's convolution at
+    the finest grid; one line a kernel."""
+    for shape, pair in jobs.items():
+        if shape == "conv":
+            row["library_device_ms"] = device_ms(pair[0], 100)
+            continue
+        for temp, (job, kname) in pair.items():
+            rows[shape]["device_ms" if temp == "warm" else "device_cold_ms"] = \
+                device_ms(job, 100, kernel=kname)
+    finest = next(iter(rows))
+    row["device_ms"] = rows[finest]["device_ms"]
+    row["device_cold_ms"] = rows[finest]["device_cold_ms"]
+    log(f"[profile] {tag} device ms a call, L2 warm / cold (lean wall; host us lean / "
+        f"checked; bound): "
+        + ", ".join(f"{s}={r['device_ms']:.5f}/{r['device_cold_ms']:.5f} "
+                    f"({r['wall_ms']:.5f}; {r['host_us']:.3f}/{r['host_us_checked']:.3f}; "
+                    f"{r['bound_ms']:.6f})" for s, r in rows.items())
+        + f"; cuDNN conv device ms at {finest}: {row['library_device_ms']:.5f}")
 
 
 def _cavity_run(n, dtype, device, n_steps, lmax=None):
@@ -478,7 +563,7 @@ def phase_cavity_main():
     import torch
     from flow_tpu_torch.models.cavity3d import Cavity3DProblem
     from flow_tpu_torch.navier_stokes.boxfast import BoxPackedStepper
-    from flow_tpu_torch.ops.stencil import STENCIL_3D
+    from flow_tpu_torch.ops.stencil import GRID_LAUNCHES, STENCIL_3D
 
     t0 = time.perf_counter()
     prob = Cavity3DProblem(n=64, mu=0.01, dtype=torch.float32, device="cuda")
@@ -492,6 +577,7 @@ def phase_cavity_main():
     Uf, Pf = st.zeros()
     torch.cuda.reset_peak_memory_stats()
     STENCIL_3D.launches = 0
+    GRID_LAUNCHES.clear()
     Uf, Pf, dt, tel_w = st.run(Uf, Pf, DT0, n_steps=1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -499,6 +585,7 @@ def phase_cavity_main():
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = STENCIL_3D.launches
+    by_grid = dict(GRID_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
     tel_all = {k: tel_w[k].tolist() + tel[k].tolist() for k in tel}
@@ -506,7 +593,7 @@ def phase_cavity_main():
         f"after 1 warm-up step)")
     for k in ("dt", "linear_iters", "pressure_iters", "correction_iters"):
         log(f"[cavity] {k}: {tel_all[k]}")
-    log(f"[cavity] peak_mem_bytes={peak} stencil_launches={launches}")
+    log(f"[cavity] peak_mem_bytes={peak} stencil_launches={launches} by grid {by_grid}")
     check(bool(torch.isfinite(Uf).all()) and bool(torch.isfinite(Pf).all()),
           "cavity: non-finite state")
     check(bool(torch.isfinite(dt)), "cavity: non-finite dt")
@@ -517,7 +604,10 @@ def phase_cavity_main():
     check(launches > 0, "cavity: the stencil kernel was never launched")
     umax = float(Uf.abs().max())
     check(abs(umax - 1.0) < 1e-6, f"cavity: max |u| {umax} is not the lid speed")
-    return launches
+    check(sum(by_grid.values()) == launches, "cavity: launches by grid do not add up")
+    for key, want in BOX_ITERS.items():
+        check(tel_all[key] == want, f"cavity: {key} {tel_all[key]} are not BOX_ITERS' {want}")
+    return launches, by_grid
 
 
 def _karman(dtype, device, lcar, n_refine, lmax=None, settings=KARMAN_SETTINGS):
@@ -1104,17 +1194,19 @@ def phase_cavity3d_main():
     from flow_tpu_torch.attic.winkernel import WINSTIFF3D
     from flow_tpu_torch.attic.winmom import WINMOM3D, WINMOM3D_NEWTON
     from flow_tpu_torch.models.cavity3d import run_cavity3d_fast
-    from flow_tpu_torch.ops.stencil import STENCIL_3D
+    from flow_tpu_torch.ops.stencil import GRID_LAUNCHES, STENCIL_3D
 
     torch.cuda.reset_peak_memory_stats()
     kernels = {"winmom3d": WINMOM3D, "winmom3d_newton": WINMOM3D_NEWTON,
                "winstiff3d": WINSTIFF3D, "stencil3d": STENCIL_3D}
     for k in kernels.values():
         k.launches = 0
+    GRID_LAUNCHES.clear()
     out = run_cavity3d_fast(num_steps=CAVITY3D_STEPS, n=CAVITY3D_MAIN, winkernel=True,
                             chunk_size=1, dtype=torch.float32, device="cuda")
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in kernels.items()}
+    launches["stencil3d by grid"] = dict(GRID_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     prob, st, tel = out["problem"], out["stepper"], out["telemetry"]
     n_dofs = 3 * prob.V.n_dofs + prob.Q.n_dofs
@@ -1134,7 +1226,7 @@ def phase_cavity3d_main():
               "momentum_converged", "pressure_converged", "correction_converged"):
         log(f"[cavity3d] {k}: {tel[k].tolist()}")
     log(f"[cavity3d] peak_mem_bytes={peak} launches={launches} (per step: "
-        + ", ".join(f"{k} {v / CAVITY3D_STEPS:.1f}" for k, v in launches.items()) + ")")
+        + ", ".join(f"{k} {launches[k] / CAVITY3D_STEPS:.1f}" for k in kernels) + ")")
     check(n_dofs == CAVITY3D_DOFS, f"cavity3d: unexpected n_dofs {n_dofs}")
     check(not st.lagged and st.theta == (0.0, 1.0), "cavity3d: not the driver's defaults")
     U, P = out["U"], out["P"]
@@ -1155,6 +1247,8 @@ def phase_cavity3d_main():
     check(launches["winstiff3d"] == int(tel["pressure_iters"].sum()),
           "cavity3d: K4b 3-D launches do not match the pressure iterations")
     check(launches["stencil3d"] > 0, "cavity3d: the stencil kernel was never launched")
+    check(sum(launches["stencil3d by grid"].values()) == launches["stencil3d"],
+          "cavity3d: stencil launches by grid do not add up")
     for key, want in CAVITY3D_ITERS.items():
         check(tel[key].tolist() == want,
               f"cavity3d: {key} {tel[key].tolist()} are not CAVITY3D_ITERS' {want}")
@@ -1441,7 +1535,7 @@ def phase_structured2d_main():
     x alone puts it near 1e-4)."""
     import torch
     from flow_tpu_torch.mesh import unit_square_mesh
-    from flow_tpu_torch.ops.stencil import STENCIL_2D
+    from flow_tpu_torch.ops.stencil import GRID_LAUNCHES, STENCIL_2D
 
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -1449,7 +1543,7 @@ def phase_structured2d_main():
     log(f"[structured2d] unit_square_mesh({STRUCTURED2D_N}) n_points={mesh.n_points} "
         f"mesh {time.perf_counter() - t0:.1f} s")
     check(mesh.n_points == STRUCTURED2D_DOFS, f"structured2d: n_dofs {mesh.n_points}")
-    launches = 0
+    launches, by_grid = 0, {}
     for bc in ("neumann", "dirichlet"):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1458,9 +1552,13 @@ def phase_structured2d_main():
         setup = time.perf_counter() - t0
         solve()
         STENCIL_2D.launches = 0
+        GRID_LAUNCHES.clear()
         x, info, ms = solve()
         n_launch = STENCIL_2D.launches
         launches += n_launch
+        grids = dict(GRID_LAUNCHES)
+        for g, c in grids.items():
+            by_grid[g] = by_grid.get(g, 0) + c
         peak = torch.cuda.max_memory_allocated() - base
         # the float64 solve of the same problem, and the true residual of
         # the float32 solution in float64
@@ -1473,7 +1571,7 @@ def phase_structured2d_main():
         res = float((b64 - K64(x.double())).norm() / b64.norm())
         log(f"[structured2d] {bc}: levels {[L.grid[0] for L in hier.levels]} setup "
             f"{setup:.1f} s; CG iterations {info.iters} solve_ms={ms:.3f} "
-            f"stencil2d_launches={n_launch} peak_mem_bytes={peak} (above the "
+            f"stencil2d_launches={n_launch} (by grid {grids}) peak_mem_bytes={peak} (above the "
             f"{base} allocated before the phase); against the float64 solve "
             f"({info64.iters} iterations): rel err {err:.3e}, true rel residual "
             f"{res:.3e}")
@@ -1481,13 +1579,18 @@ def phase_structured2d_main():
               f"structured2d ({bc}): CG did not converge")
         check(bool(torch.isfinite(x).all()), f"structured2d ({bc}): non-finite solution")
         check(n_launch > 0, f"structured2d ({bc}): the 2-D stencil kernel was never launched")
+        check(sum(grids.values()) == n_launch,
+              f"structured2d ({bc}): launches by grid do not add up")
+        check([info.iters, info64.iters] == STRUCTURED2D_ITERS[bc],
+              f"structured2d ({bc}): CG iterations {[info.iters, info64.iters]} are not "
+              f"STRUCTURED2D_ITERS' {STRUCTURED2D_ITERS[bc]}")
         # measured on the H100: err 1.8e-5 / 1.1e-5, residual 9.4e-5 / 3.2e-5
         # (Neumann / Dirichlet)
         check(err <= 1e-4, f"structured2d ({bc}): {err} from the float64 solution")
         check(res <= 3e-4, f"structured2d ({bc}): true residual {res}")
         del hier, K, b, x, hier64, K64, b64, x64, x32
     torch.cuda.empty_cache()
-    return launches
+    return launches, by_grid
 
 
 def _bump(points):
@@ -1999,17 +2102,19 @@ def phase_cavity3d_einsum():
     peak memory says whether that fits."""
     import torch
     from flow_tpu_torch.models.cavity3d import run_cavity3d_fast
-    from flow_tpu_torch.ops.stencil import STENCIL_3D
+    from flow_tpu_torch.ops.stencil import GRID_LAUNCHES, STENCIL_3D
 
     counters = {**_ell_counters(), "stencil3d": STENCIL_3D}
     torch.cuda.reset_peak_memory_stats()
     for k in counters.values():
         k.launches = 0
+    GRID_LAUNCHES.clear()
     out = run_cavity3d_fast(num_steps=CAVITY3D_STEPS, n=CAVITY3D_MAIN, winkernel=False,
                             tangent_mode=CAVITY3D_TANGENT, chunk_size=1,
                             dtype=torch.float32, device="cuda")
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in counters.items()}
+    launches["stencil3d by grid"] = dict(GRID_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     prob, st, tel = out["problem"], out["stepper"], out["telemetry"]
     n_dofs = 3 * prob.V.n_dofs + prob.Q.n_dofs
@@ -2168,10 +2273,10 @@ def main():
     t_start = time.perf_counter()
     try:
         phase_build()
-        k1, _ = phase_stencil(3)
-        k2, k2_job = phase_stencil(2)
+        k1, k1_rows, k1_jobs = phase_stencil(3)
+        k2, k2_rows, k2_jobs = phase_stencil(2)
         phase_cavity_parity()
-        k1["launches"] = phase_cavity_main()
+        k1["launches"], box_grids = phase_cavity_main()
         prob, st, hier, setup = phase_karman_setup()
         kwin, win_jobs = phase_window_kernels(st, hier)
         phase_karman_parity(KARMAN_SETTINGS, "karman-parity")
@@ -2189,7 +2294,7 @@ def main():
         del out3
         torch.cuda.empty_cache()
         phase_structured2d_parity()
-        k2["launches"] = phase_structured2d_main()
+        k2["launches"], s2d_grids = phase_structured2d_main()
         k4a, k5, jobs2 = phase_formwin2d()
         (k4b_p2, k4b_p2_job), (k4b3_p2, k4b3_p2_job), nl10 = phase_window_p2()
         phase_window_bigblock()
@@ -2240,7 +2345,8 @@ def main():
             f"{k3d['winstiff3d']['device_ms']:.5f} cold "
             f"{k3d['winstiff3d']['device_cold_ms']:.5f}; "
             + ", ".join(f"{k}={v:.5f}" for k, v in k4b3.items()))
-        k2["device_ms"] = device_ms(k2_job, 100)
+        _stencil_device_times("K1", k1, k1_rows, k1_jobs)
+        _stencil_device_times("K2", k2, k2_rows, k2_jobs)
         # K4a and K5 at NL = 6 (formwin2d) and NL = 10 (tets N=32), L2
         # warm and cold
         (k4a10, jobs4a10), (k5_10, jobs5_10) = nl10
@@ -2347,9 +2453,22 @@ def main():
              **kell[("window", "cavity3d pressure n=274625")]),
     ]
     log(f"[done] launches by path: {json.dumps(paths)}")
+    # the stencils' launches by level on each path, and launches x (device
+    # time - bound) a level: what the path loses to each kernel above its bound
+    for tag, levels, grids in (("stencil3d cavity_box", k1_rows, box_grids),
+                               ("stencil3d cavity3d_window", k1_rows,
+                                launches3["stencil3d by grid"]),
+                               ("stencil3d cavity3d_einsum", k1_rows,
+                                einsum3["stencil3d by grid"]),
+                               ("stencil2d structured2d_poisson", k2_rows, s2d_grids)):
+        loss = {g: c * 1e3 * (levels[g]["device_ms"] - levels[g]["bound_ms"])
+                for g, c in grids.items() if g in levels}
+        log(f"[done] {tag} launches by grid {grids}; launches x (device - bound) us "
+            + ", ".join(f"{g}={v:.1f}" for g, v in loss.items())
+            + f"; sum {sum(loss.values()):.1f}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # host_us: the host µs per call of the K4b and K3 rows
+    # host_us: the host µs per call of the K1, K2, K4b and K3 rows
     print(json.dumps({"kernels": [{k: r[k] for k in keys + ("host_us",) if k in keys or k in r}
                                   for r in rows]}))
     print(smi)

@@ -5,8 +5,8 @@
 # is a 3x3 (2-D) or 3x3x3 (3-D) stencil plus an O(surface) correction on the
 # grid-boundary vertices, whose assembled rows differ from the interior
 # stencil. The stencil runs through ops/stencil.py: the CUDA kernels (K2 in
-# 2-D, K1 in 3-D) for every grid size on the card, the plain version on the
-# CPU.
+# 2-D, K1 in 3-D) for every grid size on the card, through a StencilLaunch
+# fixed at construction, and the plain version on the CPU.
 from __future__ import annotations
 
 import numpy as np
@@ -16,7 +16,7 @@ from ..fem import assembly
 from ..fem.assembly import geometry
 from ..fem.spaces import FunctionSpace
 from ..mesh3d import _device
-from .stencil import stencil_apply_2d, stencil_apply_3d
+from .stencil import StencilLaunch, stencil_apply_2d, stencil_apply_3d
 
 __all__ = ["supports", "StructuredLaplacian"]
 
@@ -55,7 +55,9 @@ class StructuredLaplacian:
     stencil + boundary correction: the P1 stiffness apply on the mesh's
     vertex grid.
     Tables live on `device` (default: the mesh's) in `dtype` (default: the
-    mesh's)."""
+    mesh's). On the card the stencil's launch is fixed at construction
+    (ops/stencil.StencilLaunch, on self.kernel), so that a call checks only
+    x."""
 
     def __init__(self, mesh, device=None, dtype=None):
         assert supports(mesh)
@@ -68,6 +70,8 @@ class StructuredLaplacian:
 
         Kst = _interior_kernel(mesh)  # [3,3(,3)]
         self.kernel = torch.as_tensor(Kst, dtype=self.dtype, device=self.device)
+        self.launch = (StencilLaunch(self.kernel, self.grid)
+                       if self.device.type == "cuda" else None)
 
         # ---- boundary correction (host setup) ------------------------------
         S = FunctionSpace(mesh, 1)
@@ -122,9 +126,12 @@ class StructuredLaplacian:
         self.n = n
 
     def __call__(self, x):
-        xg = x.reshape(self.grid).contiguous()
-        apply = stencil_apply_3d if self.dim == 3 else stencil_apply_2d
-        y = apply(xg, self.kernel).reshape(self.n)
+        if self.launch is not None:
+            y = self.launch(x)
+        else:
+            xg = x.reshape(self.grid).contiguous()
+            apply = stencil_apply_3d if self.dim == 3 else stencil_apply_2d
+            y = apply(xg, self.kernel).reshape(self.n)
         corr = torch.sum(self.tbl_val * x[self.tbl_idx], dim=1)
         # bverts are unique, so index_add_ is deterministic; y is a fresh
         # buffer owned by this call, updated in place

@@ -105,3 +105,30 @@ def test_load_hierarchy_lmax_checks_level_count(meshes):
     th = StructuredHierarchy(tm)
     with pytest.raises(ValueError, match="levels"):
         interop.load_hierarchy_lmax(th, [2.0])
+
+
+# After the launch refactor: on the CPU the operator holds no card launch
+# and takes the plain stencil, and it still matches the JAX operator, on
+# ragged 3-D boxes and 2-D rectangles ('right' and 'left' diagonals).
+@pytest.mark.parametrize("n", [(3, 5, 2), (2, 2, 2), (1, 1, 4)])
+def test_laplacian_on_the_cpu_matches_jax_after_the_launch_refactor(n):
+    jm, tm = _meshes(n)
+    op = StructuredLaplacian(tm)
+    assert op.launch is None
+    x = np.random.default_rng(4).standard_normal(op.n)
+    y_jax = np.asarray(JaxLaplacian(jm)(jnp.asarray(x)))
+    np.testing.assert_allclose(op(torch.as_tensor(x)).numpy(), y_jax, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("n,diagonal", [((7, 3), "right"), ((2, 9), "left"), ((1, 1), "right")])
+def test_laplacian_2d_on_the_cpu_matches_jax_after_the_launch_refactor(n, diagonal):
+    from flow_tpu import mesh as jax_mesh
+    from flow_tpu_torch.mesh import rectangle_mesh
+
+    args = ((0.0, 0.0), (1.5, 0.9), *n, diagonal)
+    op = StructuredLaplacian(rectangle_mesh(*args, dtype=torch.float64, device="cpu"))
+    assert op.launch is None
+    x = np.random.default_rng(5).standard_normal(op.n)
+    jm = jax_mesh.rectangle_mesh(*args, dtype=jnp.float64)
+    y_jax = np.asarray(JaxLaplacian(jm)(jnp.asarray(x)))
+    np.testing.assert_allclose(op(torch.as_tensor(x)).numpy(), y_jax, rtol=0, atol=1e-12)
