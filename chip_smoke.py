@@ -156,7 +156,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    counts; wall times, the plain versions' times, a torch.sparse CSR matvec
    as the yardstick and each kernel's bound from the bytes of the index
    width it reads;
-24. device times (torch.profiler, last, since profiling slows later host
+24. packed parity: the packed-patch route (navier_stokes/patchfast.py, the
+   benchmark's default Karman path) at KarmanProblem(lcar=0.2, n_refine=2)
+   in float64, 3 steps on the card and on the CPU, lambda_max carried
+   across: PackedPatchStepper with BiCGStab at tests/test_patchfast.py's
+   tight tolerances, and run_karman_fast(backend="packed") at its defaults
+   (GMRES, consistent force probe). Equal per-step iteration counts, U
+   within 1e-9 of max|U|, the mean-removed P within 1e-7 of max|P|;
+25. packed main path: the benchmark's PackedPatchStepper (bench.py:78-103:
+   BiCGStab, newton_rtol 1e-2, linear_rtol 1e-1, pressure_rtol 3e-4,
+   correction_rtol 1e-4, smoother degree 3, dt0 1e-4) at lcar=0.02,
+   n_refine=5, 1,905,056 DoF, float32: setup seconds (problem,
+   build_patch_info, PackedPatch, hierarchy), 1 warm-up step and 5 timed
+   steps from rest, peak memory, then one step with its substeps timed.
+   Fails on a non-finite state, an unconverged pressure or correction
+   solve, any hand-kernel launch (none belongs on this path), or if the
+   BiCGStab, pressure and correction iterations are not KARMAN_PACKED_ITERS;
+26. packed driver: run_karman_fast(backend="packed") at its defaults
+   (GMRES) on the same problem, one step per chunk, 1 + 5 steps. Fails on a
+   non-finite state or force, a last drag <= 0 or a hand-kernel launch;
+27. the packed path's launches from torch.profiler (after its timed phases):
+   one step, one momentum apply, one ema_S, one V-cycle;
+28. device times (torch.profiler, last, since profiling slows later host
    code) of the ELL kernels at every shape of 23 (with the L2 cache warm,
    and cold: after a 64 MB write), K3 2-D lagged and Newton (L2 warm and
    cold), K4b 2-D, the three 3-D kernels (L2 warm and cold; K4b 3-D also at
@@ -168,7 +189,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    synchronisation, divided by the count, the least of five such loops;
    the K3 3-D rows the same over 20 calls, the least of three loops.
 
-Then K1's and K2's launches by grid on each path, with launches x (device
+Then every hand kernel's launches by path (karman_packed: 0 for each), and
+K1's and K2's launches by grid on each path, with launches x (device
 time - bound) a grid. The line before the last holds the kernel report, the
 one before it the card; the last line is {"ok": true, "device": {...}}. Imports neither jax
 nor flow_tpu.
@@ -244,6 +266,26 @@ KARMAN_NEWTON_ITERS = {"newton_iters": [1, 1, 2, 1, 2, 2],
                        "linear_iters": [6, 4, 10, 5, 10, 12],
                        "pressure_iters": [4, 4, 3, 3, 3, 3],
                        "correction_iters": [8, 8, 10, 10, 10, 10]}
+# the packed-patch route (navier_stokes/patchfast.py): the benchmark's
+# packed stepper (bench.py:78-103, BENCH_PATCH=packed, BiCGStab momentum)
+PACKED_SETTINGS = dict(
+    newton_tol=0.0, newton_rtol=1e-2, linear_rtol=1e-1, pressure_rtol=3e-4,
+    correction_rtol=1e-4, momentum_solver="bicgstab", mg_smoother_degree=3,
+    cfl_target=1.0, dt_max=1.0,
+)
+# tests/test_patchfast.py:119-123's tight settings, for the parity phase
+PACKED_TIGHT = dict(newton_tol=1e-12, newton_rtol=0.0, pressure_rtol=1e-11,
+                    correction_rtol=1e-11, momentum_solver="bicgstab",
+                    mg_smoother_degree=3)
+PACKED_PARITY = dict(lcar=0.2, n_refine=2)
+PACKED_STEPS = 6  # 1 warm-up + 5 timed
+# the packed main path's iterations a step at 1.9M DoF (1 warm-up + 5 timed
+# steps from rest), pinned from the first run of this phase on the card
+# (H100 80GB HBM3, 700 W): the path runs no hand kernel, and its scatters
+# sum in a fixed order, so the steps, and these counts, must not move
+KARMAN_PACKED_ITERS = {"linear_iters": [3, 2, 3, 3, 3, 3],
+                       "pressure_iters": [3, 3, 3, 3, 3, 3],
+                       "correction_iters": [6, 6, 8, 8, 8, 8]}
 # the einsum 3-D route's Newton tangent: "linearize" keeps x's quadrature
 # tables for a Newton iteration (the JAX default; JAX needed "jvp" where
 # linearize's storage did not fit)
@@ -978,9 +1020,10 @@ def _timed_step(st, U, P, dt):
             return out
         return wrapper
 
-    # the correction substep: the window route's, or NSContext's on the
-    # einsum route
-    owner, name = (st, "_correction") if st.winkernel else (st.ctx, "velocity_correction")
+    # the correction substep: the window route's or the packed stepper's,
+    # or NSContext's on the einsum route
+    owner, name = ((st, "_correction") if getattr(st, "winkernel", True)
+                   else (st.ctx, "velocity_correction"))
     st._pressure_solve = timed("pressure", st._pressure_solve)
     setattr(owner, name, timed("correction", getattr(owner, name)))
     try:
@@ -2247,6 +2290,215 @@ def _ell_device_times(kell, ell_jobs):
                     for k, v in kell.items()))
 
 
+def _hand_kernels():
+    """Every hand kernel's launch counter (flow_tpu_torch._build.Kernel), by
+    its module-level name."""
+    from flow_tpu_torch import _build
+    from flow_tpu_torch.attic import winform, winkernel, winmom
+    from flow_tpu_torch.fem import ell
+    from flow_tpu_torch.ops import stencil
+
+    return {name: k for mod in (stencil, ell, winmom, winkernel, winform)
+            for name, k in vars(mod).items() if isinstance(k, _build.Kernel)}
+
+
+def _packed_stepper(prob, **settings):
+    from flow_tpu_torch.fem.patch import build_patch_info
+    from flow_tpu_torch.navier_stokes.patchfast import PackedPatchStepper
+
+    t0 = time.perf_counter()
+    info = build_patch_info(prob.mesh_hierarchy)
+    t1 = time.perf_counter()
+    st = PackedPatchStepper(prob.V, prob.Q, prob.u_bcs, prob.p_bcs, prob.rho,
+                            prob.mu, info, **settings)
+    setup = {"build_patch_info": t1 - t0, **st.setup_seconds,
+             "stepper": time.perf_counter() - t1}
+    return st, setup
+
+
+def phase_packed_parity():
+    """The packed route at KarmanProblem(lcar=0.2, n_refine=2) in float64, 3
+    steps on the CPU and on the card, lambda_max carried across: the
+    PackedPatchStepper with BiCGStab at the tight tolerances, and
+    run_karman_fast(backend="packed") at its defaults (GMRES, consistent
+    force probe). Equal per-step iteration counts, U within 1e-9 of max|U|
+    and the mean-removed P within 1e-7 of max|P|."""
+    import torch
+    from flow_tpu_torch import interop
+    from flow_tpu_torch.models.karman import KarmanProblem, run_karman_fast
+
+    runs, lmax = {}, None
+    for device in ("cpu", "cuda"):
+        prob = KarmanProblem(dtype=torch.float64, device=device, **PACKED_PARITY)
+        st, _ = _packed_stepper(prob, **PACKED_TIGHT)
+        if lmax is None:
+            lmax = [L.lmax for L in st.hierarchy.levels]
+        interop.load_hierarchy_lmax(st.hierarchy, lmax)
+        U, P, _, tel = st.run(*st.zeros(), 1e-3, 3)
+        U, P = st.from_packed_state(U, P)
+        out = run_karman_fast(num_steps=3, backend="packed", convection="lagged",
+                              problem=prob, lmax=lmax)
+        runs[device] = {"stepper": (U.cpu(), P.cpu(), tel),
+                        "driver": (out["u"].cpu(), out["p"].cpu(), out["telemetry"])}
+        _check_solves(tel, f"packed-parity stepper ({device})")
+        _check_solves(out["telemetry"], f"packed-parity driver ({device})")
+    for what in ("stepper", "driver"):
+        (U_c, P_c, tel_c), (U_g, P_g, tel_g) = runs["cpu"][what], runs["cuda"][what]
+        for key in ("newton_iters", "linear_iters", "pressure_iters", "correction_iters"):
+            a, b = list(tel_g[key].tolist()), list(tel_c[key].tolist())
+            log(f"[packed-parity] {what} {key}: cuda={a} cpu={b}")
+            check(a == b, f"packed parity: {what} {key} differ (cuda {a}, cpu {b})")
+        umax, pmax = float(U_c.abs().max()), float(P_c.abs().max())
+        du = float((U_g - U_c).abs().max())
+        dp = P_g - P_c
+        dp = float((dp - dp.mean()).abs().max())
+        msg = (f"max|dU|={du:.3e} (max|U| {umax:.3e}) max|dP - mean|={dp:.3e} "
+               f"(max|P| {pmax:.3e})")
+        if what == "driver":
+            F_c, F_g = tel_c["forces"], tel_g["forces"]
+            msg += f" forces rel {float(np.abs(F_g - F_c).max() / np.abs(F_c).max()):.3e}"
+        log(f"[packed-parity] {what} {msg}")
+        check(du <= 1e-9 * umax, f"packed parity: {what} U differs by {du}")
+        check(dp <= 1e-7 * pmax, f"packed parity: {what} P differs by {dp}")
+
+
+def _profiled_launches(fn):
+    """(device events, kernel launch calls) of one call of fn, from
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    cuda = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    calls = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                "cudaLaunchKernelExC"))
+    return cuda, calls
+
+
+def phase_packed_main():
+    """The benchmark's packed stepper at 1.9M DoF in float32: 1 warm-up step
+    and 5 timed steps from rest, then one step with its substeps timed. No
+    hand kernel belongs on this path: every launch is PyTorch's."""
+    import torch
+    from flow_tpu_torch.models.karman import KarmanProblem
+
+    # the path's own peak: its tables and its run, above what earlier
+    # phases still hold
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    prob = KarmanProblem(dtype=torch.float32, device="cuda", **KARMAN_MAIN)
+    t_prob = time.perf_counter() - t0
+    st, setup = _packed_stepper(prob, **PACKED_SETTINGS)
+    torch.cuda.synchronize()
+    setup = {"problem": t_prob, **setup, "total": time.perf_counter() - t0}
+    pp = st.pp
+    log(f"[packed] {KARMAN_MAIN} n_dofs={prob.n_dofs} float32 C={pp.info.C} "
+        f"n={pp.info.n} n2={pp.n2} n1={pp.n1} levels="
+        f"{[L.lay.n_flat for L in st.hierarchy.levels]}")
+    log("[packed] setup s: " + ", ".join(f"{k}={v:.2f}" for k, v in setup.items()))
+    check(prob.n_dofs == KARMAN_DOFS, f"packed: unexpected n_dofs {prob.n_dofs}")
+
+    hand = _hand_kernels()
+    for k in hand.values():
+        k.launches = 0
+    U, P = st.zeros()
+    U, P, dt, tel_w = st.run(U, P, KARMAN_DT0, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U, P, dt, tel = st.run(U, P, dt, PACKED_STEPS - 1)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in hand.items()}
+    peak = torch.cuda.max_memory_allocated() - base
+
+    tel_all = {k: tel_w[k].tolist() + tel[k].tolist() for k in tel}
+    n_timed = PACKED_STEPS - 1
+    log(f"[packed] steps/s={n_timed / elapsed:.4f} ({n_timed} steps in {elapsed:.3f} s, "
+        f"after 1 warm-up step; setup {setup['total']:.1f} s)")
+    for k in ("dt", "linear_iters", "pressure_iters", "correction_iters"):
+        log(f"[packed] {k}: {tel_all[k]}")
+    log(f"[packed] peak_mem_bytes={peak} (tables and run, above the {base} bytes "
+        f"earlier phases hold) hand-kernel launches={launches}")
+    check(bool(torch.isfinite(U).all()) and bool(torch.isfinite(P).all()),
+          "packed: non-finite state")
+    check(bool(torch.isfinite(dt)), "packed: non-finite dt")
+    for key in ("pressure_converged", "correction_converged"):
+        check(all(tel_all[key]), f"packed: a {key.split('_')[0]} solve did not converge")
+    check(not any(launches.values()), f"packed: a hand kernel was launched: {launches}")
+    counts = {k: tel_all[k] for k in ("linear_iters", "pressure_iters", "correction_iters")}
+    check(counts == KARMAN_PACKED_ITERS,
+          f"packed: iterations {counts} are not KARMAN_PACKED_ITERS' {KARMAN_PACKED_ITERS}")
+    Ug, Pg = st.from_packed_state(U, P)
+    umax = float(Ug.abs().max())
+    check(0.0099 <= umax <= 0.1, f"packed: max |u| {umax} out of range")
+    times = _timed_step(st, U, P, dt)
+    log("[packed] substeps ms (one synchronised step): "
+        + ", ".join(f"{k}={v:.2f}" for k, v in times.items()))
+    return prob, st, (U, P, dt), launches
+
+
+def phase_packed_driver(prob):
+    """run_karman_fast(backend="packed") at its defaults (GMRES, backward
+    Euler, consistent force probe) at 1.9M DoF, one step per chunk: 1
+    warm-up and 5 timed steps."""
+    import torch
+    from flow_tpu_torch.models.karman import run_karman_fast
+
+    hand = _hand_kernels()
+    for k in hand.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = run_karman_fast(num_steps=PACKED_STEPS, chunk_size=1, backend="packed",
+                          convection="lagged", problem=prob)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in hand.items()}
+    st, tel = out["stepper"], out["telemetry"]
+    timed = sum(out["chunk_seconds"][1:])
+    log(f"[packed-driver] run_karman_fast backend=packed {KARMAN_MAIN} float32 "
+        f"momentum_solver={st.mom_solver}: steps/s={(PACKED_STEPS - 1) / timed:.4f} "
+        f"(after 1 warm-up step of {out['chunk_seconds'][0]:.3f} s; setup "
+        f"{total - sum(out['chunk_seconds']):.1f} s)")
+    for k in ("dt", "linear_iters", "pressure_iters", "correction_iters"):
+        log(f"[packed-driver] {k}: {tel[k].tolist()}")
+    log(f"[packed-driver] drag: {tel['forces'][:, 0].tolist()}")
+    log(f"[packed-driver] lift: {tel['forces'][:, 1].tolist()}")
+    U, P = out["u"], out["p"]
+    check(tuple(U.shape) == (prob.V.n_dofs, 2) and tuple(P.shape) == (prob.Q.n_dofs,),
+          "packed driver: state of the wrong shape")
+    check(bool(torch.isfinite(U).all()) and bool(torch.isfinite(P).all()),
+          "packed driver: non-finite state")
+    check(np.isfinite(tel["forces"]).all(), "packed driver: non-finite forces")
+    check(tel["forces"][-1, 0] > 0, "packed driver: the last step's drag is not positive")
+    check(st.mom_solver == "gmres", "packed driver: not the driver's default GMRES")
+    check(not any(launches.values()), f"packed driver: a hand kernel was launched: {launches}")
+    return out
+
+
+def phase_packed_launches(st, state):
+    """Launches of the packed path from torch.profiler (run after the timed
+    phases: a profiler session slows later host code): one step, one
+    momentum apply (the EMA volume apply and the ds tangents) and one
+    ema_S."""
+    U, P, dt = state
+    A = st._mom_operator(U, dt)
+    s = dt / st.rho
+    rows = {"step": _profiled_launches(lambda: st._step_impl(U, P, dt)),
+            "momentum apply": _profiled_launches(lambda: A(U)),
+            "ema_S": _profiled_launches(lambda: st.pp.ema_S(U, s * st.mu, s * st.rho)),
+            "V-cycle": _profiled_launches(lambda: st.pressure_precond(P))}
+    log("[packed] launches from the profiler (device events, launch calls): "
+        + ", ".join(f"{k}={v[0]}/{v[1]}" for k, v in rows.items()))
+    check(rows["step"][0] > 0, "packed: the profiler shows no device event in a step")
+    return rows
+
+
 def main():
     # a workspace setting under which cuBLAS is deterministic, for the
     # references run under deterministic() (read when cuBLAS starts)
@@ -2314,6 +2566,15 @@ def main():
         torch.cuda.empty_cache()
         for name, (n, band, K) in ELL_PROBES.items():
             _ell_report(name, _banded_ell(n, band, K, seed=0), kell, ell_jobs)
+        # the packed-patch route (the bench's default Karman path): no hand
+        # kernel, every launch PyTorch's; its profiler counts come after its
+        # timed phases
+        phase_packed_parity()
+        prob_p, st_p, state_p, packed = phase_packed_main()
+        packed_driver = phase_packed_driver(prob_p)
+        phase_packed_launches(st_p, state_p)
+        del prob_p, st_p, state_p, packed_driver
+        torch.cuda.empty_cache()
         # device times from the profiler, last: a profiler session slows
         # later host code in the process
         _ell_device_times(kell, ell_jobs)
@@ -2401,7 +2662,22 @@ def main():
              "ell_direct": {"karman_einsum": einsum["ell_direct"],
                             "cavity3d_einsum": einsum3["ell_direct"]},
              "ell_window": {"karman_einsum": einsum["ell_window"],
-                            "cavity3d_einsum": einsum3["ell_window"]}}
+                            "cavity3d_einsum": einsum3["ell_window"]},
+             "winmom_newton": {"karman_newton": newton["winmom_newton"]},
+             "winmom3d": {"cavity3d_window": launches3["winmom3d"]},
+             "winmom3d_newton": {"cavity3d_window": launches3["winmom3d_newton"]},
+             "winstiff3d": {"cavity3d_window": launches3["winstiff3d"]}}
+    # the packed Karman path launches none of them
+    counter_of = {"winmom": "WINMOM", "winstiff": "WINSTIFF", "stencil3d": "STENCIL_3D",
+                  "stencil2d": "STENCIL_2D", "winmass": "WINMASS", "winform": "WINFORM",
+                  "winstiff_p2": "WINSTIFF_P2", "winstiff3d_p2": "WINSTIFF3D_P2",
+                  "ell_direct": "ELL_DIRECT", "ell_window": "ELL_WINDOW",
+                  "winmom_newton": "WINMOM_NEWTON", "winmom3d": "WINMOM3D",
+                  "winmom3d_newton": "WINMOM3D_NEWTON", "winstiff3d": "WINSTIFF3D"}
+    check(sorted(counter_of.values()) == sorted(packed),
+          f"the launches by path name {sorted(counter_of.values())}, not {sorted(packed)}")
+    for name, counter in counter_of.items():
+        paths[name]["karman_packed"] = packed[counter]
     rows = [
         dict(name="stencil_apply_3d", route="cuda",
              source="flow_tpu_torch/csrc/stencil3d.cu",

@@ -1,7 +1,8 @@
 # Weak-form operators of the incompressible-flow forms. Port of
 # flow_tpu/fem/forms.py, cut to what FastStepper's window and einsum routes
-# (2-D Karman, 3-D cavity) call (forms.py:59-298 of the JAX package); every
-# form takes triangles and tets alike.
+# (2-D Karman, 3-D cavity) and the packed-patch route (fem/patchpack.py:
+# ref_p1_integrals; its tests: sym_grad_apply, pressure_grad_rhs) call;
+# every form takes triangles and tets alike.
 #
 # Torch on the state's device: `geom` is an assembly.geometry_on view
 # (detJ, G, C tensors), tabulations come from assembly.Tab.on. Vector fields
@@ -13,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import assembly, elements
+from . import assembly, elements, quadrature
 from .assembly import ref_mixed, ref_stiffness
 
 __all__ = [
@@ -29,6 +30,9 @@ __all__ = [
     "grad_div_ustar",
     "grad_div_ustar_rhs",
     "grad_phi_rhs",
+    "sym_grad_apply",
+    "pressure_grad_rhs",
+    "ref_p1_integrals",
 ]
 
 _CONST = {}
@@ -193,3 +197,22 @@ def grad_phi_rhs(V, Q, geom, phi, div_part=None, rule_degree=3):
     if div_part is not None:
         gphi = gphi + div_part[:, None, :]
     return assembly.integrate_rhs(V, tab, geom, val=gphi)
+
+
+def sym_grad_apply(V, geom, U, mu):
+    """y = 2 mu int eps(u):eps(v), the viscous part of the stress form:
+    2 eps(u):eps(v) = grad(u):grad(v) + grad(u)^T:grad(v)."""
+    return V.dof_sum(sym_grad_loc(V, geom, V.gather(U), mu))
+
+
+def pressure_grad_rhs(V, Q, geom, P):
+    """b[(i,a)] = int p d_a(v_i) (exact): the `+ p div(v)` part of the
+    stress form."""
+    return V.dof_sum(pressure_grad_loc(V, Q, geom, Q.gather(P)))
+
+
+def ref_p1_integrals(degree, dim=2):
+    """int_ref phi_i for the given degree (exact), host numpy."""
+    pts, w = quadrature.simplex_rule(degree + 1, dim)
+    phi, _ = elements.tabulate(degree, pts, dim=dim)
+    return np.einsum("q,qi->i", w, phi)

@@ -21,8 +21,9 @@ def state_to_torch(U, P, dtype=torch.float64, device=None, Um1=None):
 
     The port numbers dofs as the JAX package does, so a state of one
     package is a state of the other: the states (U [n_V, dim], P [n_Q]) of
-    navier_stokes/fast.py (Karman in 2-D, the cavity in 3-D), and the
-    packed box state (Uf [3*n2], Pf [n1]) of fem/boxpack.py."""
+    navier_stokes/fast.py (Karman in 2-D, the cavity in 3-D), the packed
+    box state (Uf [3*n2], Pf [n1]) of fem/boxpack.py and the packed patch
+    state (Uf [2*n2], Pf [n1]) of navier_stokes/patchfast.py."""
     device = _device(device)
     out = tuple(torch.tensor(np.asarray(a), dtype=dtype, device=device)
                 for a in (U, P) + (() if Um1 is None else (Um1,)))
@@ -38,8 +39,9 @@ def state_to_numpy(U, P, Um1=None):
 
 def load_hierarchy_lmax(hierarchy, lmax):
     """Set the per-level lambda_max estimates (coarse to fine, as floats) of
-    a StructuredHierarchy or P1Hierarchy and recompute each level's
-    Chebyshev theta and delta.
+    a StructuredHierarchy, P1Hierarchy or PackedPatchP1Hierarchy (the packed
+    stepper's `hierarchy`) and recompute each level's Chebyshev theta and
+    delta.
 
     The power iteration starts from a random vector, and torch.Generator
     cannot reproduce jax.random's bits: without this the Chebyshev

@@ -4,8 +4,9 @@
 # mesh hierarchy for multigrid, the P2/P1 spaces, the boundary conditions,
 # the drag/lift probes), schafer_turek_problem, strouhal_number and the
 # high-throughput driver run_karman_fast on FastStepper's einsum route (the
-# JAX driver's) or its window route. The Stokes bootstrap, the host-stepped
-# run_karman and the packed backend are not ported.
+# JAX driver's) or its window route, or on PackedPatchStepper
+# (backend="packed", the bench's default path). The Stokes bootstrap and
+# the host-stepped run_karman are not ported.
 from __future__ import annotations
 
 import os
@@ -224,35 +225,45 @@ def run_karman_fast(
     device=None,
     dtype=None,
 ):
-    """The high-throughput Karman driver: FastStepper runs chunks of
+    """The high-throughput Karman driver: the stepper runs chunks of
     `chunk_size` steps with the CFL controller on the device, multigrid-
     preconditioned pressure solves and per-step drag/lift telemetry, and
     writes (U, P, dt) (BDF2: also Um1, dtp) to `checkpoint_path` after
     every chunk; resume=True continues from it. The checkpoint is the JAX
-    package's npz format, so a JAX-written one resumes here.
+    package's npz format in the global layout, so a JAX-written one (or one
+    of another backend) resumes here.
 
-    The route is FastStepper's. The default, winkernel=False, is the einsum
-    route with the assembled-ELL pressure operator, which is what the JAX
-    driver runs (it never sets FLOW_WINKERNEL), so the two drivers take the
-    same steps; winkernel=True is the window-kernel route (winkernel_S pins
-    the window stride). tangent_mode is the einsum Newton tangent's
-    ("linearize" or "jvp", FastStepper). lmax: the multigrid hierarchy's
-    per-level lambda_max (coarse to fine), e.g. the JAX package's, instead
-    of the power iteration's estimate. `device` and
-    `dtype` are those of the problem built here (defaults: the card,
-    torch's default dtype); a given `problem` brings its own. Pass
-    problem= (e.g. schafer_turek_problem(...)) for another channel.
-    Returns the state as tensors (u [n_V, 2], p [n_Q]), the last dt, the
-    telemetry as numpy arrays (t rebuilt from the dt series) and the host
-    seconds of each chunk."""
+    backend="fast" (the default) runs FastStepper. winkernel=False is its
+    einsum route with the assembled-ELL pressure operator, which is what the
+    JAX driver runs (it never sets FLOW_WINKERNEL), so the two drivers take
+    the same steps; winkernel=True is the window-kernel route (winkernel_S
+    pins the window stride). tangent_mode is the einsum Newton tangent's
+    ("linearize" or "jvp", FastStepper).
+
+    backend="packed" runs PackedPatchStepper (navier_stokes/patchfast.py)
+    on the packed patch layouts of the problem's refinement hierarchy, with
+    its own PackedPatchP1Hierarchy and the stepper's default GMRES momentum
+    solve: lagged convection only, and n_refine >= 1 (anything else raises
+    ValueError). The state stays packed for the whole run; a global-layout
+    initial_state or checkpoint is packed once, checkpoints are written in
+    the global layout, and the returned u/p are global.
+
+    lmax: the pressure multigrid hierarchy's per-level lambda_max (coarse to
+    fine), e.g. the JAX package's, instead of the power iteration's
+    estimate. `device` and `dtype` are those of the problem built here
+    (defaults: the card, torch's default dtype); a given `problem` brings
+    its own. Pass problem= (e.g. schafer_turek_problem(...)) for another
+    channel. Returns the state as tensors (u [n_V, 2], p [n_Q]), the last
+    dt, the telemetry as numpy arrays (t rebuilt from the dt series) and the
+    host seconds of each chunk."""
     from ..io import load_checkpoint, save_checkpoint
-    from ..navier_stokes.fast import FastStepper
 
-    if backend == "packed":
-        raise NotImplementedError(
-            "run_karman_fast: the packed backend (PackedPatchStepper) is not "
-            "ported (ROADMAP queue 1 item 1)"
-        )
+    if backend not in ("fast", "packed"):
+        raise ValueError(f"run_karman_fast: unknown backend {backend!r}")
+    packed = backend == "packed"
+    if packed and convection != "lagged":
+        raise ValueError("run_karman_fast: the packed backend is lagged-only "
+                         f"(convection={convection!r})")
     if initial_state is None and not from_rest:
         raise NotImplementedError(
             "run_karman_fast: the Stokes bootstrap (from_rest=False) is not "
@@ -261,6 +272,9 @@ def run_karman_fast(
     if problem is None:
         problem = KarmanProblem(lcar=lcar, n_refine=n_refine, mu=mu,
                                 dtype=dtype, device=device)
+    if packed and len(problem.mesh_hierarchy) < 2:
+        raise ValueError("run_karman_fast: the packed backend needs a refined "
+                         "hierarchy (n_refine >= 1)")
 
     if force_probe == "consistent":
         forces_probe = problem.consistent_force_probe()
@@ -269,47 +283,78 @@ def run_karman_fast(
     else:
         raise ValueError(f"run_karman_fast: unknown force_probe {force_probe!r}")
 
-    stepper = FastStepper(
-        problem.V, problem.Q, problem.u_bcs, problem.p_bcs, problem.rho,
-        problem.mu, time_step_method=time_step_method, rotational_form=True,
-        convection=convection, newton_tol=0.0, newton_rtol=newton_rtol,
-        newton_maxiter=newton_maxiter, linear_rtol=linear_rtol,
-        ew_forcing=ew_forcing, pressure_rtol=pressure_rtol,
-        correction_rtol=correction_rtol, cfl_target=cfl_target, dt_max=dt_max,
-        forces_probe=forces_probe, winkernel=winkernel, winkernel_S=winkernel_S,
-        tangent_mode=tangent_mode,
-    )
-    if use_multigrid and n_refine > 0:
-        from ..solvers.multigrid import P1Hierarchy
+    if packed:
+        from ..fem.patch import build_patch_info
+        from ..navier_stokes.patchfast import PackedPatchStepper
 
-        # every level ELL on the einsum route; the window route's finest
-        # level reuses the pressure operator
-        hier = P1Hierarchy(problem.mesh_hierarchy, bc_mask=stepper.mask_p,
-                           smoother_degree=3, winkernel=winkernel,
-                           fine_window=stepper.K_Q if winkernel else None)
-        if lmax is not None:
-            from ..interop import load_hierarchy_lmax
-
-            load_hierarchy_lmax(hier, lmax)
-        stepper.pressure_precond = hier.v_cycle
-
-    if initial_state is not None:
-        U, P = initial_state  # e.g. a perturbed state to trigger shedding
+        stepper = PackedPatchStepper(
+            problem.V, problem.Q, problem.u_bcs, problem.p_bcs, problem.rho,
+            problem.mu, build_patch_info(problem.mesh_hierarchy),
+            time_step_method=time_step_method, newton_tol=0.0,
+            newton_rtol=newton_rtol, linear_rtol=linear_rtol,
+            pressure_rtol=pressure_rtol, correction_rtol=correction_rtol,
+            cfl_target=cfl_target, dt_max=dt_max, forces_probe=forces_probe,
+        )
+        hier = stepper.hierarchy
     else:
-        U, P = stepper.zeros()
+        from ..navier_stokes.fast import FastStepper
+
+        stepper = FastStepper(
+            problem.V, problem.Q, problem.u_bcs, problem.p_bcs, problem.rho,
+            problem.mu, time_step_method=time_step_method, rotational_form=True,
+            convection=convection, newton_tol=0.0, newton_rtol=newton_rtol,
+            newton_maxiter=newton_maxiter, linear_rtol=linear_rtol,
+            ew_forcing=ew_forcing, pressure_rtol=pressure_rtol,
+            correction_rtol=correction_rtol, cfl_target=cfl_target, dt_max=dt_max,
+            forces_probe=forces_probe, winkernel=winkernel, winkernel_S=winkernel_S,
+            tangent_mode=tangent_mode,
+        )
+        hier = None
+        if use_multigrid and n_refine > 0:
+            from ..solvers.multigrid import P1Hierarchy
+
+            # every level ELL on the einsum route; the window route's finest
+            # level reuses the pressure operator
+            hier = P1Hierarchy(problem.mesh_hierarchy, bc_mask=stepper.mask_p,
+                               smoother_degree=3, winkernel=winkernel,
+                               fine_window=stepper.K_Q if winkernel else None)
+            stepper.pressure_precond = hier.v_cycle
+    if lmax is not None and hier is not None:
+        from ..interop import load_hierarchy_lmax
+
+        load_hierarchy_lmax(hier, lmax)
 
     def on_device(a):
         return torch.as_tensor(a, dtype=stepper.dtype, device=stepper.device)
+
+    def to_run_layout(U, P, Um1=None):
+        """A global-layout state -> the packed one on the packed backend."""
+        U, P = on_device(U), on_device(P)
+        Um1 = None if Um1 is None else on_device(Um1)
+        if packed and U.dim() == 2:
+            U, P = stepper.to_packed_state(U, P)
+            Um1 = None if Um1 is None else stepper.pack_vec(Um1)
+        return U, P, Um1
+
+    if initial_state is not None:
+        U, P, _ = to_run_layout(*initial_state)  # e.g. a perturbed state
+    else:
+        U, P = stepper.zeros()
 
     # checkpoint/resume of (U, P, dt); BDF2 also carries (Um1, dtp) so
     # chained runs stay second order
     Um1, dtp = None, None
     if resume and checkpoint_path and os.path.exists(checkpoint_path):
         arrays, scalars = load_checkpoint(checkpoint_path)
-        U, P = on_device(arrays["U"]), on_device(arrays["P"])
+        has_um1 = stepper.bdf2 and "Um1" in arrays
+        U, P, Um1 = to_run_layout(arrays["U"], arrays["P"],
+                                  arrays["Um1"] if has_um1 else None)
         dt0 = scalars["dt"]
-        if stepper.bdf2 and "Um1" in arrays:
-            Um1, dtp = on_device(arrays["Um1"]), scalars["dtp"]
+        if has_um1:
+            dtp = scalars["dtp"]
+
+    def global_state(U, P):
+        return stepper.from_packed_state(U, P) if packed else (U, P)
 
     chunk = min(num_steps, chunk_size)
     n_chunks, rem = divmod(num_steps, chunk)
@@ -318,9 +363,10 @@ def run_karman_fast(
 
     def save():
         if checkpoint_path:
-            arrays, scalars = {"U": U, "P": P}, {"dt": float(dt)}
+            Ug, Pg = global_state(U, P)
+            arrays, scalars = {"U": Ug, "P": Pg}, {"dt": float(dt)}
             if stepper.bdf2 and Um1 is not None:
-                arrays["Um1"] = Um1
+                arrays["Um1"] = global_state(Um1, P)[0]
                 scalars["dtp"] = float(dtp)
             save_checkpoint(checkpoint_path, arrays, scalars)
 
@@ -346,6 +392,7 @@ def run_karman_fast(
     telemetry = {k: np.concatenate([t[k] for t in tels]) for k in tels[0]}
     # each chunk's time axis restarts at 0: rebuild it from the dt series
     telemetry["t"] = np.cumsum(telemetry["dt"])
+    U, P = global_state(U, P)
     return {
         "problem": problem,
         "stepper": stepper,

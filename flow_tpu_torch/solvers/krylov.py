@@ -1,10 +1,12 @@
-# Matrix-free Krylov solvers. Port of flow_tpu/solvers/krylov.py (cg and
-# bicgstab; gmres and minres are not ported yet).
+# Matrix-free Krylov solvers. Port of flow_tpu/solvers/krylov.py (cg,
+# bicgstab and gmres; minres is not ported yet).
 #
 # The JAX solvers run inside lax.while_loop. Here the loop is a Python loop
-# whose stopping test reads one boolean from the device per iteration; the
-# rest of the iteration stays on the device. The order of operations and the
-# division guards are the JAX package's, so the iteration counts match it.
+# whose stopping test reads from the device once per iteration; the rest of
+# the iteration stays on the device (GMRES keeps its small Givens
+# bookkeeping on the host, in the working precision). The order of
+# operations and the division guards are the JAX package's, so the
+# iteration counts match it.
 #
 # All solvers take the operator A as a callable x -> A x and return
 # (x, SolveInfo); the stopping rule is the unpreconditioned residual 2-norm,
@@ -13,9 +15,10 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
-__all__ = ["SolveInfo", "cg", "bicgstab"]
+__all__ = ["SolveInfo", "cg", "bicgstab", "gmres"]
 
 
 class SolveInfo(NamedTuple):
@@ -154,3 +157,113 @@ def bicgstab(
         rho = rho_new
         k += 1
     return x, SolveInfo(k, rnorm, rnorm <= target)
+
+
+def gmres(
+    A: Callable,
+    b,
+    x0=None,
+    M: Optional[Callable] = None,
+    rtol=1e-10,
+    atol=0.0,
+    maxiter=1000,
+    restart=40,
+    dot: Optional[Callable] = None,
+    basis_dtype=None,
+    reduce: Optional[Callable] = None,
+):
+    """Restarted GMRES(m) with right preconditioning (A M z = b, x = M z),
+    so that the Givens recurrence tracks the true residual norm.
+
+    Arnoldi by batched modified Gram-Schmidt against the stored basis
+    [m+1, N] with one re-orthogonalisation pass; Givens rotations; a cycle
+    stops when |g_j| <= max(rtol |b|, atol), after m iterations, or on a
+    breakdown (h_{j+1,j} <= 10 tiny). `iters` is the sum of the cycles'
+    iterations, and the reported residual is the true one, b - A x. `dot`
+    overrides the inner product of the norms (the projections are plain
+    sums, as in the JAX package; a weighted metric is conjugated by its
+    square root by the caller). `reduce` sums the projections' [m+1]
+    vector across devices where the vectors are sharded (identity by
+    default). One device->host read per iteration carries the new Hessenberg
+    column; the rotations and the triangular solve run on the host in the
+    working precision. basis_dtype (a reduced-precision basis) is not
+    ported."""
+    if basis_dtype is not None:
+        raise NotImplementedError(
+            "gmres: a reduced-precision Arnoldi basis (basis_dtype) is not "
+            "ported (ROADMAP queue 1 item 5)"
+        )
+    M = M or _identity
+    _dot_ = dot or _dot
+    _red_ = reduce or _identity
+    x = torch.zeros_like(b) if x0 is None else x0
+    shape = b.shape
+    N = b.numel()
+    m = int(restart)
+    real = np.float32 if b.dtype == torch.float32 else np.float64
+    tiny10 = real(np.finfo(real).tiny) * real(10.0)
+
+    def host(t):
+        return real(t.item())
+
+    bnorm = torch.sqrt(_dot_(b, b))
+    target = max(real(rtol) * host(bnorm), real(atol))
+    r0 = b if x0 is None else b - A(x)
+    rnorm = host(torch.sqrt(_dot_(r0, r0)))
+    V = torch.empty((m + 1, N), dtype=b.dtype, device=b.device)
+
+    def cycle(x, r, beta):
+        """One restart cycle from residual r of norm beta (a 0-d tensor)
+        -> (x, |g_j|, j)."""
+        beta_h = host(beta)
+        V[0] = r.reshape(N) / _nz(beta)
+        R = np.zeros((m + 1, m), dtype=real)  # rotated Hessenberg columns
+        cs = np.zeros(m, dtype=real)
+        sn = np.zeros(m, dtype=real)
+        g = np.zeros(m + 1, dtype=real)
+        g[0] = beta_h
+        j, brk = 0, False
+        while j < m and abs(g[j]) > target and not brk:
+            Vj = V[: j + 1]
+            w = A(M(V[j].view(shape))).reshape(N)
+            h = _red_(Vj @ w)
+            w = w - h @ Vj
+            h2 = _red_(Vj @ w)
+            w = w - h2 @ Vj
+            h = h + h2
+            hj1 = torch.sqrt(_dot_(w.view(shape), w.view(shape)))
+            col = torch.cat([h, hj1.reshape(1)]).cpu().numpy().astype(real)
+            brk = bool(col[j + 1] <= tiny10)
+            V[j + 1] = torch.where(hj1 <= float(tiny10), torch.zeros_like(w), w / _nz(hj1))
+            for i in range(j):
+                hi, hi1 = col[i], col[i + 1]
+                col[i] = cs[i] * hi + sn[i] * hi1
+                col[i + 1] = -sn[i] * hi + cs[i] * hi1
+            hj = col[j]
+            denom = np.sqrt(hj * hj + col[j + 1] * col[j + 1])
+            denom = denom if denom != 0 else real(np.finfo(real).tiny)
+            cs[j] = hj / denom
+            sn[j] = col[j + 1] / denom
+            col[j] = cs[j] * hj + sn[j] * col[j + 1]
+            col[j + 1] = 0
+            R[: j + 2, j] = col
+            g[j + 1] = -sn[j] * g[j]
+            g[j] = cs[j] * g[j]
+            j += 1
+        if j:
+            y = np.zeros(j, dtype=real)
+            for i in range(j - 1, -1, -1):  # back substitution, R[:j, :j] y = g[:j]
+                y[i] = (g[i] - np.dot(R[i, i + 1: j], y[i + 1:])) / R[i, i]
+            dx = torch.as_tensor(y, dtype=b.dtype, device=b.device) @ V[:j]
+            x = x + M(dx.view(shape))
+        return x, abs(g[j]), j
+
+    iters, it_prev = 0, -1
+    while rnorm > target and iters < maxiter and it_prev != 0:
+        r = b - A(x)
+        x, rnorm, it_prev = cycle(x, r, torch.sqrt(_dot_(r, r)))
+        iters += it_prev
+    # the true residual (the Givens estimate can drift over restarts)
+    rtrue = b - A(x)
+    rnorm_t = torch.sqrt(_dot_(rtrue, rtrue))
+    return x, SolveInfo(iters, rnorm_t, rnorm_t <= target)

@@ -102,12 +102,11 @@ def test_state_round_trip_through_interop():
     (dict(time_step_method="forward euler"), 5),
     (dict(momentum_solver="gmres"), 5),
     (dict(packed=True), 5),
-    (dict(driver=True, backend="packed"), 1),
     (dict(driver=True, from_rest=False), 3),
     (dict(patches=object()), 5),
     (dict(divergence_probe=True), 5),
 ], ids=["einsum", "einsum-vertex", "forward-euler", "gmres", "packed",
-        "driver-packed", "driver-stokes", "patches", "divergence-probe"])
+        "driver-stokes", "patches", "divergence-probe"])
 def test_unported_routes_raise(route, item):
     # each route raises NotImplementedError naming its ROADMAP item
     tp = KarmanProblem(lcar=0.2, dtype=torch.float64, device="cpu")

@@ -195,3 +195,77 @@ def test_schafer_turek_problem():
                                  chunk_size=2, winkernel=True)
     assert np.isfinite(out["forces"]).all()
     assert out["t"][-1] > 0
+
+
+# -- the packed backend (PackedPatchStepper, the bench's default path) --------
+PACKED = dict(backend="packed", convection="lagged", lcar=0.2, n_refine=2)
+
+
+@pytest.fixture(scope="module")
+def packed_drivers(tmp_path_factory):
+    """run_karman_fast(backend="packed") at its defaults (GMRES, backward
+    Euler, consistent force probe) for 2 steps: the JAX driver writing a
+    checkpoint, and the port with the JAX hierarchy's lambda_max."""
+    ck = str(tmp_path_factory.mktemp("ck") / "jax_packed.npz")
+    jout = jax_karman.run_karman_fast(num_steps=2, checkpoint_path=ck, **PACKED)
+    lmax = [float(L.lmax) for L in jout["stepper"].pressure_precond.__self__.levels]
+    tout = karman.run_karman_fast(num_steps=2, lmax=lmax, device="cpu",
+                                  dtype=torch.float64, **PACKED)
+    return jout, tout, lmax, ck
+
+
+def test_packed_driver_matches_jax(packed_drivers):
+    jout, tout, _, _ = packed_drivers
+    jt, tt = jout["telemetry"], tout["telemetry"]
+    assert set(tt) == set(jt) | set(FLAGS)
+    for key in ITERS:
+        assert tt[key].tolist() == np.asarray(jt[key]).tolist(), key
+    assert tt["linear_iters"].min() > 1
+    for key in ("t", "dt"):
+        np.testing.assert_allclose(tt[key], np.asarray(jt[key]), rtol=1e-12)
+    for key in FLAGS:
+        assert tt[key].all(), key
+    F = np.asarray(jout["forces"])
+    assert tout["forces"].shape == F.shape == (2, 2)
+    np.testing.assert_allclose(tout["forces"], F, rtol=0, atol=1e-8 * np.abs(F).max())
+    Uj, Pj = np.asarray(jout["u"].vector), np.asarray(jout["p"].vector)
+    assert tout["u"].shape == Uj.shape and tout["p"].shape == Pj.shape
+    np.testing.assert_allclose(tout["u"].numpy(), Uj, rtol=0, atol=1e-8 * np.abs(Uj).max())
+    np.testing.assert_allclose(tout["p"].numpy(), Pj, rtol=0, atol=1e-8 * np.abs(Pj).max())
+
+
+def test_packed_driver_resumes_global_checkpoints(packed_drivers, tmp_path):
+    # the JAX packed driver's checkpoint is in the global layout; the port
+    # packs it once, and its own checkpoints are global too
+    jout, tout, lmax, ck = packed_drivers
+    arrays, scalars = load_checkpoint(ck)
+    assert arrays["U"].shape == tuple(tout["u"].shape)
+    kw = dict(PACKED, lmax=lmax, device="cpu", dtype=torch.float64)
+    out = karman.run_karman_fast(num_steps=1, checkpoint_path=ck, resume=True, **kw)
+    assert out["telemetry"]["dt"][0] == jout["dt"] == scalars["dt"]
+    own = str(tmp_path / "port.npz")
+    a = karman.run_karman_fast(num_steps=3, checkpoint_path=own, **kw)
+    arrays, _ = load_checkpoint(own)
+    np.testing.assert_array_equal(arrays["U"], a["u"].numpy())
+    np.testing.assert_array_equal(arrays["P"], a["p"].numpy())
+    b = karman.run_karman_fast(num_steps=1, checkpoint_path=own, resume=True, **kw)
+    # a global initial_state is packed once: the same step as the resume
+    c = karman.run_karman_fast(num_steps=1, initial_state=(a["u"], a["p"]),
+                               dt0=a["dt"], **kw)
+    full = karman.run_karman_fast(num_steps=4, **kw)
+    for run in (b, c):
+        np.testing.assert_allclose(run["u"].numpy(), full["u"].numpy(), rtol=0,
+                                   atol=1e-12)
+        np.testing.assert_allclose(run["p"].numpy(), full["p"].numpy(), rtol=0,
+                                   atol=1e-12 * np.abs(full["p"].numpy()).max())
+        assert run["telemetry"]["dt"][0] == pytest.approx(full["telemetry"]["dt"][3],
+                                                          rel=1e-12)
+
+
+@pytest.mark.parametrize("bad", [dict(convection="newton"), dict(n_refine=0),
+                                 dict(backend="window")])
+def test_packed_driver_refuses_other_routes(bad):
+    kw = dict(PACKED, num_steps=1, device="cpu", dtype=torch.float64)
+    kw.update(bad)
+    with pytest.raises(ValueError):
+        karman.run_karman_fast(**kw)

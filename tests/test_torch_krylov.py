@@ -108,3 +108,62 @@ def test_bicgstab_atol_and_zero_rhs_match_jax():
     (xj, kj, _), (xt, kt, _) = _run("bicgstab", A, np.zeros(N), atol=-1.0)
     assert kt == kj
     np.testing.assert_array_equal(xt, xj)
+
+
+def _run_gmres(A, b, w=None, precond=False, x0=None, **kw):
+    """gmres with the JAX and the port version; both (x, iters, converged).
+    With weights w, the system in the metric sum w x y, conjugated by
+    sqrt(w) as the packed stepper solves it: A2 = s A s^-1, b2 = s b,
+    M2 = s M s^-1, x = x2 / s."""
+    diag = np.diag(A).copy()
+    s = np.ones(N) if w is None else np.sqrt(w)
+    out = []
+    for mod, conv in ((jk, jnp.asarray), (tk, torch.as_tensor)):
+        At, st, dt = conv(A), conv(s), conv(diag)
+        x, info = mod.gmres(
+            lambda v, At=At, st=st: st * (At @ (v / st)), st * conv(b),
+            x0=None if x0 is None else st * conv(x0),
+            M=(lambda r, dt=dt, st=st: st * ((r / st) / dt)) if precond else None,
+            **kw,
+        )
+        out.append((np.asarray(x) / s, int(info.iters), bool(info.converged)))
+    return out
+
+
+@pytest.mark.parametrize("precond", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gmres_matches_jax_across_restarts(precond, weighted):
+    # restart 8 on a 60-unknown nonsymmetric system: several cycles
+    rng = np.random.default_rng(5)
+    A = np.diag(np.geomspace(1.0, 10.0, N)) + rng.standard_normal((N, N)) / np.sqrt(N)
+    b = rng.standard_normal(N)
+    w = rng.uniform(0.25, 1.0, N) if weighted else None
+    (xj, kj, cj), (xt, kt, ct) = _run_gmres(A, b, w, precond, rtol=1e-11,
+                                            restart=8)
+    assert kt == kj > 8 and ct and cj
+    np.testing.assert_allclose(xt, xj, rtol=0, atol=1e-12)
+
+
+def test_gmres_from_x0_and_maxiter_match_jax():
+    rng = np.random.default_rng(6)
+    A = np.diag(np.geomspace(1.0, 10.0, N)) + rng.standard_normal((N, N)) / np.sqrt(N)
+    b, x0 = rng.standard_normal(N), rng.standard_normal(N)
+    (xj, kj, cj), (xt, kt, ct) = _run_gmres(A, b, x0=x0, rtol=1e-14, restart=5,
+                                            maxiter=12)
+    # maxiter is checked between cycles: the last cycle runs to its end
+    assert kt == kj == 15 and not ct and not cj
+    np.testing.assert_allclose(xt, xj, rtol=0, atol=1e-12)
+
+
+def test_gmres_breakdown_matches_jax():
+    # A = 2 I: the Krylov space is exhausted after one iteration
+    b = np.random.default_rng(7).standard_normal(N)
+    (xj, kj, cj), (xt, kt, ct) = _run_gmres(2.0 * np.eye(N), b, rtol=1e-12)
+    assert kt == kj == 1 and ct and cj
+    np.testing.assert_allclose(xt, xj, rtol=0, atol=1e-14)
+
+
+def test_gmres_reduced_basis_raises():
+    b = torch.ones(4, dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 5\b"):
+        tk.gmres(lambda v: v, b, basis_dtype=torch.bfloat16)

@@ -45,7 +45,8 @@ def test_port_imports_no_jax_and_turns_tf32_off():
                 "attic.winmom", "attic.winkernel", "attic.window",
                 "solvers.multigrid", "models.karman", "models.cavity3d",
                 "native", "mesh", "fem.formlang", "attic.winform", "ops.stencil",
-                "ops.structured", "solvers.structured_mg"):
+                "ops.structured", "solvers.structured_mg", "fem.patch",
+                "fem.patchpack", "navier_stokes.patchfast"):
         assert f"flow_tpu_torch.{mod}" in out["modules"], mod
     assert out["foreign"] == []
     assert out["tf32"] == [False, False]
