@@ -177,7 +177,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    non-finite state or force, a last drag <= 0 or a hand-kernel launch;
 27. the packed path's launches from torch.profiler (after its timed phases):
    one step, one momentum apply, one ema_S, one V-cycle;
-28. device times (torch.profiler, last, since profiling slows later host
+28. Boussinesq parity: compute_boussinesq(backend="packed") in float64 to
+   t = 0.3 at lcar = 0.03 with one refinement (dense heat solve) and three
+   (6,624 temperature dofs: the multigrid-GMRES heat solve), on the card
+   and on the CPU: equal Banach sweeps and, a sweep, equal heat-GMRES,
+   Picard, GMRES, pressure and correction iterations, u within 1e-8 and
+   theta within 1e-10 of their largest entries; one step each of Chorin, IPCS and
+   Rotational (einsum context, Newton) on unit_square_mesh(16), card
+   against CPU (equal counts, u within 1e-10); the heat operator's
+   applies, its load vector, the shifted multigrid's restriction and
+   V-cycle twice on the card, bitwise equal;
+29. Boussinesq main path: compute_boussinesq(lcar=0.01, n_refine=5,
+   backend="packed", supg=False) in float64, 2,484,096 coupled DoF
+   (velocity 2 x 764,160, pressure 191,616, temperature 764,160), to
+   t = BOUSSINESQ_MAIN_TIME from rest (dt0 = 1e-2): setup seconds (mesh and
+   projections, the packed stepper, the heat hierarchy), seconds a
+   coupled step after the first with its heat and NS parts, the Banach
+   sweeps a step, the iterations a sweep, peak memory, ||u||_L2 and
+   ||theta||_L2; fails on a failed sweep, a heat solve off the multigrid
+   path, or counts other than BOUSSINESQ_PACKED_ITERS. Then one coupled
+   sweep under torch.profiler, a part at a time: the heat operator's
+   assembly, its solve (launches an MG-GMRES iteration), one V-cycle and
+   the NS step, with the aten ops with the most device time;
+30. device times (torch.profiler, last, since profiling slows later host
    code) of the ELL kernels at every shape of 23 (with the L2 cache warm,
    and cold: after a 64 MB write), K3 2-D lagged and Newton (L2 warm and
    cold), K4b 2-D, the three 3-D kernels (L2 warm and cold; K4b 3-D also at
@@ -286,6 +308,31 @@ PACKED_STEPS = 6  # 1 warm-up + 5 timed
 KARMAN_PACKED_ITERS = {"linear_iters": [3, 2, 3, 3, 3, 3],
                        "pressure_iters": [3, 3, 3, 3, 3, 3],
                        "correction_iters": [6, 6, 8, 8, 8, 8]}
+# the coupled Boussinesq driver (models/boussinesq.py) in float64: its
+# parity runs (to t = 0.3: the heater ramp moves the fluid from the third
+# step on) and its main path
+BOUSSINESQ_PARITY = [dict(lcar=0.03, n_refine=1), dict(lcar=0.03, n_refine=3)]
+BOUSSINESQ_PARITY_TIME = 0.3
+BOUSSINESQ_MAIN = dict(lcar=0.01, n_refine=5, backend="packed", supg=False)
+BOUSSINESQ_DOFS = {"velocity": 2 * 764160, "pressure": 191616,
+                   "temperature": 764160, "coupled": 2484096}
+# to t = 0.62: six steps (t = 0, 0.02, 0.06, 0.14, 0.3, 0.58); the momentum
+# residual stays below its absolute 1e-10 (no Picard iteration) until the
+# last step moves the fluid
+BOUSSINESQ_MAIN_TIME = 0.62
+# the main path's (step, sweep, failed, heat solver, heat GMRES, Picard,
+# momentum GMRES, pressure CG, correction CG) a Banach sweep, pinned from
+# the first run of this phase on the card (H100 80GB HBM3, 700 W): the
+# heat path's sums read member tables and the packed route's sum in a
+# fixed order, so these counts must not move
+BOUSSINESQ_PACKED_ITERS = [(0, 1, None, "mg", 42, 0, 0, 0, 0),
+                           (1, 1, None, "mg", 34, 0, 0, 0, 0),
+                           (2, 1, None, "mg", 26, 0, 0, 0, 0),
+                           (3, 1, None, "mg", 19, 0, 0, 0, 0),
+                           (4, 1, None, "mg", 15, 0, 0, 0, 0),
+                           (4, 2, None, "mg", 15, 0, 0, 0, 0),
+                           (5, 1, None, "mg", 12, 1, 20, 8, 23),
+                           (5, 2, None, "mg", 12, 1, 26, 8, 23)]
 # the einsum 3-D route's Newton tangent: "linearize" keeps x's quadrature
 # tables for a Newton iteration (the JAX default; JAX needed "jvp" where
 # linearize's storage did not fit)
@@ -2499,6 +2546,241 @@ def phase_packed_launches(st, state):
     return rows
 
 
+def _boussinesq_counts(tel):
+    keys = ("heat_solver", "heat_iters", "newton_iters", "linear_iters",
+            "pressure_iters", "correction_iters")
+    return [tuple(r.get(k) for k in ("step", "sweep", "failed") + keys) for r in tel]
+
+
+def phase_boussinesq_parity():
+    """compute_boussinesq(backend="packed") in float64 on the card and on
+    the CPU (dense and multigrid heat solves): equal counts a sweep, u
+    within 1e-8 and theta within 1e-10 of their largest entries; Chorin, IPCS and
+    Rotational one step each on the card and the CPU; the heat path's sums
+    twice on the card, bitwise equal."""
+    import torch
+    import flow_tpu_torch as ft
+    from flow_tpu_torch import heat, interop
+    from flow_tpu_torch.models.boussinesq import compute_boussinesq
+
+    for cfg in BOUSSINESQ_PARITY:
+        runs = {}
+        for device in ("cpu", "cuda"):
+            tel = []
+            t0 = time.perf_counter()
+            u, _, th = compute_boussinesq(BOUSSINESQ_PARITY_TIME, backend="packed",
+                                          device=device, telemetry=tel, **cfg)
+            runs[device] = (u.vector.cpu(), th.vector.cpu(), _boussinesq_counts(tel),
+                            time.perf_counter() - t0)
+        (uc, thc, cc, sc), (ug, thg, cg, sg) = runs["cpu"], runs["cuda"]
+        du = float((ug - uc).abs().max()) / float(uc.abs().max())
+        dth = float((thg - thc).abs().max()) / float(thc.abs().max())
+        log(f"[boussinesq-parity] {cfg} t={BOUSSINESQ_PARITY_TIME}: {len(cg)} sweeps, "
+            f"rel |du|={du:.3e} |dtheta|={dth:.3e}; cpu {sc:.1f} s, cuda {sg:.1f} s")
+        log(f"[boussinesq-parity] (step, sweep, failed, heat solver, heat its, picard, "
+            f"gmres, pressure, correction) cuda={cg}")
+        check(cg == cc, f"boussinesq parity {cfg}: counts differ (cuda {cg}, cpu {cc})")
+        check(not any(c[2] for c in cg), f"boussinesq parity {cfg}: a sweep failed")
+        # u is the small residue of buoyancy against the hydrostatic
+        # pressure (rho g ~ 1e4 against |u| ~ 1e-5): the two sides' sums
+        # differ in the last bits of those large terms, ~1e-9 of max|u|
+        check(du <= 1e-8 and dth <= 1e-10,
+              f"boussinesq parity {cfg}: u or theta differ ({du}, {dth})")
+    check({c[3] for c in cg} == {"mg"}, "boussinesq parity: the heat solve is not on mg")
+
+    # the public schemes on the einsum context, one step on each device
+    for name, method in (("Chorin", None), ("IPCS", "backward euler"),
+                         ("Rotational", "crank-nicolson")):
+        out = {}
+        for device in ("cpu", "cuda"):
+            mesh = ft.unit_square_mesh(16, dtype=torch.float64, device=device)
+            V, Q = ft.VectorFunctionSpace(mesh, 2), ft.FunctionSpace(mesh, 1)
+            bcs = [ft.DirichletBC(V.sub(0), lambda x: np.where(x[:, 1] > 1 - 1e-12, 1.0, 0.0)),
+                   ft.DirichletBC(V.sub(1), 0.0)]
+            s = getattr(ft.navier_stokes, name)(**({} if method is None else
+                                                    {"time_step_method": method}))
+            u1, _ = s.step(0.05, {0: ft.project((0.0, 0.0), V)}, ft.project(0.0, Q), bcs,
+                           [], 1.0, 0.02, f={0: (0.0, -1.0), 1: (0.0, -1.0)},
+                           verbose=False)
+            out[device] = (u1.vector.cpu(), dict(s.last_stats))
+        du = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+        counts = {d: [out[d][1][k] for k in ("newton_iters", "pressure_iters",
+                                             "correction_iters")] for d in out}
+        log(f"[boussinesq-parity] {name} one step: counts cuda={counts['cuda']} "
+            f"cpu={counts['cpu']} max|du|={du:.3e}")
+        check(counts["cuda"] == counts["cpu"], f"{name}: counts differ {counts}")
+        check(du <= 1e-10, f"{name}: u differs by {du}")
+
+    # the heat path's sums repeat bitwise on the card
+    mesh = ft.rectangle_with_hole_mesh(0.0, 0.1, 0.0, 0.2, cx=0.05, cy=0.05, r=0.02,
+                                       lcar=0.03, dtype=torch.float64, device="cuda")
+    meshes = [mesh]
+    for _ in range(3):
+        meshes.append(ft.refine_uniform(meshes[-1]))
+    Q = ft.FunctionSpace(meshes[-1], 2)
+    W = ft.VectorFunctionSpace(meshes[-1], 2)
+    rng = np.random.default_rng(0)
+    conv = interop.function_to_torch(W, 1e-3 * rng.standard_normal((W.n_dofs, 2)))
+    bcs = [ft.DirichletBC(Q, 1.0)]
+    op = heat.Heat(Q, conv, 0.6, 1000.0, 4000.0, bcs, 1.0, supg_stabilization=True,
+                   mesh_hierarchy=meshes)
+    x = torch.as_tensor(rng.standard_normal(Q.n_dofs), device="cuda")
+    hier = op._mg_hierarchy()
+    r = torch.as_tensor(rng.standard_normal(hier.levels[-1].n), device="cuda")
+    for what, fn in (("A apply", lambda: op.A_apply(x)), ("M apply", lambda: op.M_apply(x)),
+                     ("load vector", lambda: heat.Heat(Q, conv, 0.6, 1000.0, 4000.0, bcs,
+                                                       1.0).b_vec),
+                     ("restriction", lambda: hier.restrict(hier.nlevels - 2, r)),
+                     ("V-cycle", lambda: hier.v_cycle(r, 50.0, 1.0))):
+        check(torch.equal(fn(), fn()), f"boussinesq: the heat {what} does not repeat bitwise")
+    log("[boussinesq-parity] heat A/M applies, load vector, restriction and V-cycle "
+        "repeat bitwise on the card")
+
+
+def _profile_split(fn):
+    """(device events, launch calls, device ms, the ten aten ops with the
+    most device time) of one call of fn."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                "cudaLaunchKernelExC"))
+    ms = sum(e.device_time_total for e in cuda) / 1e3
+    top = sorted(((a.key, a.self_device_time_total / 1e3, a.count)
+                  for a in prof.key_averages()
+                  if a.key.startswith("aten::") and a.self_device_time_total > 0),
+                 key=lambda t: -t[1])[:10]
+    return len(cuda), calls, ms, top
+
+
+def phase_boussinesq_main():
+    """The coupled driver at 2,484,096 DoF in float64 on the packed route,
+    from rest to BOUSSINESQ_MAIN_TIME, then one coupled sweep profiled."""
+    import torch
+    import flow_tpu_torch as ft
+    from flow_tpu_torch import heat, materials, parabolic
+    from flow_tpu_torch.models.boussinesq import _cool, _hot, buoyancy_function, \
+        compute_boussinesq, rho_of_theta
+    from flow_tpu_torch.navier_stokes.packedapi import mesh_hierarchy_of
+
+    hand = _hand_kernels()
+    for k in hand.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tel = []
+    t0 = time.perf_counter()
+    u, p, th = compute_boussinesq(BOUSSINESQ_MAIN_TIME, device="cuda",
+                                  dtype=torch.float64, telemetry=tel, **BOUSSINESQ_MAIN)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {name: k.launches for name, k in hand.items()}
+    V, P, Q = u.space, p.space, th.space
+    dofs = {"velocity": 2 * V.n_dofs, "pressure": P.n_dofs, "temperature": Q.n_dofs}
+    dofs["coupled"] = sum(dofs.values())
+    log(f"[boussinesq] {BOUSSINESQ_MAIN} float64 t={BOUSSINESQ_MAIN_TIME}: dofs {dofs}")
+    check(dofs == BOUSSINESQ_DOFS, f"boussinesq: dofs {dofs}, not {BOUSSINESQ_DOFS}")
+    st = next(iter(V._packed_api_cache.values()))
+    hiers = list(Q.mesh._heat_mg_cache.values())
+    sweeps = sum(r["heat_seconds"] + r["ns_seconds"] for r in tel if "failed" not in r)
+    setup = {"mesh, spaces, projections and loop": total - sweeps,
+             "packed stepper (in the first NS step)": st.setup_seconds["total"],
+             "heat hierarchies (in heat solves)": sum(h.setup_seconds for h in hiers)}
+    log("[boussinesq] setup s: " + ", ".join(f"{k}={v:.2f}" for k, v in setup.items())
+        + f"; {len(hiers)} heat hierarchies of levels {[L.n for L in hiers[0].levels]}; "
+        "packed stepper "
+        + ", ".join(f"{k}={v:.2f}" for k, v in st.setup_seconds.items()))
+    counts = _boussinesq_counts(tel)
+    log("[boussinesq] (step, sweep, failed, heat solver, heat its, picard, gmres, "
+        f"pressure, correction): {counts}")
+    steps = sorted({r["step"] for r in tel})
+    for s in steps:
+        rows = [r for r in tel if r["step"] == s]
+        heat_s = sum(r["heat_seconds"] for r in rows)
+        ns_s = sum(r["ns_seconds"] for r in rows)
+        log(f"[boussinesq] step {s}: t={rows[0]['t']:.6g} dt={rows[0]['dt']:.6g} "
+            f"sweeps={len(rows)} s={heat_s + ns_s:.3f} (heat {heat_s:.3f}, NS {ns_s:.3f}) "
+            f"heat its/sweep={[r['heat_iters'] for r in rows]}")
+    later = [r for r in tel if r["step"] >= 1]
+    n_later = len(steps) - 1
+    per_step = sum(r["heat_seconds"] + r["ns_seconds"] for r in later) / max(n_later, 1)
+    log(f"[boussinesq] seconds a coupled step after the first: {per_step:.4f} "
+        f"(heat {sum(r['heat_seconds'] for r in later) / max(n_later, 1):.4f}, NS "
+        f"{sum(r['ns_seconds'] for r in later) / max(n_later, 1):.4f}) over {n_later} "
+        f"steps; total {total:.1f} s")
+    nu, nth = ft.norm(u), ft.norm(th)
+    log(f"[boussinesq] ||u||_L2={nu:.10e} ||theta||_L2={nth:.10e} peak_mem_bytes={peak} "
+        f"(above the {base} bytes earlier phases hold) hand-kernel launches={launches}")
+    check(not any(r.get("failed") for r in tel), "boussinesq: a sweep failed")
+    check(all(r["heat_solver"] == "mg" for r in tel), "boussinesq: a heat solve is not mg")
+    check(bool(torch.isfinite(u.vector).all()) and bool(torch.isfinite(th.vector).all()),
+          "boussinesq: non-finite state")
+    check(np.isfinite(nu) and 0.0 <= nu < 1e-3 and 39.0 < nth < 41.0,
+          f"boussinesq: norms out of range ({nu}, {nth})")
+    check(not any(launches.values()), f"boussinesq: a hand kernel was launched: {launches}")
+    check(counts == BOUSSINESQ_PACKED_ITERS,
+          f"boussinesq: counts {counts} are not BOUSSINESQ_PACKED_ITERS' "
+          f"{BOUSSINESQ_PACKED_ITERS}")
+
+    # one coupled sweep (the heat solve, then the NS step) under the
+    # profiler, from the final state, through the driver's entry points
+    room, t, dt = 293.0, tel[-1]["t"], tel[-1]["dt"]
+    rho = materials.water.density
+    heater = room + min(1.0, t / 30.0) * (320.0 - room)
+    bcs = [ft.DirichletBC(Q, heater, _hot), ft.DirichletBC(Q, room, _cool)]
+
+    chain = mesh_hierarchy_of(Q.mesh)
+
+    def heat_op():
+        return heat.Heat(Q, u, float(materials.water.thermal_conductivity(room)),
+                         float(rho(room)), float(materials.water.specific_heat_capacity(room)),
+                         bcs, 0.0, mesh_hierarchy=chain)
+
+    op = heat_op()
+    hier = op._mg_hierarchy()  # built outside the profile if this state needs another
+    r = torch.ones(hier.levels[-1].n, dtype=torch.float64, device="cuda")
+
+    fb = buoyancy_function(rho_of_theta(th, rho), -9.81, V)
+    Uf, Pf = st.to_packed_state(u.vector, p.vector)
+    Ff = st.pack_vec(fb.vector)
+    # the heat sweep in its parts: the operator's assembly (forms, the
+    # convection at the quadrature points, the BCs), the implicit Euler
+    # solve on that operator (its load vector and the MG-GMRES loop), and
+    # one V-cycle alone
+    rows = {"heat assembly": _profile_split(heat_op),
+            "heat solve": _profile_split(
+                lambda: parabolic.ImplicitEuler(op).step(th, t, dt)),
+            "V-cycle": _profile_split(lambda: hier.v_cycle(r, 1.0 / dt, 1.0)),
+            "NS step": _profile_split(lambda: st.step_api(Uf, Pf, dt, Ff))}
+    its = op.last_solve["iters"]
+    for what, (n_ev, n_calls, ms, top) in rows.items():
+        log(f"[boussinesq] {what} (profiled, the last sweep's state): {n_ev} device "
+            f"events, {n_calls} launch calls, {ms:.2f} device ms; "
+            "top aten ops by device ms (calls): "
+            + ", ".join(f"{k[6:]} {v:.2f} ({c})" for k, v, c in top))
+    # the idle shares against the last sweep's unprofiled seconds: its heat
+    # part is the assembly and the solve
+    heat_ms = rows["heat assembly"][2] + rows["heat solve"][2]
+    log(f"[boussinesq] idle: heat (assembly and solve) "
+        f"{1.0 - heat_ms / 1e3 / tel[-1]['heat_seconds']:.3f} of the unprofiled "
+        f"{tel[-1]['heat_seconds']:.3f} s; NS step "
+        f"{1.0 - rows['NS step'][2] / 1e3 / tel[-1]['ns_seconds']:.3f} of "
+        f"{tel[-1]['ns_seconds']:.3f} s")
+    log(f"[boussinesq] the profiled heat solve took {its} GMRES iterations: "
+        f"{rows['heat solve'][1] / max(its, 1):.1f} launch calls an iteration "
+        f"(its load vector and true residual included), "
+        f"{rows['V-cycle'][1]} a V-cycle")
+    return counts
+
+
 def main():
     # a workspace setting under which cuBLAS is deterministic, for the
     # references run under deterministic() (read when cuBLAS starts)
@@ -2574,6 +2856,11 @@ def main():
         packed_driver = phase_packed_driver(prob_p)
         phase_packed_launches(st_p, state_p)
         del prob_p, st_p, state_p, packed_driver
+        torch.cuda.empty_cache()
+        # the coupled Boussinesq driver (float64, packed NS route, heat on
+        # the shifted multigrid): no hand kernel
+        phase_boussinesq_parity()
+        phase_boussinesq_main()
         torch.cuda.empty_cache()
         # device times from the profiler, last: a profiler session slows
         # later host code in the process

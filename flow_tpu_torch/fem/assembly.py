@@ -1,6 +1,7 @@
 # Assembly primitives. Port of flow_tpu/fem/assembly.py, cut to what the
-# 3-D box path, the window routes (2-D Karman, 3-D cavity) and the form
-# compiler (fem/formlang.py) call.
+# 3-D box path, the window routes (2-D Karman, 3-D cavity), the form
+# compiler (fem/formlang.py), the public schemes, projection and the heat
+# multigrid (solvers/shifted_mg.py) call.
 #
 # Setup (geometry, reference tensors, diagonals, element matrices) is host
 # numpy in float64; callers cast and move the results to their device once.
@@ -46,7 +47,10 @@ __all__ = [
     "mass_apply",
     "mass_diag",
     "stiffness_diag",
+    "lumped_mass_diag",
+    "mass_local",
     "stiffness_local",
+    "integral",
 ]
 
 
@@ -240,14 +244,34 @@ def mass_apply(space: FunctionSpace, geom, U, coeff=None):
     return space.dof_sum(torch.einsum(eq, Mref, space.gather(U), scale))
 
 
-def mass_diag(space, geom):
+def mass_diag(space, geom, coeff=None):
+    """Diagonal of M_ij = int c phi_i phi_j, c = coeff (None: 1, a constant
+    or per-cell [nc]); host numpy."""
     Mref = np.diag(ref_mass(space.degree, _dim(space)))
-    return space.dof_sum(Mref[None, :] * geom.detJ[:, None])
+    return space.dof_sum(Mref[None, :] * _scaled(geom.detJ, coeff)[:, None])
 
 
-def stiffness_diag(space, geom):
+def stiffness_diag(space, geom, coeff=None):
+    """Diagonal of K_ij = int c grad(phi_i).grad(phi_j), c = coeff (None: 1,
+    a constant or per-cell [nc]); host numpy."""
     Kd = np.einsum("klii->kli", ref_stiffness(space.degree, _dim(space)))
-    return space.dof_sum(np.einsum("ekl,kli->ei", geom.C, Kd))
+    return space.dof_sum(np.einsum("ekl,kli->ei", _scaled(geom.C, coeff), Kd))
+
+
+def lumped_mass_diag(space, geom):
+    """Vertex-quadrature ('lumped') mass diagonal, host numpy. For P2 the
+    rows of the edge-midpoint dofs are zero (the vertex rule's mass
+    matrix)."""
+    pts, w = quadrature.simplex_rule(quadrature.VERTEX, _dim(space))
+    phi, _ = elements.tabulate(space.degree, pts, dim=_dim(space))
+    d = np.einsum("q,qi,qi->i", w, phi, phi)
+    return space.dof_sum(d[None, :] * geom.detJ[:, None])
+
+
+def mass_local(space, geom, coeff=None):
+    """Explicit element mass matrices [nc, nl, nl], host numpy."""
+    Mref = ref_mass(space.degree, _dim(space))
+    return Mref[None] * _scaled(geom.detJ, coeff)[:, None, None]
 
 
 # ---------------------------------------------------------------------------
@@ -295,6 +319,19 @@ def stiffness_local(space, geom, coeff=None):
     per-cell [nc])."""
     Kref = ref_stiffness(space.degree, _dim(space))
     return np.einsum("ekl,klij->eij", _scaled(geom.C, coeff), Kref)
+
+
+def integral(space, geom, U, rule_degree=None):
+    """int_Omega u dx of a scalar FE function: a 0-d tensor for a tensor U
+    (geom a geometry_on view), a float for a numpy U (geom the host
+    Geometry)."""
+    tab = tabulation(space, rule_degree or 2 * space.degree)
+    if isinstance(U, torch.Tensor):
+        t = tab.on(U.dtype, U.device)
+        vals = values_at_qp(t, space.gather(U))
+        return torch.einsum("eq,q,e->", vals, t.w, geom.detJ)
+    vals = np.einsum("ql,el->eq", tab.phi, space.gather(np.asarray(U)))
+    return float(np.einsum("eq,q,e->", vals, tab.w, geom.detJ))
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 # Weak-form operators of the incompressible-flow forms. Port of
 # flow_tpu/fem/forms.py, cut to what FastStepper's window and einsum routes
-# (2-D Karman, 3-D cavity) and the packed-patch route (fem/patchpack.py:
-# ref_p1_integrals; its tests: sym_grad_apply, pressure_grad_rhs) call;
-# every form takes triangles and tets alike.
+# (2-D Karman, 3-D cavity), the packed-patch route (fem/patchpack.py:
+# ref_p1_integrals; its tests: sym_grad_apply, pressure_grad_rhs) and the
+# public schemes (navier_stokes/pressure_correction.py: the full skew
+# convection and the body force) call; every form takes triangles and tets
+# alike.
 #
 # Torch on the state's device: `geom` is an assembly.geometry_on view
 # (detJ, G, C tensors), tabulations come from assembly.Tab.on. Vector fields
@@ -21,7 +23,9 @@ __all__ = [
     "mass_loc",
     "sym_grad_loc",
     "pressure_grad_loc",
+    "skew_convection_combined_loc",
     "skew_convection_lagged_loc",
+    "body_force_loc",
     "skew_convection_tangent_loc",
     "stiffness_scalar_loc",
     "sym_grad_transpose_loc",
@@ -88,6 +92,21 @@ def pressure_grad_loc(V, Q, geom, Ploc):
     return torch.einsum(
         "e,eak,kmi,em->eia", geom.detJ, geom.G, _Bref(V, Q, Ploc), Ploc
     )
+
+
+def skew_convection_combined_loc(V, geom, Wloc, rule_degree=5):
+    """The skew convection 0.5 [((w.grad)w, v) - ((w.grad)v, w)] of the
+    velocity itself at the element level [nc, nl, dim]: the lagged form
+    with the velocity as its own transport."""
+    return skew_convection_lagged_loc(V, geom, Wloc, Wloc, rule_degree)
+
+
+def body_force_loc(V, geom, Fq, rule_degree=6):
+    """int f . v_i local contributions [nc, nl, dim] from the force at the
+    quadrature points of the given rule, Fq [nc, nq, dim]."""
+    tab = assembly.tabulation(V, rule_degree).on(Fq.dtype, Fq.device)
+    wd = tab.w[None, :] * geom.detJ[:, None]
+    return torch.einsum("eqm,eq,qi->eim", Fq, wd, tab.phi)
 
 
 def skew_convection_lagged_loc(V, geom, Tloc, Uloc, rule_degree=5):

@@ -43,6 +43,7 @@ import torch
 from . import assembly, dense, elements, quadrature
 from .assembly import CONV_RULE, geometry
 from .forms import ref_p1_integrals
+from .gathersum import member_table
 from .patch import PatchGeom, PatchInfo
 from .spaces import FunctionSpace
 from ..mesh3d import _device
@@ -560,14 +561,8 @@ class PackedBoundary:
         self.wphi = btab.wl[:, :, None] * btab.phi  # [nb, q, nl]
         flat = cd.reshape(-1)
         uniq, inv = np.unique(flat, return_inverse=True)
-        members = np.argsort(inv, kind="stable")
-        counts = np.bincount(inv, minlength=len(uniq))
-        table = np.full((len(uniq), counts.max()), len(flat), dtype=np.int64)
-        start = np.concatenate([[0], np.cumsum(counts)[:-1]])
-        rank = np.arange(len(flat)) - np.repeat(start, counts)
-        table[inv[members], rank] = members
         self._targets = torch.as_tensor(uniq, device=dev)
-        self._table = torch.as_tensor(table, device=dev)
+        self._table = torch.as_tensor(member_table(inv, len(uniq)), device=dev)
 
     def _local(self, X):
         """Flat [(2,) n_flat] packed field -> local values [(2,) nb, nl]."""

@@ -147,8 +147,24 @@ class SubSpace:
 class Function:
     """A finite-element function: (space, dof vector), the vector a tensor
     [n_dofs] (scalar) or [n_dofs, n_components] (vector); the form
-    compiler's field coefficient (fem/formlang.py)."""
+    compiler's field coefficient (fem/formlang.py). Immutable by
+    convention: solvers return new Functions."""
 
     def __init__(self, space: FunctionSpace, vector=None):
         self.space = space
         self.vector = space.zeros() if vector is None else vector
+        self._name = ""
+
+    def copy(self):
+        return Function(self.space, self.vector)
+
+    def rename(self, name, _label=None):
+        self._name = name
+        return self
+
+    @property
+    def name(self):
+        return self._name
+
+    def __repr__(self):
+        return f"Function({self.space!r})"

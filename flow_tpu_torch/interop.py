@@ -11,7 +11,8 @@ import torch
 
 from .mesh3d import _device
 
-__all__ = ["state_to_torch", "state_to_numpy", "load_hierarchy_lmax"]
+__all__ = ["state_to_torch", "state_to_numpy", "function_to_torch",
+           "function_to_numpy", "load_hierarchy_lmax"]
 
 
 def state_to_torch(U, P, dtype=torch.float64, device=None, Um1=None):
@@ -37,11 +38,32 @@ def state_to_numpy(U, P, Um1=None):
                  for a in (U, P) + (() if Um1 is None else (Um1,)))
 
 
+def function_to_torch(space, vector, dtype=None):
+    """A JAX Function's dof vector (numpy, [n_dofs] or [n_dofs, m]) -> a
+    port Function on `space` (on its mesh's device; dtype: the mesh's by
+    default). Both packages number the dofs alike."""
+    from .fem.spaces import Function
+
+    mesh = space.mesh
+    v = torch.tensor(np.asarray(vector), dtype=dtype or mesh.dtype,
+                     device=mesh.device)
+    if tuple(v.shape) != tuple(space.zeros().shape):
+        raise ValueError(f"a vector of shape {tuple(v.shape)} for {space!r}")
+    return Function(space, v)
+
+
+def function_to_numpy(f):
+    """A port Function's dof vector as a float numpy array on the host (a
+    JAX Function takes it as its vector)."""
+    return f.vector.detach().cpu().numpy()
+
+
 def load_hierarchy_lmax(hierarchy, lmax):
     """Set the per-level lambda_max estimates (coarse to fine, as floats) of
     a StructuredHierarchy, P1Hierarchy or PackedPatchP1Hierarchy (the packed
     stepper's `hierarchy`) and recompute each level's Chebyshev theta and
-    delta.
+    delta; or the per-level Chebyshev bounds `L.lmax` of a
+    ShiftedP1Hierarchy (the heat multigrid, heat.Heat._mg_hierarchy()).
 
     The power iteration starts from a random vector, and torch.Generator
     cannot reproduce jax.random's bits: without this the Chebyshev

@@ -1,5 +1,7 @@
 # Material properties. Port of flow_tpu/materials.py, cut to what the
-# Karman model reads: the density of liquid water (Kell 1975), host numpy.
+# Karman and Boussinesq models read: liquid water's density, viscosity,
+# heat capacity and conductivity from standard correlations, host numpy.
+# Temperatures in Kelvin, SI units throughout.
 from __future__ import annotations
 
 import numpy as np
@@ -24,5 +26,24 @@ class _Water:
         )
         return num / (1.0 + 16.879850e-3 * t)
 
+    @staticmethod
+    def dynamic_viscosity(T):
+        """Pa s - Vogel equation. dynamic_viscosity(293.15) ~ 1.00e-3."""
+        return 1.0e-3 * np.exp(-3.7188 + 578.919 / (-137.546 + np.asarray(T)))
+
+    @staticmethod
+    def specific_heat_capacity(T):
+        """J/(kg K) - weak T-dependence around 4187."""
+        t = np.asarray(T) - 273.15
+        return (4217.4 - 3.720283 * t + 0.1412855 * t**2 - 2.654387e-3 * t**3
+                + 2.093236e-5 * t**4)
+
+    @staticmethod
+    def thermal_conductivity(T):
+        """W/(m K) - Ramires et al. (1995). thermal_conductivity(293.15) ~ 0.598."""
+        tr = np.asarray(T) / 298.15
+        return 0.6065 * (-1.48445 + 4.12292 * tr - 1.63866 * tr**2)
+
 
 water = _Water()
+

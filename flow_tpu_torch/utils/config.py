@@ -1,0 +1,19 @@
+# Typed scheme configuration. Port of flow_tpu/utils/config.py, cut to
+# SchemeConfig: the fields the projection step (_step) and the packed route
+# (navier_stokes/packedapi.py) read, with the JAX package's defaults.
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+__all__ = ["SchemeConfig"]
+
+
+@dataclass(frozen=True)
+class SchemeConfig:
+    """Projection-scheme configuration: the tentative velocity's absolute
+    Newton tolerance (on the residual 2-norm) and iteration cap, the
+    fields the public schemes read. The JAX package's other fields select
+    paths of its fast steppers."""
+
+    newton_tol: float = 1.0e-10
+    newton_maxiter: int = 10

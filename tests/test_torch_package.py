@@ -46,10 +46,57 @@ def test_port_imports_no_jax_and_turns_tf32_off():
                 "solvers.multigrid", "models.karman", "models.cavity3d",
                 "native", "mesh", "fem.formlang", "attic.winform", "ops.stencil",
                 "ops.structured", "solvers.structured_mg", "fem.patch",
-                "fem.patchpack", "navier_stokes.patchfast"):
+                "fem.patchpack", "navier_stokes.patchfast", "message",
+                "utils.config", "utils.timestep", "fem.interpolate",
+                "fem.gathersum", "navier_stokes.pressure_correction",
+                "navier_stokes.packedapi", "stabilization", "parabolic",
+                "solvers.shifted_mg", "heat", "models.boussinesq", "stokes",
+                "models.boussinesq3d", "experimental.ab2tr"):
         assert f"flow_tpu_torch.{mod}" in out["modules"], mod
     assert out["foreign"] == []
     assert out["tf32"] == [False, False]
+
+
+def test_public_surface_and_unported_names():
+    import flow_tpu_torch
+    from flow_tpu_torch import stokes
+    from flow_tpu_torch.experimental import ab2tr
+    from flow_tpu_torch.models import boussinesq3d
+
+    for name in ("message", "project", "interpolate", "errornorm", "norm",
+                 "FunctionSpace", "VectorFunctionSpace", "Function",
+                 "DirichletBC", "navier_stokes", "heat", "stabilization",
+                 "parabolic", "materials", "unit_square_mesh", "refine_uniform",
+                 "rectangle_with_hole_mesh"):
+        assert hasattr(flow_tpu_torch, name), name
+    for name in ("Chorin", "IPCS", "Rotational"):
+        assert hasattr(flow_tpu_torch.navier_stokes, name), name
+    for call, item in ((lambda: stokes.TaylorHood(None), "stokes.py"),
+                       (lambda: stokes.solve(None), "stokes.py"),
+                       (lambda: boussinesq3d.compute_boussinesq_3d(1.0, 0.1),
+                        "models/boussinesq3d.py"),
+                       (lambda: ab2tr.AB2TR(None), "experimental/ab2tr.py")):
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP queue 1 item \d: " + item):
+            call()
+
+
+def test_readme_sample_runs_on_the_port():
+    import flow_tpu_torch
+    from flow_tpu_torch import (DirichletBC, FunctionSpace, VectorFunctionSpace,
+                                project, unit_square_mesh)
+
+    mesh = unit_square_mesh(8, diagonal="crossed", dtype=torch.float64, device="cpu")
+    V, Q = VectorFunctionSpace(mesh, 2), FunctionSpace(mesh, 1)
+    u0 = project((0.0, 0.0), V)
+    p0 = project(0.0, Q)
+    u_bcs = [DirichletBC(V, (0.0, 0.0), "on_boundary")]
+    stepper = flow_tpu_torch.navier_stokes.IPCS()
+    u1, p1 = stepper.step(1e-2, {0: u0}, p0, u_bcs, [], rho=1.0, mu=1e-3,
+                          f={0: (0.0, -9.81), 1: (0.0, -9.81)}, verbose=False)
+    assert bool(torch.isfinite(u1.vector).all())
+    # the pressure takes up the gravity: rho g over the unit height
+    assert 9.0 < float(p1.vector.max() - p1.vector.min()) < 11.0
 
 
 def test_port_sources_name_no_jax():
