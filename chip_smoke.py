@@ -177,6 +177,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    non-finite state or force, a last drag <= 0 or a hand-kernel launch;
 27. the packed path's launches from torch.profiler (after its timed phases):
    one step, one momentum apply, one ema_S, one V-cycle;
+27a. Stokes parity: stokes.solve on Guermond1 (tests/test_stokes.py, its
+   forcing written out) at unit_square_mesh(16) on the MINRES path (rtol
+   3e-9) in float64, on the CPU and twice on the card, the CPU's lambda_max carried
+   over: equal iterations, u within 1e-9 and p within 1e-7 of their
+   largest entries (within the solve's own error against the dense LU),
+   the card's two solves bitwise equal, the MMS errors small;
+27b. path A, the Stokes bootstrap: run_karman_fast(backend="packed",
+   from_rest=False) at the main path's mesh (lcar=0.02). The float32 run at
+   n_refine=5 (1,905,056 DoF) takes the driver's bootstrap call (MINRES to
+   rtol 1e-6, 2000 iterations at most, as the JAX driver asks) alone: it
+   reaches the cap with its true residual above the target and raises, as
+   the JAX package's does (float64 does the same there:
+   scripts/torch_bootstrap_3d_probe.py); the float64 run at n_refine=4
+   converges and the driver takes 1 + 5 steps from it, one a chunk. Each run's MINRES iterations, true residual, seconds and peak
+   memory; fails on a hand-kernel launch, a non-finite state or force, an
+   unconverged pressure or correction solve, or runs other than
+   KARMAN_BOOTSTRAP_ITERS;
 28. Boussinesq parity: compute_boussinesq(backend="packed") in float64 to
    t = 0.3 at lcar = 0.03 with one refinement (dense heat solve) and three
    (6,624 temperature dofs: the multigrid-GMRES heat solve), on the card
@@ -199,8 +216,33 @@ Phases, in order; any failure exits non-zero and prints no result:
    sweep under torch.profiler, a part at a time: the heat operator's
    assembly, its solve (launches an MG-GMRES iteration), one V-cycle and
    the NS step, with the aten ops with the most device time;
+29a. 3-D Boussinesq parity: compute_boussinesq_3d in float64 on the card and
+   on the CPU at n = (4, 4, 8) to t = 0.02 on both routes and at n = (2, 2,
+   4) to t = 0.62 on the packed route (the fluid moves in its last step):
+   equal counts a Banach sweep, u within 1e-8 and theta within 1e-10 of
+   their largest entries, K1 launched on the packed route only;
+29b. path B: compute_boussinesq_3d(backend="packed", n=(12, 12, 24)) in
+   float64, 126,725 coupled DoF (the host splu factor took 130-136 s a
+   sweep at n = (16, 16, 32), 62-67 s at N = 14), from rest to t = 0.62
+   (six steps, eight sweeps; the fluid is at rest in the first five and
+   moves in the last): the NS
+   step on BoxPackedStepper (its pressure operator and V-cycle levels are
+   K1), the heat solve on the host splu every sweep (its factor seconds
+   apart); seconds a step split heat / NS, peak memory, K1's launches by
+   grid, in all and a sweep; fails on a failed sweep, a heat solve off
+   splu, a last step without Picard, BiCGStab and pressure iterations or
+   without K1 launches, another hand kernel's launch, or counts other than
+   BOUSSINESQ3D_PACKED_ITERS;
+29c. path C: compute_boussinesq_3d(backend=None, n=(8, 8, 16), n_refine=2)
+   in float64, 2,250,885 coupled DoF, one step from rest: Rotational on the
+   twice refined tets, the heat solve by MG-GMRES on four P1 levels (1,377
+   to 545,025 vertices; the extra level has 3,145,728 tets); fails on a
+   failed sweep, a heat solve off the multigrid, a hand-kernel launch, or
+   counts other than BOUSSINESQ3D_MG_ITERS;
 30. device times (torch.profiler, last, since profiling slows later host
-   code) of the ELL kernels at every shape of 23 (with the L2 cache warm,
+   code): the launches of one bootstrap MINRES iteration (a solve capped at
+   20 iterations less one capped at 10), K1 in float64 at path B's grids,
+   then of the ELL kernels at every shape of 23 (with the L2 cache warm,
    and cold: after a 64 MB write), K3 2-D lagged and Newton (L2 warm and
    cold), K4b 2-D, the three 3-D kernels (L2 warm and cold; K4b 3-D also at
    its 2-pass layout), K1 and K2 at every level grid of their paths (L2
@@ -212,8 +254,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    the K3 3-D rows the same over 20 calls, the least of three loops.
 
 Then every hand kernel's launches by path (karman_packed: 0 for each), and
-K1's and K2's launches by grid on each path, with launches x (device
-time - bound) a grid. The line before the last holds the kernel report, the
+K1's and K2's launches by grid on each path (path B's in float64), with
+launches x (device time - bound) a grid. The line before the last holds the kernel report, the
 one before it the card; the last line is {"ok": true, "device": {...}}. Imports neither jax
 nor flow_tpu.
 """
@@ -333,6 +375,71 @@ BOUSSINESQ_PACKED_ITERS = [(0, 1, None, "mg", 42, 0, 0, 0, 0),
                            (4, 2, None, "mg", 15, 0, 0, 0, 0),
                            (5, 1, None, "mg", 12, 1, 20, 8, 23),
                            (5, 2, None, "mg", 12, 1, 26, 8, 23)]
+# steady Stokes (stokes.py): the card-vs-CPU parity of the MINRES path on
+# Guermond1 (tests/test_stokes.py, written out below) at n = 16, float64
+STOKES_PARITY_N = 16
+# MINRES's rtol there: the recurrence's residual falls by 1.9x across the
+# stop (1.44 and 0.76 of the target on the CPU), so the card and the CPU,
+# whose sums round apart by ~1%, stop at the same iteration (at 1e-9 the
+# target sits on a plateau: 143 on the card, 142 on the CPU)
+STOKES_PARITY_RTOL = 3e-9
+# the Stokes bootstrap of run_karman_fast(from_rest=False) on the packed
+# route at the Karman main path's mesh: (dtype, n_refine) in the order
+# tried. MINRES stops on its preconditioned recurrence; where the true
+# residual is then above rtol 1e-6 |b| the solve raises, in the JAX
+# package too, and the next run is tried; the last one converges and the
+# driver takes its 1 + 5 steps. At 1,905,056 DoF MINRES reaches its cap of
+# 2000 in float32 and in float64 alike (true residuals 7.4e-7 and 6.9e-7
+# there; the float64 run, 128 s, is left to
+# scripts/torch_bootstrap_3d_probe.py A); at 477,904 DoF (n_refine 4) it
+# converges in float64 (n_refine 3 and 2 too)
+KARMAN_BOOTSTRAP_RUNS = [("float32", 5), ("float64", 4)]
+# each run's (dtype, n_refine, MINRES iterations, converged), pinned from
+# the first runs of this path on the card (H100 80GB HBM3, 700 W): the
+# Stokes operator sums read member tables, so these must not move
+KARMAN_BOOTSTRAP_ITERS = [("float32", 5, 2000, False), ("float64", 4, 1878, True)]
+# the 3-D Boussinesq driver (models/boussinesq3d.py) in float64: its parity
+# runs (the moving one to t = 0.62, where the heater ramp moves the fluid)
+BOUSSINESQ3D_PARITY = [dict(target_time=0.02, n=(4, 4, 8), backend=None),
+                       dict(target_time=0.02, n=(4, 4, 8), backend="packed"),
+                       dict(target_time=0.62, n=(2, 2, 4), backend="packed")]
+# path B: the box-packed NS route (K1) with the host splu heat solve. A
+# coupled step is nearly all the splu factor of the heat dofs (every
+# sweep: a new Heat, a new factor): 130-136 s at n = (16, 16, 32) (70,785
+# heat dofs), 62-67 s at N = 14 (47,937), 15.1-15.6 s at N = 12 (30,625)
+# on the card machine's host. N = 13 is odd: its box would leave the
+# stepper's pressure hierarchy one dense level, with no V-cycle on K1. So
+# the path runs at N = 12, the largest even N under ~60 s a step
+BOUSSINESQ3D_PACKED = dict(n=(12, 12, 24), backend="packed")
+# six steps from rest (dt 0.01 doubling): at N = 12 the momentum residual
+# stays below the absolute 1e-10 through t = 0.3 and the fluid moves in the
+# sixth step (t = 0.3 -> 0.58, two sweeps; on the CPU, N = 10 and 12 alike;
+# at N = 2-8 it moves a step earlier)
+BOUSSINESQ3D_PACKED_TIME = 0.62
+BOUSSINESQ3D_PACKED_DOFS = {"velocity": 3 * 30625, "pressure": 4225,
+                            "temperature": 30625, "coupled": 126725}
+# path C: Rotational on the twice-refined tets with the multigrid heat solve
+BOUSSINESQ3D_MG = dict(n=(8, 8, 16), n_refine=2, backend=None)
+BOUSSINESQ3D_MG_TIME = 0.0  # one step from rest
+BOUSSINESQ3D_MG_DOFS = {"velocity": 3 * 545025, "pressure": 70785,
+                        "temperature": 545025, "coupled": 2250885}
+# (step, sweep, failed, heat solver, heat iterations, Newton/Picard, BiCGStab
+# (packed only), pressure CG, correction CG) a Banach sweep of paths B and
+# C, pinned from the first run of these phases on the card (H100 80GB
+# HBM3, 700 W; path B's from its first run to t = 0.62, the CPU's counts
+# too): the heat and Stokes sums read member tables, K1 sums in a fixed
+# order, so these must not move
+# (path C's fluid is at rest in its step: its NS solves take 0 iterations)
+BOUSSINESQ3D_PACKED_ITERS = [(0, 1, None, "splu", 0, 0, 0, 0, 0),
+                             (1, 1, None, "splu", 0, 0, 0, 0, 0),
+                             (2, 1, None, "splu", 0, 0, 0, 0, 0),
+                             (3, 1, None, "splu", 0, 0, 0, 0, 0),
+                             (4, 1, None, "splu", 0, 0, 0, 0, 0),
+                             (4, 2, None, "splu", 0, 0, 0, 0, 0),
+                             (5, 1, None, "splu", 0, 1, 2, 7, 42),
+                             (5, 2, None, "splu", 0, 1, 3, 7, 42)]
+BOUSSINESQ3D_MG_ITERS = [(0, 1, None, "mg", 54, 0, None, 0, 0),
+                         (0, 2, None, "mg", 54, 0, None, 0, 0)]
 # the einsum 3-D route's Newton tangent: "linearize" keeps x's quadrature
 # tables for a Newton iteration (the JAX default; JAX needed "jvp" where
 # linearize's storage did not fit)
@@ -360,6 +467,7 @@ FORMWIN_KAPPA = 2.5e-4
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12  # float64 outside the tensor cores
 
 
 class SmokeFailure(Exception):
@@ -524,8 +632,11 @@ def phase_stencil(dim):
     from flow_tpu_torch.ops import stencil
 
     if dim == 3:
+        # ... and the 3-D Boussinesq packed route's grids, (N+1, N+1, 2N+1)
+        # at N = 16, 14, 12 and 4 and their coarse levels
         ragged = [(17, 17, 17), (9, 9, 9), (5, 5, 5), (5, 6, 7), (2, 7, 9), (1, 4, 3),
-                  (3, 1, 70), (1, 1, 1)]
+                  (3, 1, 70), (1, 1, 1), (17, 17, 33), (9, 9, 17), (15, 15, 29),
+                  (8, 8, 15), (13, 13, 25), (7, 7, 13), (5, 5, 9), (3, 3, 5)]
         apply, plain, conv, tag = (stencil.stencil_apply_3d, stencil.stencil_apply_3d_plain,
                                    F.conv3d, "stencil")
         tols = {torch.float64: 1e-13, torch.float32: 1e-5}
@@ -2781,6 +2892,372 @@ def phase_boussinesq_main():
     return counts
 
 
+# -- steady Stokes and the paths that start from it, and the 3-D driver -------
+_PI = np.pi
+
+
+def _host_field(fn):
+    """A field of host points [..., 2] as a callable of host points or
+    tensors (the BCs evaluate on the host, the forcing at the quadrature
+    points on the mesh's device)."""
+    import torch
+
+    def f(x):
+        if isinstance(x, torch.Tensor):
+            return torch.as_tensor(fn(x.cpu().numpy()), dtype=x.dtype, device=x.device)
+        return fn(x)
+
+    return f
+
+
+# Guermond1 with mu = 1 (tests/test_stokes.py), written out
+GUERMOND_U = (
+    _host_field(lambda x: _PI * np.sin(2 * _PI * x[..., 1]) * np.sin(_PI * x[..., 0]) ** 2),
+    _host_field(lambda x: -_PI * np.sin(2 * _PI * x[..., 0]) * np.sin(_PI * x[..., 1]) ** 2))
+GUERMOND_P = _host_field(lambda x: np.cos(_PI * x[..., 0]) * np.sin(_PI * x[..., 1]))
+GUERMOND_F = (
+    _host_field(lambda x: -2 * _PI**3 * np.sin(2 * _PI * x[..., 1])
+                * (1 - 4 * np.sin(_PI * x[..., 0]) ** 2)
+                - _PI * np.sin(_PI * x[..., 0]) * np.sin(_PI * x[..., 1])),
+    _host_field(lambda x: 2 * _PI**3 * np.sin(2 * _PI * x[..., 0])
+                * (1 - 4 * np.sin(_PI * x[..., 1]) ** 2)
+                + _PI * np.cos(_PI * x[..., 0]) * np.cos(_PI * x[..., 1])))
+
+
+def phase_stokes_parity():
+    """stokes.solve on Guermond1 at n = STOKES_PARITY_N on the MINRES path
+    (DENSE_THRESHOLD = 0, rtol STOKES_PARITY_RTOL) in float64 on the CPU
+    and on the card, the CPU's
+    lambda_max carried over: equal iterations, u within 1e-9 and p within
+    1e-7 of their largest entries (the solve's own error against the dense
+    LU), the card's solve bitwise equal when repeated, and the
+    discretisation errors of the MMS solution on both."""
+    import torch
+    import flow_tpu_torch as ft
+    from flow_tpu_torch import stokes
+
+    orig_threshold, orig_lmax = stokes.DENSE_THRESHOLD, stokes.power_iteration_lmax
+    seen = {}
+
+    def lmax(*a, **k):
+        if "lmax" not in seen:
+            seen["lmax"] = orig_lmax(*a, **k)
+        return seen["lmax"]
+
+    stokes.DENSE_THRESHOLD, stokes.power_iteration_lmax = 0, lmax
+    try:
+        runs = []  # the CPU's, the card's, the card's again
+        for device in ("cpu", "cuda", "cuda"):
+            mesh = ft.unit_square_mesh(STOKES_PARITY_N, diagonal="left/right",
+                                       dtype=torch.float64, device=device)
+            WP = stokes.TaylorHood(mesh)
+            bcs = [ft.DirichletBC(WP.sub(0), GUERMOND_U),
+                   ft.DirichletBC(WP.sub(1), GUERMOND_P)]
+            t0 = time.perf_counter()
+            u, p = stokes.solve(WP, bcs, 1.0, GUERMOND_F, verbose=False,
+                                tol=STOKES_PARITY_RTOL, max_iter=3000)
+            secs = time.perf_counter() - t0
+            row = (u, p, dict(stokes.last_info), secs,
+                   ft.errornorm(GUERMOND_U, u), ft.errornorm(GUERMOND_P, p))
+            runs.append(row)
+    finally:
+        stokes.DENSE_THRESHOLD, stokes.power_iteration_lmax = orig_threshold, orig_lmax
+    (uc, pc, ic, sc, euc, epc), (ug, pg, ig, sg, eug, epg), (ug2, _, ig2, _, _, _) = runs
+    du = float((ug.vector.cpu() - uc.vector).abs().max()) / float(uc.vector.abs().max())
+    dp = float((pg.vector.cpu() - pc.vector).abs().max()) / float(pc.vector.abs().max())
+    log(f"[stokes-parity] Guermond1 n={STOKES_PARITY_N} MINRES float64: iters cuda="
+        f"{ig['iters']} cpu={ic['iters']} (cuda again {ig2['iters']}), residual cuda "
+        f"{ig['resnorm']:.3e} cpu {ic['resnorm']:.3e}; rel |du|={du:.3e} |dp|={dp:.3e}; "
+        f"L2 errors u {eug:.6e}/{euc:.6e} p {epg:.6e}/{epc:.6e} (cuda/cpu); "
+        f"s cuda {sg:.2f} cpu {sc:.2f}")
+    check(ig["solver"] == "minres" and ig["iters"] == ic["iters"] == ig2["iters"],
+          f"stokes parity: iterations differ ({ig}, {ic}, {ig2})")
+    # the solve stops at rtol 3e-9; its own error against the dense LU is
+    # 5.0e-10 (u) and 1.15e-7 (p) of the largest entries on the CPU, and
+    # the two sides' roundoff moves the iterate by less than that
+    check(du <= 1e-9 and dp <= 1e-7, f"stokes parity: u or p differ ({du}, {dp})")
+    check(torch.equal(ug.vector, ug2.vector), "stokes parity: the card's solve does not repeat")
+    check(eug < 1e-2 and epg < 1e-1, f"stokes parity: MMS errors too large ({eug}, {epg})")
+
+
+def phase_karman_bootstrap(prob_f32):
+    """Path A: run_karman_fast(backend="packed", from_rest=False) at the
+    Karman main path's mesh. Each (dtype, n_refine) of KARMAN_BOOTSTRAP_RUNS
+    but the last takes the driver's bootstrap call (MINRES, rtol 1e-6, 2000
+    at most) alone and must raise as pinned; the last runs the driver, 1 + 5
+    steps, one a chunk. Returns the converged run's problem (for the launches
+    a MINRES iteration, profiled last)."""
+    import torch
+    from flow_tpu_torch import stokes
+    from flow_tpu_torch.models.karman import KarmanProblem, run_karman_fast
+
+    hand = _hand_kernels()
+    rows, out, prob = [], None, None
+    for i, (dtype_name, n_refine) in enumerate(KARMAN_BOOTSTRAP_RUNS):
+        dtype = getattr(torch, dtype_name)
+        last = i == len(KARMAN_BOOTSTRAP_RUNS) - 1
+        t0 = time.perf_counter()
+        if dtype == torch.float32 and n_refine == KARMAN_MAIN["n_refine"]:
+            prob = prob_f32
+        else:
+            prob = KarmanProblem(lcar=KARMAN_MAIN["lcar"], n_refine=n_refine, dtype=dtype,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        t_prob = time.perf_counter() - t0
+        for k in hand.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        if not last:
+            try:
+                prob.stokes_bootstrap(tol=1.0e-6, max_iter=2000)
+                converged = True
+            except RuntimeError:  # the pinned outcome, checked below
+                converged = False
+            torch.cuda.synchronize()
+            info = dict(stokes.last_info, seconds=time.perf_counter() - t0)
+        else:
+            out = run_karman_fast(num_steps=PACKED_STEPS, chunk_size=1, backend="packed",
+                                  convection="lagged", problem=prob, from_rest=False)
+            torch.cuda.synchronize()
+            info, converged = out["bootstrap"], True
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = {name: k.launches for name, k in hand.items()}
+        log(f"[bootstrap] {dtype_name} lcar={KARMAN_MAIN['lcar']} n_refine={n_refine} "
+            f"n_dofs={prob.n_dofs}: MINRES iters={info['iters']} true residual "
+            f"{info['resnorm']:.6e} converged={converged} solve s={info['seconds']:.3f} "
+            f"(problem setup {t_prob:.1f} s) peak_mem_bytes={peak} (above {base})")
+        check(not any(launches.values()), f"bootstrap: a hand kernel was launched: {launches}")
+        rows.append((dtype_name, n_refine, info["iters"], converged))
+        if not last:
+            del prob
+            torch.cuda.empty_cache()
+    tel = out["telemetry"]
+    timed = sum(out["chunk_seconds"][1:])
+    log(f"[bootstrap] the driver from the bootstrap: steps/s={(PACKED_STEPS - 1) / timed:.4f} "
+        f"(after 1 warm-up step of {out['chunk_seconds'][0]:.3f} s)")
+    for k in ("dt", "linear_iters", "pressure_iters", "correction_iters"):
+        log(f"[bootstrap] {k}: {tel[k].tolist()}")
+    log(f"[bootstrap] drag: {tel['forces'][:, 0].tolist()}")
+    U, P = out["u"], out["p"]
+    check(bool(torch.isfinite(U).all()) and bool(torch.isfinite(P).all()),
+          "bootstrap: non-finite state")
+    check(np.isfinite(tel["forces"]).all() and tel["forces"][-1, 0] > 0,
+          "bootstrap: non-finite forces or a last drag <= 0")
+    for key in ("pressure_converged", "correction_converged"):
+        check(bool(np.all(tel[key])), f"bootstrap: a {key.split('_')[0]} solve did not converge")
+    log(f"[bootstrap] runs (dtype, n_refine, MINRES iters, converged): {rows}")
+    check(rows == KARMAN_BOOTSTRAP_ITERS,
+          f"bootstrap: runs {rows} are not KARMAN_BOOTSTRAP_ITERS' {KARMAN_BOOTSTRAP_ITERS}")
+    return prob
+
+
+def _minres_launches(prob):
+    """Launch calls of one MINRES iteration of prob's bootstrap solve, from
+    torch.profiler: (solve capped at 20 iterations - capped at 10) / 10."""
+    from flow_tpu_torch import stokes
+
+    def capped(n):
+        def run():
+            try:
+                stokes.solve(prob.WP, prob.u_bcs, prob.mu, (0.0, 0.0), verbose=False,
+                             tol=1.0e-6, max_iter=n)
+            except RuntimeError:  # the cap, as asked for
+                pass
+        return _profiled_launches(run)
+
+    (ev10, calls10), (ev20, calls20) = capped(10), capped(20)
+    return (ev20 - ev10) / 10, (calls20 - calls10) / 10
+
+
+def phase_boussinesq3d_parity():
+    """compute_boussinesq_3d in float64 on the card and on the CPU at
+    BOUSSINESQ3D_PARITY (both routes): equal counts a sweep, u within 1e-8
+    and theta within 1e-10 of their largest entries; K1 launched on the
+    packed route only."""
+    import torch
+    from flow_tpu_torch.models.boussinesq3d import compute_boussinesq_3d
+    from flow_tpu_torch.ops.stencil import STENCIL_3D
+
+    for cfg in BOUSSINESQ3D_PARITY:
+        runs = {}
+        for device in ("cpu", "cuda"):
+            tel = []
+            STENCIL_3D.launches = 0
+            t0 = time.perf_counter()
+            u, _, th = compute_boussinesq_3d(device=device, telemetry=tel, **cfg)
+            runs[device] = (u.vector.cpu(), th.vector.cpu(), _boussinesq_counts(tel),
+                            time.perf_counter() - t0, STENCIL_3D.launches)
+        (uc, thc, cc, sc, _), (ug, thg, cg, sg, k1) = runs["cpu"], runs["cuda"]
+        du = float((ug - uc).abs().max()) / max(float(uc.abs().max()), 1e-30)
+        dth = float((thg - thc).abs().max()) / float(thc.abs().max())
+        log(f"[boussinesq3d-parity] {cfg}: {len(cg)} sweeps, max|u| "
+            f"{float(uc.abs().max()):.3e}, rel |du|={du:.3e} |dtheta|={dth:.3e}; K1 "
+            f"launches {k1}; cpu {sc:.1f} s, cuda {sg:.1f} s; counts cuda={cg}")
+        check(cg == cc, f"boussinesq3d parity {cfg}: counts differ (cuda {cg}, cpu {cc})")
+        check(not any(c[2] for c in cg), f"boussinesq3d parity {cfg}: a sweep failed")
+        check((float((ug - uc).abs().max()) <= 1e-8 * max(float(uc.abs().max()), 1e-8))
+              and dth <= 1e-10, f"boussinesq3d parity {cfg}: u or theta differ ({du}, {dth})")
+        check((k1 > 0) == (cfg["backend"] == "packed"),
+              f"boussinesq3d parity {cfg}: K1 launches {k1}")
+    check(any(c[5] for c in cg), "boussinesq3d parity: the moving run took no Picard step")
+
+
+def _boussinesq3d_report(tag, tel, total, peak, dofs):
+    steps = sorted({r["step"] for r in tel})
+    for s in steps:
+        rows = [r for r in tel if r["step"] == s]
+        heat_s = sum(r.get("heat_seconds", 0.0) for r in rows)
+        ns_s = sum(r.get("ns_seconds", 0.0) for r in rows)
+        lu = [round(r["heat_factor_seconds"], 3) for r in rows if "heat_factor_seconds" in r]
+        log(f"[{tag}] step {s}: t={rows[0]['t']:.6g} dt={rows[0]['dt']:.6g} sweeps="
+            f"{len(rows)} s={heat_s + ns_s:.3f} (heat {heat_s:.3f}"
+            + (f", of it splu factor {lu}" if lu else "") + f"; NS {ns_s:.3f}) heat its/sweep="
+            f"{[r.get('heat_iters') for r in rows]}")
+    sweeps = sum(r.get("heat_seconds", 0.0) + r.get("ns_seconds", 0.0) for r in tel)
+    log(f"[{tag}] dofs {dofs}; total {total:.1f} s, of it sweeps {sweeps:.1f} s and setup "
+        f"(mesh, spaces, projections, stepper or hierarchy in the first sweep's parts) "
+        f"{total - sweeps:.1f} s; peak_mem_bytes={peak}")
+
+
+def _dofs3d(u, p, th):
+    dofs = {"velocity": 3 * u.space.n_dofs, "pressure": p.space.n_dofs,
+            "temperature": th.space.n_dofs}
+    dofs["coupled"] = sum(dofs.values())
+    return dofs
+
+
+def phase_boussinesq3d_packed():
+    """Path B: compute_boussinesq_3d(backend="packed") at BOUSSINESQ3D_PACKED
+    in float64 from rest to BOUSSINESQ3D_PACKED_TIME: the NS step on the box
+    stepper (K1: the pressure operator, every V-cycle level), the heat on
+    the host splu every sweep. Returns K1's launches by grid and the f64
+    launches of those grids for their device times (taken last)."""
+    import torch
+    from flow_tpu_torch.models.boussinesq3d import compute_boussinesq_3d
+    from flow_tpu_torch.ops import stencil
+
+    hand = _hand_kernels()
+    for k in hand.values():
+        k.launches = 0
+    stencil.GRID_LAUNCHES.clear()
+
+    class SweepLaunches(list):
+        """The telemetry list, each sweep's row stamped with K1's launches by
+        grid so far (a row is appended after the sweep's NS step)."""
+
+        def append(self, row):
+            super().append(dict(row, k1_by_grid=dict(stencil.GRID_LAUNCHES)))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tel = SweepLaunches()
+    t0 = time.perf_counter()
+    u, p, th = compute_boussinesq_3d(BOUSSINESQ3D_PACKED_TIME, device="cuda",
+                                     dtype=torch.float64, telemetry=tel, **BOUSSINESQ3D_PACKED)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {name: k.launches for name, k in hand.items()}
+    by_grid = dict(stencil.GRID_LAUNCHES)
+    dofs = _dofs3d(u, p, th)
+    _boussinesq3d_report("boussinesq3d-packed", tel, total, peak, dofs)
+    counts = _boussinesq_counts(tel)
+    log(f"[boussinesq3d-packed] {BOUSSINESQ3D_PACKED} (step, sweep, failed, heat solver, "
+        f"heat its, picard, bicgstab, pressure, correction): {counts}")
+    log(f"[boussinesq3d-packed] K1 launches {launches['STENCIL_3D']} by grid {by_grid}; "
+        f"hand-kernel launches {launches}")
+    prev, sweep_k1 = {}, []
+    for r in tel:
+        now = r["k1_by_grid"]
+        sweep_k1.append({g: now[g] - prev.get(g, 0) for g in now if now[g] > prev.get(g, 0)})
+        prev = now
+    log("[boussinesq3d-packed] K1 launches a sweep by grid (step, sweep): "
+        + "; ".join(f"({r['step']}, {r['sweep']}) {k}" for r, k in zip(tel, sweep_k1)))
+    last = max(r["step"] for r in tel)
+    moving = [(c, k) for r, c, k in zip(tel, counts, sweep_k1) if r["step"] == last]
+    check(all(c[5] > 0 and c[6] > 0 and c[7] > 0 and sum(k.values()) > 0 for c, k in moving),
+          f"boussinesq3d packed: the last step does not move the fluid through K1: {moving}")
+    check(dofs == BOUSSINESQ3D_PACKED_DOFS, f"boussinesq3d packed: dofs {dofs}")
+    check(len(counts) >= 2 and not any(c[2] for c in counts),
+          "boussinesq3d packed: fewer than two sweeps, or a failed one")
+    check(all(c[3] == "splu" for c in counts), "boussinesq3d packed: a heat solve off splu")
+    check(launches["STENCIL_3D"] > 0 and sum(by_grid.values()) == launches["STENCIL_3D"],
+          "boussinesq3d packed: no K1 launch, or its launches by grid do not add up")
+    check(not any(v for k, v in launches.items() if k != "STENCIL_3D"),
+          f"boussinesq3d packed: another hand kernel was launched: {launches}")
+    check(bool(torch.isfinite(u.vector).all()) and bool(torch.isfinite(th.vector).all()),
+          "boussinesq3d packed: non-finite state")
+    check(counts == BOUSSINESQ3D_PACKED_ITERS,
+          f"boussinesq3d packed: counts {counts} are not BOUSSINESQ3D_PACKED_ITERS' "
+          f"{BOUSSINESQ3D_PACKED_ITERS}")
+    # K1 in float64 at the path's grids, as StructuredLaplacian launches it
+    rng = np.random.default_rng(0)
+    jobs = {}
+    for grid in by_grid:
+        k = torch.as_tensor(rng.standard_normal((3, 3, 3)), device="cuda")
+        x = torch.as_tensor(rng.standard_normal(int(np.prod(grid))), device="cuda")
+        launch = stencil.StencilLaunch(k, grid)
+        check(torch.equal(launch(x).reshape(grid),
+                          stencil.stencil_apply_3d(x.reshape(grid), k)),
+              f"boussinesq3d packed: StencilLaunch differs at {grid}")
+        jobs[grid] = lambda launch=launch, x=x: launch(x)
+    return by_grid, jobs
+
+
+def _stencil_bound64(shape):
+    """K1's bound in float64: x read and y written once, 54 operations a
+    point at the float64 peak."""
+    n = int(np.prod(shape))
+    t_bytes = (2 * 8 * n + 8 * 27) / HBM_BYTES_PER_S
+    t_ops = 2 * 27 * n / F64_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops)
+
+
+def phase_boussinesq3d_mg():
+    """Path C: compute_boussinesq_3d(backend=None) at BOUSSINESQ3D_MG in
+    float64 from rest to BOUSSINESQ3D_MG_TIME: Rotational on the twice
+    refined tets, the heat solve by MG-GMRES on the shifted P1 hierarchy
+    (its extra level the refinement of the finest mesh). No hand kernel
+    runs on this route."""
+    import torch
+    from flow_tpu_torch.models.boussinesq3d import compute_boussinesq_3d
+
+    hand = _hand_kernels()
+    for k in hand.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tel = []
+    t0 = time.perf_counter()
+    u, p, th = compute_boussinesq_3d(BOUSSINESQ3D_MG_TIME, device="cuda",
+                                     dtype=torch.float64, telemetry=tel, **BOUSSINESQ3D_MG)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {name: k.launches for name, k in hand.items()}
+    dofs = _dofs3d(u, p, th)
+    hiers = list(th.space.mesh._heat_mg_cache.values())
+    _boussinesq3d_report("boussinesq3d-mg", tel, total, peak, dofs)
+    counts = _boussinesq_counts(tel)
+    log(f"[boussinesq3d-mg] {BOUSSINESQ3D_MG} heat hierarchy levels "
+        f"{[L.n for L in hiers[0].levels]} (setup {hiers[0].setup_seconds:.2f} s); "
+        f"(step, sweep, failed, heat solver, heat its, newton, -, pressure, correction): "
+        f"{counts}")
+    check(dofs == BOUSSINESQ3D_MG_DOFS, f"boussinesq3d mg: dofs {dofs}")
+    check(counts and not any(c[2] for c in counts), "boussinesq3d mg: a sweep failed")
+    check(all(c[3] == "mg" for c in counts), "boussinesq3d mg: a heat solve off the multigrid")
+    check(not any(launches.values()), f"boussinesq3d mg: a hand kernel was launched: {launches}")
+    check(bool(torch.isfinite(u.vector).all()) and bool(torch.isfinite(th.vector).all()),
+          "boussinesq3d mg: non-finite state")
+    check(counts == BOUSSINESQ3D_MG_ITERS,
+          f"boussinesq3d mg: counts {counts} are not BOUSSINESQ3D_MG_ITERS' "
+          f"{BOUSSINESQ3D_MG_ITERS}")
+
+
 def main():
     # a workspace setting under which cuBLAS is deterministic, for the
     # references run under deterministic() (read when cuBLAS starts)
@@ -2855,15 +3332,38 @@ def main():
         prob_p, st_p, state_p, packed = phase_packed_main()
         packed_driver = phase_packed_driver(prob_p)
         phase_packed_launches(st_p, state_p)
-        del prob_p, st_p, state_p, packed_driver
+        del st_p, state_p, packed_driver
+        torch.cuda.empty_cache()
+        # steady Stokes (MINRES): card-vs-CPU parity, then path A, the
+        # packed driver from the Stokes bootstrap at the main path's mesh
+        phase_stokes_parity()
+        prob_boot = phase_karman_bootstrap(prob_p)
+        del prob_p
         torch.cuda.empty_cache()
         # the coupled Boussinesq driver (float64, packed NS route, heat on
         # the shifted multigrid): no hand kernel
         phase_boussinesq_parity()
         phase_boussinesq_main()
         torch.cuda.empty_cache()
+        # the 3-D driver: card-vs-CPU parity on both routes, path B (the box
+        # stepper, K1; host splu heat) and path C (Rotational on tets, the
+        # tet heat multigrid)
+        phase_boussinesq3d_parity()
+        b3_grids, b3_jobs = phase_boussinesq3d_packed()
+        phase_boussinesq3d_mg()
+        torch.cuda.empty_cache()
         # device times from the profiler, last: a profiler session slows
         # later host code in the process
+        ev, calls = _minres_launches(prob_boot)
+        log(f"[profile] bootstrap MINRES ({prob_boot.mesh.dtype}, {prob_boot.n_dofs} DoF): "
+            f"{ev:.1f} device events and {calls:.1f} launch calls an iteration")
+        del prob_boot
+        torch.cuda.empty_cache()
+        b3_rows = {g: dict(device_ms=device_ms(job, 100, kernel="stencil27"),
+                           bound_ms=_stencil_bound64(g)) for g, job in b3_jobs.items()}
+        log("[profile] K1 float64 at the 3-D packed route's grids, device ms a call "
+            "(bound): " + ", ".join(f"{g}={r['device_ms']:.5f} ({r['bound_ms']:.6f})"
+                                    for g, r in b3_rows.items()))
         _ell_device_times(kell, ell_jobs)
         for row, jobs in ((kwin["winmom"], win_jobs["winmom"]), (knewton, newton_job)):
             row["device_ms"] = device_ms(jobs["warm"], 50, kernel="winmom_kernel")
@@ -2940,7 +3440,8 @@ def main():
              "winstiff": {"karman_newton": newton["winstiff"],
                           "karman_lagged": lagged["winstiff"]},
              "stencil3d": {"cavity_box": k1["launches"],
-                           "cavity3d_window": launches3["stencil3d"]},
+                           "cavity3d_window": launches3["stencil3d"],
+                           "boussinesq3d_packed": sum(b3_grids.values())},
              "stencil2d": {"structured2d_poisson": k2["launches"]},
              "winmass": {"formwin2d": k4a["launches"]},
              "winform": {"formwin2d": k5["launches"]},
@@ -3029,6 +3530,11 @@ def main():
         log(f"[done] {tag} launches by grid {grids}; launches x (device - bound) us "
             + ", ".join(f"{g}={v:.1f}" for g, v in loss.items())
             + f"; sum {sum(loss.values()):.1f}")
+    loss = {g: c * 1e3 * (b3_rows[g]["device_ms"] - b3_rows[g]["bound_ms"])
+            for g, c in b3_grids.items()}
+    log(f"[done] stencil3d boussinesq3d_packed (float64) launches by grid {b3_grids}; "
+        "launches x (device - bound) us " + ", ".join(f"{g}={v:.1f}" for g, v in loss.items())
+        + f"; sum {sum(loss.values()):.1f}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # host_us: the host µs per call of the K1, K2, K4b and K3 rows

@@ -1,10 +1,11 @@
 # Weak-form operators of the incompressible-flow forms. Port of
 # flow_tpu/fem/forms.py, cut to what FastStepper's window and einsum routes
 # (2-D Karman, 3-D cavity), the packed-patch route (fem/patchpack.py:
-# ref_p1_integrals; its tests: sym_grad_apply, pressure_grad_rhs) and the
+# ref_p1_integrals; its tests: sym_grad_apply, pressure_grad_rhs), the
 # public schemes (navier_stokes/pressure_correction.py: the full skew
-# convection and the body force) call; every form takes triangles and tets
-# alike.
+# convection and the body force), steady Stokes (vector_laplacian_apply)
+# and AB2TR (skew_convection_combined_rhs) call; every form takes triangles
+# and tets alike.
 #
 # Torch on the state's device: `geom` is an assembly.geometry_on view
 # (detJ, G, C tensors), tabulations come from assembly.Tab.on. Vector fields
@@ -20,6 +21,8 @@ from . import assembly, elements, quadrature
 from .assembly import ref_mixed, ref_stiffness
 
 __all__ = [
+    "vector_laplacian_apply",
+    "skew_convection_combined_rhs",
     "mass_loc",
     "sym_grad_loc",
     "pressure_grad_loc",
@@ -71,6 +74,22 @@ def _Kref(V, like):
 def _Bref(V, Q, like):
     return _const(("mixed", Q.degree, V.degree, _dim(V)),
                   lambda: ref_mixed(Q.degree, V.degree, _dim(V)), like)
+
+
+def vector_laplacian_apply(V, geom, U, coeff=None, dof_sum=None):
+    """y[(i,a)] = int c grad(u_a) . grad(v_a): the component-wise stiffness,
+    Stokes' full-gradient viscous term (c = coeff: None, a constant or
+    per-cell [nc]). dof_sum: V.dof_sum unless given (a fem/gathersum table
+    sums in a fixed order), as in div_rhs and pressure_grad_rhs."""
+    loc = torch.einsum("ekl,klij,ejm->eim", assembly._scaled(geom.C, coeff),
+                       _Kref(V, U), V.gather(U))
+    return (dof_sum or V.dof_sum)(loc)
+
+
+def skew_convection_combined_rhs(V, geom, U, rule_degree=5):
+    """The skew convection of the velocity by itself, assembled:
+    0.5 [((u.grad)u, v) - ((u.grad)v, u)] at the dof level."""
+    return V.dof_sum(skew_convection_combined_loc(V, geom, V.gather(U), rule_degree))
 
 
 def mass_loc(V, geom, Uloc):
@@ -175,13 +194,14 @@ def conv_lagged_jacobian_loc(V, geom, Tloc, rule_degree=5):
     return 0.5 * (s - s.transpose(1, 2))
 
 
-def div_rhs(V, Q, geom, U):
-    """b[m] = int div(u) q_m (exact; u in V=P2 vector, q in Q=P1)."""
+def div_rhs(V, Q, geom, U, dof_sum=None):
+    """b[m] = int div(u) q_m (exact; u in V=P2 vector, q in Q=P1); summed
+    by dof_sum, Q.dof_sum unless given."""
     Uloc = V.gather(U)
     loc = torch.einsum(
         "e,ebk,kmj,ejb->em", geom.detJ, geom.G, _Bref(V, Q, U), Uloc
     )
-    return Q.dof_sum(loc)
+    return (dof_sum or Q.dof_sum)(loc)
 
 
 def grad_div_ustar(V, geom, U):
@@ -224,10 +244,11 @@ def sym_grad_apply(V, geom, U, mu):
     return V.dof_sum(sym_grad_loc(V, geom, V.gather(U), mu))
 
 
-def pressure_grad_rhs(V, Q, geom, P):
+def pressure_grad_rhs(V, Q, geom, P, dof_sum=None):
     """b[(i,a)] = int p d_a(v_i) (exact): the `+ p div(v)` part of the
-    stress form."""
-    return V.dof_sum(pressure_grad_loc(V, Q, geom, Q.gather(P)))
+    stress form and Stokes' B^T block; summed by dof_sum, V.dof_sum unless
+    given."""
+    return (dof_sum or V.dof_sum)(pressure_grad_loc(V, Q, geom, Q.gather(P)))
 
 
 def ref_p1_integrals(degree, dim=2):

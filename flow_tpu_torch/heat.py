@@ -18,6 +18,8 @@
 # scipy splu of the assembled operator.
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -39,7 +41,8 @@ DENSE_THRESHOLD = 6000
 class Heat:
     """alpha*M*u + beta*F(t, u) evaluation and solves on V (on its mesh's
     device, in its dtype). last_solve: {"solver", "iters", "resnorm"} of
-    the last solve_alpha_M_beta_F."""
+    the last solve_alpha_M_beta_F, and on the splu path the host seconds
+    of getting the factorization (a cached one costs nothing)."""
 
     def __init__(
         self,
@@ -225,8 +228,11 @@ class Heat:
             x = np.linalg.solve(S, rhs_np)
             self.last_solve = {"solver": "dense", "iters": 0, "resnorm": None}
         else:
-            x = self._sparse_lu(alpha, beta, S_loc).solve(rhs_np)
-            self.last_solve = {"solver": "splu", "iters": 0, "resnorm": None}
+            t0 = time.perf_counter()
+            lu = self._sparse_lu(alpha, beta, S_loc)
+            self.last_solve = {"solver": "splu", "iters": 0, "resnorm": None,
+                               "factor_seconds": time.perf_counter() - t0}
+            x = lu.solve(rhs_np)
         return Function(self.V, torch.as_tensor(x, dtype=rhs.dtype, device=rhs.device))
 
     def _mg_hierarchy(self):
@@ -285,14 +291,13 @@ class Heat:
                 fine = getattr(mesh, "_heat_mg_refined", None)
                 if fine is None:
                     if getattr(mesh, "dim", 2) == 3:
-                        raise NotImplementedError(
-                            "the P2 heat multigrid on tets needs "
-                            "refine_uniform_tet, not ported yet (ROADMAP "
-                            "queue 1 item 4: models/boussinesq3d.py)"
-                        )
-                    from .mesh import refine_uniform
+                        from .mesh3d import refine_uniform_tet
 
-                    fine = refine_uniform(mesh)
+                        fine = refine_uniform_tet(mesh)
+                    else:
+                        from .mesh import refine_uniform
+
+                        fine = refine_uniform(mesh)
                     mesh._heat_mg_refined = fine
                 meshes = meshes + [fine]
                 if extras is not None:

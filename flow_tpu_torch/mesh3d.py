@@ -1,7 +1,8 @@
 # Tetrahedral meshes. Port of flow_tpu/mesh3d.py: the mesh is built on the
 # host in numpy (flat static arrays: cells, edges, cell_edges, boundary
 # faces/edges, n_points/n_cells/n_edges, hmax/hmin) plus the structured-grid
-# metadata of box_mesh. Every consumer is host setup code, so the JAX
+# metadata of box_mesh, and refine_uniform_tet. Every consumer is host
+# setup code, so the JAX
 # package's device mirrors of these arrays are not kept; `dtype` and
 # `device` are the defaults of the spaces and steppers built on the mesh
 # (device None: the current CUDA device, or an error where there is none).
@@ -10,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["TetMesh", "box_mesh"]
+__all__ = ["TetMesh", "box_mesh", "refine_uniform_tet"]
 
 # Kuhn decomposition of the unit cube into 6 tets sharing the main diagonal
 # (0,0,0)-(1,1,1): consistent across neighboring cubes (no orientation
@@ -173,3 +174,36 @@ def box_mesh(p0, p1, nx, ny, nz, dtype=None, device=None):
         (z1 - z0) / nz,
     )
     return mesh
+
+
+def refine_uniform_tet(mesh: TetMesh):
+    """Uniform refinement: each tet into 8 (4 corners and the octahedron
+    split along its (m01, m23) diagonal), on the mesh's device and dtype.
+    The midpoint of edge e is vertex n_old + e (TetMesh.edges order), so P2
+    dofs on `mesh` are P1 dofs on the result, in order; the JAX package's
+    points and cells, bit for bit."""
+    p = mesh.points_np
+    c = mesh.cells_np
+    e = mesh.edges_np
+    ce = mesh.cell_edges_np  # edge order: (0,1),(0,2),(0,3),(1,2),(1,3),(2,3)
+    n_old = len(p)
+
+    mid = 0.5 * (p[e[:, 0]] + p[e[:, 1]])
+    new_pts = np.concatenate([p, mid], axis=0)
+
+    m = n_old + ce  # [nt, 6] midpoint ids: m01,m02,m03,m12,m13,m23
+    v0, v1, v2, v3 = c[:, 0], c[:, 1], c[:, 2], c[:, 3]
+    m01, m02, m03, m12, m13, m23 = (m[:, k] for k in range(6))
+    tets = [
+        (v0, m01, m02, m03),
+        (v1, m01, m12, m13),
+        (v2, m02, m12, m23),
+        (v3, m03, m13, m23),
+        # octahedron: diagonal m01-m23
+        (m01, m02, m03, m23),
+        (m01, m02, m12, m23),
+        (m01, m03, m13, m23),
+        (m01, m12, m13, m23),
+    ]
+    new_cells = np.concatenate([np.stack(t, axis=1) for t in tets], axis=0)
+    return TetMesh(new_pts, new_cells, dtype=mesh.dtype, device=mesh.device)

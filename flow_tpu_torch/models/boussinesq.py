@@ -277,18 +277,25 @@ def rho_of_theta(theta: Function, rho_fn):
     return Function(theta.space, torch.as_tensor(vals, dtype=v.dtype, device=v.device))
 
 
+def _vertical(vals, g_const, dim):
+    """rho g along the last axis of a dim-vector field: (0, ..., 0, rho g)."""
+    zero = torch.zeros_like(vals)
+    return torch.stack([zero] * (dim - 1) + [vals * g_const], dim=-1)
+
+
 def buoyancy_function(rho_theta: Function, g_const, V):
-    """f = rho(theta) * (0, g) as a nodal vector Function on V (the packed
-    route's representation; theta's P2 space shares V's scalar dof
+    """f = rho(theta) * (0, ..., g) as a nodal vector Function on V (the
+    packed routes' representation; theta's P2 space shares V's scalar dof
     numbering)."""
     vals = rho_theta.vector
     assert vals.shape[0] == V.n_dofs, "temperature space must match V's P2"
-    return Function(V, torch.stack([torch.zeros_like(vals), vals * g_const], dim=-1))
+    return Function(V, _vertical(vals, g_const, V.n_components))
 
 
 def buoyancy(rho_theta: Function, g_const):
-    """f = rho(theta) * (0, g) as a callable of the force rule's quadrature
-    points (the density through its own basis there)."""
+    """f = rho(theta) * (0, ..., g) as a callable of the force rule's
+    quadrature points (the density through its own basis there), in 2-D or
+    3-D."""
     space = rho_theta.space
 
     def f(x):
@@ -298,6 +305,6 @@ def buoyancy(rho_theta: Function, g_const):
         v = rho_theta.vector
         tab = assembly.tabulation(space, F_RULE).on(v.dtype, v.device)
         vals = assembly.values_at_qp(tab, space.gather(v))
-        return torch.stack([torch.zeros_like(vals), vals * g_const], dim=-1)
+        return _vertical(vals, g_const, getattr(space.mesh, "dim", 2))
 
     return f

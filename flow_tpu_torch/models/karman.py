@@ -5,8 +5,10 @@
 # the drag/lift probes), schafer_turek_problem, strouhal_number and the
 # high-throughput driver run_karman_fast on FastStepper's einsum route (the
 # JAX driver's) or its window route, or on PackedPatchStepper
-# (backend="packed", the bench's default path). The Stokes bootstrap and
-# the host-stepped run_karman are not ported.
+# (backend="packed", the bench's default path), from rest or from the
+# steady Stokes bootstrap (from_rest=False), and the host-stepped
+# run_karman (Stokes bootstrap, then Rotational steps with the smooth CFL
+# controller).
 from __future__ import annotations
 
 import os
@@ -15,14 +17,16 @@ import time
 import numpy as np
 import torch
 
-from .. import materials
+from .. import materials, navier_stokes
+from .. import stokes as stokes_mod
 from ..fem.assembly import BoundaryTab
 from ..fem.bc import DirichletBC
 from ..fem.spaces import FunctionSpace, VectorFunctionSpace
 from ..mesh import rectangle_with_hole_mesh, refine_uniform
+from ..message import Message, info
 
-__all__ = ["KarmanProblem", "schafer_turek_problem", "run_karman_fast",
-           "strouhal_number"]
+__all__ = ["KarmanProblem", "schafer_turek_problem", "run_karman",
+           "run_karman_fast", "strouhal_number"]
 
 X0, X1 = 0.0, 0.6
 Y0, Y1 = -0.07, 0.07
@@ -90,6 +94,7 @@ class KarmanProblem:
         self.rho = rho if rho is not None else float(materials.water.density(T=293.0))
         self.V = VectorFunctionSpace(mesh, 2)
         self.Q = FunctionSpace(mesh, 1)
+        self.WP = stokes_mod.TaylorHood(mesh, V=self.V, Q=self.Q)
 
         left = lambda x: x[:, 0] < x0 + MESH_EPS
         right = lambda x: x[:, 0] > x1 - MESH_EPS
@@ -132,6 +137,14 @@ class KarmanProblem:
             device=mesh.device,
         )
         self.reynolds = self.u_ref * diameter * self.rho / mu
+
+    def stokes_bootstrap(self, tol=1.0e-13, max_iter=10000):
+        """The initial (u0, p0) Functions from steady Stokes with the
+        velocity BCs only (the pressure is not pinned, as in the
+        reference). stokes.last_info holds the solve's iterations and
+        residual."""
+        return stokes_mod.solve(self.WP, self.u_bcs, self.mu, f=(0.0, 0.0),
+                                verbose=False, tol=tol, max_iter=max_iter)
 
     @property
     def n_dofs(self):
@@ -190,6 +203,73 @@ def schafer_turek_problem(lcar=0.03, n_refine=2, dtype=None, snap=True,
         diameter=0.1, u_in=Um, u_ref=2.0 * Um / 3.0, outflow_velocity_bc=False,
         snap=snap,
     )
+
+
+def run_karman(
+    num_steps=2,
+    lcar=0.1,
+    n_refine=0,
+    mu=0.002,
+    dt0=1.0e-5,
+    dt_max=1.0,
+    collect_forces=False,
+    verbose=False,
+    writer=None,
+    device=None,
+    dtype=None,
+):
+    """The host-stepped driver: the Stokes bootstrap, then Rotational steps
+    (Newton, tol 1e-10) with the smooth CFL-style dt controller. `device`
+    and `dtype` are the problem's (defaults: the card, torch's default
+    dtype). Returns a dict with the problem, the final u and p Functions
+    and the time series (t, dt, forces as (F_x, F_y) rows where
+    collect_forces)."""
+    if writer is not None:
+        raise NotImplementedError(
+            "run_karman: writer= needs io/xdmf.py, not ported (ROADMAP queue 1 "
+            "item 6)"
+        )
+    problem = KarmanProblem(lcar=lcar, n_refine=n_refine, mu=mu, dtype=dtype,
+                            device=device)
+    if verbose:
+        info("Reynolds number:  %e", problem.reynolds)
+
+    with Message("Stokes bootstrap"):
+        u0, p0 = problem.stokes_bootstrap()
+
+    stepper = navier_stokes.Rotational()
+    dt = dt0
+    t = 0.0
+    times, dts, forces = [], [], []
+    for k in range(num_steps):
+        u1, p1 = stepper.step(
+            dt, {0: u0}, p0, problem.u_bcs, problem.p_bcs, problem.rho,
+            problem.mu, f={0: (0.0, 0.0), 1: (0.0, 0.0)}, verbose=False,
+            tol=1.0e-10,
+        )
+        u0, p0 = u1, p1
+        t += dt
+        if collect_forces:
+            forces.append(problem.forces(u0.vector, p0.vector))
+        times.append(t)
+        dts.append(dt)
+
+        # smooth CFL-style step-size adaptation
+        unorm = float(torch.max(torch.sqrt(torch.sum(u0.vector**2, dim=1))))
+        target_dt = 1.0 * problem.mesh.hmax / max(unorm, 1e-30)
+        alpha = 0.5
+        dt = min(dt_max, dt * min(2.0, 1.0 + alpha * (target_dt - dt) / dt))
+        if verbose:
+            info("step %d: t=%.4e dt->%.4e |u|_inf=%.4e", k + 1, t, dt, unorm)
+
+    return {
+        "problem": problem,
+        "u": u0,
+        "p": p0,
+        "t": np.array(times),
+        "dt": np.array(dts),
+        "forces": np.array(forces) if forces else None,
+    }
 
 
 def run_karman_fast(
@@ -253,9 +333,12 @@ def run_karman_fast(
     estimate. `device` and `dtype` are those of the problem built here
     (defaults: the card, torch's default dtype); a given `problem` brings
     its own. Pass problem= (e.g. schafer_turek_problem(...)) for another
-    channel. Returns the state as tensors (u [n_V, 2], p [n_Q]), the last
-    dt, the telemetry as numpy arrays (t rebuilt from the dt series) and the
-    host seconds of each chunk."""
+    channel. from_rest=False starts from the steady Stokes bootstrap (MINRES
+    to rtol 1e-6 in at most 2000 iterations; RuntimeError where it does not
+    converge). Returns the state as tensors (u [n_V, 2], p [n_Q]), the last
+    dt, the telemetry as numpy arrays (t rebuilt from the dt series), the
+    host seconds of each chunk, and the bootstrap's solver, iterations,
+    residual and synchronised seconds (None from rest)."""
     from ..io import load_checkpoint, save_checkpoint
 
     if backend not in ("fast", "packed"):
@@ -264,11 +347,6 @@ def run_karman_fast(
     if packed and convection != "lagged":
         raise ValueError("run_karman_fast: the packed backend is lagged-only "
                          f"(convection={convection!r})")
-    if initial_state is None and not from_rest:
-        raise NotImplementedError(
-            "run_karman_fast: the Stokes bootstrap (from_rest=False) is not "
-            "ported (ROADMAP queue 1 item 3: stokes.py)"
-        )
     if problem is None:
         problem = KarmanProblem(lcar=lcar, n_refine=n_refine, mu=mu,
                                 dtype=dtype, device=device)
@@ -336,10 +414,18 @@ def run_karman_fast(
             Um1 = None if Um1 is None else stepper.pack_vec(Um1)
         return U, P, Um1
 
+    bootstrap = None
     if initial_state is not None:
         U, P, _ = to_run_layout(*initial_state)  # e.g. a perturbed state
-    else:
+    elif from_rest:
         U, P = stepper.zeros()
+    else:
+        tb = time.perf_counter()
+        u0, p0 = problem.stokes_bootstrap(tol=1.0e-6, max_iter=2000)
+        U, P, _ = to_run_layout(u0.vector, p0.vector)
+        if U.is_cuda:
+            torch.cuda.synchronize(U.device)
+        bootstrap = dict(stokes_mod.last_info, seconds=time.perf_counter() - tb)
 
     # checkpoint/resume of (U, P, dt); BDF2 also carries (Um1, dtp) so
     # chained runs stay second order
@@ -403,6 +489,7 @@ def run_karman_fast(
         "forces": telemetry["forces"],
         "telemetry": telemetry,
         "chunk_seconds": chunk_seconds,
+        "bootstrap": bootstrap,
     }
 
 

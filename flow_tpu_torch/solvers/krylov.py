@@ -1,5 +1,5 @@
 # Matrix-free Krylov solvers. Port of flow_tpu/solvers/krylov.py (cg,
-# bicgstab and gmres; minres is not ported yet).
+# bicgstab, minres and gmres).
 #
 # The JAX solvers run inside lax.while_loop. Here the loop is a Python loop
 # whose stopping test reads from the device once per iteration; the rest of
@@ -18,7 +18,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-__all__ = ["SolveInfo", "cg", "bicgstab", "gmres"]
+__all__ = ["SolveInfo", "cg", "bicgstab", "minres", "gmres"]
 
 
 class SolveInfo(NamedTuple):
@@ -156,6 +156,79 @@ def bicgstab(
         stall = (torch.abs(rho_new) < tiny) | (torch.abs(omega) < tiny)
         rho = rho_new
         k += 1
+    return x, SolveInfo(k, rnorm, rnorm <= target)
+
+
+def minres(
+    A: Callable,
+    b,
+    x0=None,
+    M: Optional[Callable] = None,
+    rtol=1e-10,
+    atol=0.0,
+    maxiter=1000,
+    nullspace=None,
+):
+    """Preconditioned MINRES for symmetric (possibly indefinite) systems,
+    the Stokes saddle point; M must be SPD. The Lanczos and Givens
+    recurrences and their division guards are the JAX package's. The loop
+    stops on the recurrence's residual estimate |phibar| (the preconditioned
+    one); the reported residual is the true one, b - A x, and `converged`
+    compares it with the target."""
+    M = M or _identity
+    proj = _make_project(nullspace)
+    b = proj(b)
+    if x0 is None:  # b - A(0) is b: one matvec saved
+        x = torch.zeros_like(b)
+        r1 = b
+    else:
+        x = proj(x0)
+        r1 = proj(b - A(x))
+    y = proj(M(r1))
+    beta1 = torch.sqrt(torch.clamp(_dot(r1, y), min=0.0))
+    bnorm = torch.sqrt(_dot(b, b))
+    target = torch.clamp(rtol * bnorm, min=atol)
+
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    r2 = r1
+    w = torch.zeros_like(b)
+    w2 = torch.zeros_like(b)
+    beta, betal = beta1, zero
+    c, s = -torch.ones_like(zero), zero
+    dbar, epsln = zero, zero
+    phibar = beta1
+    rnorm = torch.sqrt(_dot(r1, r1))
+
+    k = 0
+    while k < maxiter and bool(rnorm > target):
+        v = y / _nz(beta)
+        yv = proj(A(v))
+        if k >= 1:
+            yv = yv - (beta / _nz(betal)) * r1
+        alfa = _dot(v, yv)
+        yv = yv - (alfa / _nz(beta)) * r2
+        r1, r2 = r2, yv
+        y = proj(M(yv))
+        betal, beta = beta, torch.sqrt(torch.clamp(_dot(yv, y), min=0.0))
+
+        oldeps = epsln
+        delta = c * dbar + s * alfa
+        gbar = s * dbar - c * alfa
+        epsln = s * beta
+        dbar = -c * beta
+        gamma = _nz(torch.sqrt(gbar**2 + beta**2))
+        c = gbar / gamma
+        s = beta / gamma
+        phi = c * phibar
+        phibar = s * phibar
+
+        w1, w2 = w2, w
+        w = (v - oldeps * w1 - delta * w2) / gamma
+        x = x + phi * w
+        rnorm = torch.abs(phibar)
+        k += 1
+    rtrue = b - A(x)
+    rnorm = torch.sqrt(_dot(rtrue, rtrue))
     return x, SolveInfo(k, rnorm, rnorm <= target)
 
 

@@ -1,0 +1,1 @@
+from .config import SchemeConfig, SolverConfig  # noqa: F401

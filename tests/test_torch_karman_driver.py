@@ -16,7 +16,18 @@
 #   4 + 2 resumed steps equal a contiguous 6-step run to 1e-12 (BE and BDF2);
 # - ConsistentForceProbe and the traction integral against JAX on a random
 #   state to 1e-12; strouhal_number on a synthetic sine; the DFG 2D-2
-#   problem's invariants.
+#   problem's invariants;
+# - the Stokes bootstrap (KarmanProblem.stokes_bootstrap) against JAX's:
+#   the dense path at lcar=0.2 (u, p within 1e-11 of their largest
+#   entries: the same matrix, right-hand sides summed in other orders), and
+#   MINRES (rtol 1e-6, JAX's lambda_max) with equal iterations at lcar=0.1
+#   n_refine=2 (within 1e-9) and at lcar=0.2, where both raise after the
+#   same count (the recurrence stops with the true residual above the
+#   target); run_karman (2 Rotational steps from the bootstrap: t, dt,
+#   forces and state against JAX's) and run_karman_fast(from_rest=False)
+#   on both backends, 2 steps, equal counts, the state within 1e-8 and the
+#   forces within 3e-8 of their largest entries (measured 1.1e-8 on the
+#   packed route).
 import os
 
 import numpy as np
@@ -269,3 +280,121 @@ def test_packed_driver_refuses_other_routes(bad):
     kw.update(bad)
     with pytest.raises(ValueError):
         karman.run_karman_fast(**kw)
+
+
+# -- the Stokes bootstrap and the drivers that start from it ------------------
+def _stokes_spy(monkeypatch):
+    """Record the JAX Stokes MINRES counts and its lambda_max."""
+    import flow_tpu.stokes as jstokes
+    from flow_tpu.solvers import krylov as jkrylov
+
+    seen = {}
+    orig_minres, orig_lmax = jkrylov.minres, jstokes.power_iteration_lmax
+
+    def minres(*a, **k):
+        x, s = orig_minres(*a, **k)
+        seen["iters"] = int(s.iters)
+        return x, s
+
+    def lmax(*a, **k):
+        seen["lmax"] = orig_lmax(*a, **k)
+        return seen["lmax"]
+
+    monkeypatch.setattr(jkrylov, "minres", minres)
+    monkeypatch.setattr(jstokes, "power_iteration_lmax", lmax)
+    return seen
+
+
+@pytest.mark.parametrize("path, mesh", [
+    ("dense", dict(lcar=0.2)),
+    ("minres", dict(lcar=0.1, n_refine=2)),
+    ("minres-fails", dict(lcar=0.2)),
+], ids=["dense", "minres", "minres-fails"])
+def test_stokes_bootstrap_matches_jax(path, mesh, monkeypatch):
+    # run_karman's bootstrap (rtol 1e-13: the dense path at this size) and
+    # run_karman_fast(from_rest=False)'s (MINRES at rtol 1e-6, at most 2000
+    # iterations; forced with DENSE_THRESHOLD = 0 on both sides, JAX's
+    # lambda_max). MINRES stops on its preconditioned recurrence; at
+    # lcar=0.2 the true residual is then above the target on both sides
+    # (3.4e-5 after 48 iterations), and both raise
+    import flow_tpu.stokes as jstokes
+    from flow_tpu_torch import stokes as tstokes
+
+    jp = jax_karman.KarmanProblem(**mesh)
+    tp = karman.KarmanProblem(dtype=torch.float64, device="cpu", **mesh)
+    assert tp.WP.V is tp.V and tp.WP.Q is tp.Q
+    kw = {}
+    if path != "dense":
+        seen = _stokes_spy(monkeypatch)
+        monkeypatch.setattr(jstokes, "DENSE_THRESHOLD", 0)
+        monkeypatch.setattr(tstokes, "DENSE_THRESHOLD", 0)
+        kw = dict(tol=1e-6, max_iter=2000)
+    if path == "minres-fails":
+        with pytest.raises(RuntimeError, match="did not converge"):
+            jp.stokes_bootstrap(**kw)
+        monkeypatch.setattr(tstokes, "power_iteration_lmax", lambda *a, **k: seen["lmax"])
+        with pytest.raises(RuntimeError, match="did not converge in 2000"):
+            tp.stokes_bootstrap(**kw)
+        assert tstokes.last_info["iters"] == seen["iters"] < 2000
+        return
+    ju, jpp = jp.stokes_bootstrap(**kw)
+    if path == "minres":
+        monkeypatch.setattr(tstokes, "power_iteration_lmax", lambda *a, **k: seen["lmax"])
+    tu, tpp = tp.stokes_bootstrap(**kw)
+    assert tstokes.last_info["solver"] == path
+    if path == "minres":
+        assert tstokes.last_info["iters"] == seen["iters"] > 10
+    # dense: the same matrix, right-hand sides summed in other orders
+    # (|u| ~ 0.01); minres: stopped at rtol 1e-6, the two sides' roundoff
+    # stays far below it
+    tol = 1e-11 if path == "dense" else 1e-9
+    Uj, Pj = np.asarray(ju.vector), np.asarray(jpp.vector)
+    np.testing.assert_allclose(tu.vector.numpy(), Uj, rtol=0, atol=tol * np.abs(Uj).max())
+    np.testing.assert_allclose(tpp.vector.numpy(), Pj, rtol=0, atol=tol * np.abs(Pj).max())
+
+
+def test_run_karman_matches_jax():
+    jout = jax_karman.run_karman(num_steps=2, lcar=0.2, collect_forces=True)
+    tout = karman.run_karman(num_steps=2, lcar=0.2, collect_forces=True, device="cpu",
+                             dtype=torch.float64)
+    np.testing.assert_allclose(tout["t"], jout["t"], rtol=1e-12)
+    np.testing.assert_allclose(tout["dt"], jout["dt"], rtol=1e-12)
+    Uj, Pj = np.asarray(jout["u"].vector), np.asarray(jout["p"].vector)
+    np.testing.assert_allclose(tout["u"].vector.numpy(), Uj, rtol=0,
+                               atol=1e-10 * np.abs(Uj).max())
+    np.testing.assert_allclose(tout["p"].vector.numpy(), Pj, rtol=0,
+                               atol=1e-10 * np.abs(Pj).max())
+    F = np.asarray(jout["forces"])
+    assert tout["forces"].shape == F.shape == (2, 2)
+    np.testing.assert_allclose(tout["forces"], F, rtol=0, atol=1e-9 * np.abs(F).max())
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6\\b"):
+        karman.run_karman(num_steps=1, lcar=0.2, writer=object(), device="cpu")
+
+
+@pytest.mark.parametrize("route", [
+    dict(backend="fast", n_refine=0, use_multigrid=False),
+    dict(backend="packed", convection="lagged", n_refine=2),
+], ids=["fast", "packed"])
+def test_run_karman_fast_from_stokes_matches_jax(route):
+    # from_rest=False: the Stokes bootstrap (the dense path at this size;
+    # MINRES is held above), then 2 steps on each backend
+    kw = dict(num_steps=2, lcar=0.2, from_rest=False, **route)
+    jout = jax_karman.run_karman_fast(**kw)
+    lmax = None
+    if route["backend"] == "packed":
+        lmax = [float(L.lmax) for L in jout["stepper"].pressure_precond.__self__.levels]
+    tout = karman.run_karman_fast(lmax=lmax, device="cpu", dtype=torch.float64, **kw)
+    boot = tout["bootstrap"]
+    assert boot["solver"] == "dense" and boot["seconds"] > 0
+    jt, tt = jout["telemetry"], tout["telemetry"]
+    for key in ITERS:
+        assert tt[key].tolist() == np.asarray(jt[key]).tolist(), key
+    assert tt["linear_iters"].min() > 0
+    np.testing.assert_allclose(tt["dt"], np.asarray(jt["dt"]), rtol=1e-10)
+    Uj, Pj = np.asarray(jout["u"].vector), np.asarray(jout["p"].vector)
+    np.testing.assert_allclose(tout["u"].numpy(), Uj, rtol=0, atol=1e-8 * np.abs(Uj).max())
+    np.testing.assert_allclose(tout["p"].numpy(), Pj, rtol=0, atol=1e-8 * np.abs(Pj).max())
+    # the probe differences the bootstrap's larger state: 1.1e-8 of max|F|
+    # measured on the packed route
+    F = np.asarray(jout["forces"])
+    np.testing.assert_allclose(tout["forces"], F, rtol=0, atol=3e-8 * np.abs(F).max())

@@ -71,14 +71,26 @@ def test_public_surface_and_unported_names():
         assert hasattr(flow_tpu_torch, name), name
     for name in ("Chorin", "IPCS", "Rotational"):
         assert hasattr(flow_tpu_torch.navier_stokes, name), name
-    for call, item in ((lambda: stokes.TaylorHood(None), "stokes.py"),
-                       (lambda: stokes.solve(None), "stokes.py"),
-                       (lambda: boussinesq3d.compute_boussinesq_3d(1.0, 0.1),
-                        "models/boussinesq3d.py"),
-                       (lambda: ab2tr.AB2TR(None), "experimental/ab2tr.py")):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP queue 1 item \d: " + item):
+    # the slice that stood here unported now runs; what is left of it
+    # raises NotImplementedError naming its ROADMAP item
+    from flow_tpu_torch.models.karman import run_karman
+    from flow_tpu_torch.solvers import krylov
+
+    assert callable(stokes.solve) and callable(boussinesq3d.compute_boussinesq_3d)
+    assert callable(ab2tr.AB2TR) and stokes.DENSE_THRESHOLD == 20000
+    b = torch.ones(3, dtype=torch.float64)
+    for call, item in ((lambda: run_karman(1, lcar=0.2, writer=object(), device="cpu"),
+                        "io/xdmf.py, not ported \\(ROADMAP queue 1 item 6\\)"),
+                       (lambda: krylov.gmres(lambda x: x, b, basis_dtype=torch.float32),
+                        "is not ported \\(ROADMAP queue 1 item 5\\)")):
+        with pytest.raises(NotImplementedError, match=item):
             call()
+    # the new entry points default to the card: without one they raise
+    if not torch.cuda.is_available():
+        for call in (lambda: boussinesq3d.compute_boussinesq_3d(0.0, n=(2, 2, 2)),
+                     lambda: run_karman(1, lcar=0.2)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
 
 
 def test_readme_sample_runs_on_the_port():
