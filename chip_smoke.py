@@ -239,8 +239,38 @@ Phases, in order; any failure exits non-zero and prints no result:
    to 545,025 vertices; the extra level has 3,145,728 tets); fails on a
    failed sweep, a heat solve off the multigrid, a hand-kernel launch, or
    counts other than BOUSSINESQ3D_MG_ITERS;
+29d. FastStepper's options, card against CPU: at KarmanProblem(lcar=0.2,
+   n_refine=2) in float64, 3 steps from dt0 = 1e-4, lambda_max carried
+   across, each of packed=True, patches= (PatchP1Hierarchy), GMRES
+   momentum, forward Euler, assembled_jacobian=True, lagged_ell=True,
+   momentum_precond="vertex" and divergence_probe=True: equal per-step
+   counts, U and P within 1e-8, the forces (and div_norm) within 1e-8 of
+   their largest entries;
+29e. DiffStepper: the gradient of a 3-step rollout's loss in mu and U0 at
+   the same mesh in float64, on the card and on the CPU (within 1e-8
+   relative of each other), each against a central finite difference;
+29f. patch mode at 1,905,056 DoF, float32: bench.py's BENCH_PATCH=1
+   stepper (lagged, GMRES(32), PatchP1Hierarchy; the state kept in the
+   patch layout) and PackedPatchStepper(momentum_solver="gmres") at the
+   same settings, 1 + 5 steps each, counts side by side; fails on a
+   non-finite state or force, a last drag <= 0, an unconverged solve, a
+   hand-kernel launch, or patch counts other than PATCH_ITERS;
+29g. the einsum route at 7,607,104 DoF (KarmanProblem(lcar=0.02,
+   n_refine=6), built once), float32: (a) run_karman_fast at its defaults
+   and (b) bench.py's FastStepper at BENCH_PATCH=0 with packed="auto" and
+   packed=False, 1 + 3 steps each, one a chunk: steps/s, setup seconds,
+   peak memory, counts, drag and lift, the ELL launches by operator and
+   one synchronised step split by substep; fails on a non-finite state or
+   force, a last drag <= 0, an unconverged solve, (a) or (b-auto) off the
+   packed layout, no direct ELL launch, any window or stencil launch, or
+   (a) or (b-auto) counts other than KARMAN_7M_ITERS (the unpacked run's
+   index_add_ sums vary in order: logged). Then the ELL kernels (23's report)
+   at its pressure operator (846,400 x 9) and its levels of 212,256 and
+   53,392 rows;
 30. device times (torch.profiler, last, since profiling slows later host
-   code): the launches of one bootstrap MINRES iteration (a solve capped at
+   code): one step each of 29g's (a) and (b-auto) (device events, launch
+   calls, device ms, the idle share against the same step unprofiled, the
+   top aten ops), the launches of one bootstrap MINRES iteration (a solve capped at
    20 iterations less one capped at 10), K1 in float64 at path B's grids,
    then of the ELL kernels at every shape of 23 (with the L2 cache warm,
    and cold: after a 64 MB write), K3 2-D lagged and Newton (L2 warm and
@@ -443,6 +473,53 @@ BOUSSINESQ3D_MG_ITERS = [(0, 1, None, "mg", 54, 0, None, 0, 0),
 # the einsum 3-D route's Newton tangent: "linearize" keeps x's quadrature
 # tables for a Newton iteration (the JAX default; JAX needed "jvp" where
 # linearize's storage did not fit)
+# FastStepper's other routes and options (PR 16): the card-vs-CPU parity
+# runs at EINSUM_PARITY in float64, run_karman_fast's driver settings
+FAST_PARITY_SETTINGS = dict(
+    rotational_form=True, newton_tol=0.0, newton_rtol=1e-3, newton_maxiter=3,
+    linear_rtol=1e-4, pressure_rtol=1e-4, correction_rtol=1e-5, cfl_target=1.0,
+    dt_max=1.0,
+)
+FAST_PARITY_OPTIONS = {
+    "packed": dict(packed=True),
+    "patches": dict(patches=True),  # build_patch_info + PatchP1Hierarchy
+    "gmres": dict(convection="lagged", momentum_solver="gmres"),
+    "forward-euler": dict(time_step_method="forward euler"),
+    "assembled-jacobian": dict(assembled_jacobian=True),
+    "lagged-ell": dict(convection="lagged", lagged_ell=True),
+    "vertex": dict(momentum_precond="vertex"),
+    "divergence-probe": dict(divergence_probe=True),
+}
+# bench.py:105-183 at BENCH_PATCH=0 (the einsum FastStepper): lagged,
+# GMRES(32), the calibrated Newton and linear tolerances, pressure 3e-4
+# with maxiter 600, correction 1e-4, P1Hierarchy of degree 3; BENCH_PATCH=1
+# adds patches= and PatchP1Hierarchy
+FAST_BENCH = dict(
+    convection="lagged", momentum_solver="gmres", rotational_form=True,
+    newton_tol=0.0, newton_rtol=1e-2, newton_maxiter=4, linear_rtol=1e-1,
+    pressure_rtol=3e-4, pressure_maxiter=600, correction_rtol=1e-4, cfl_target=1.0,
+    dt_max=1.0,
+)
+KARMAN_7M = dict(lcar=0.02, n_refine=6)
+KARMAN_7M_DOFS = 7607104  # BENCH_LARGE.json's size at these arguments
+KARMAN_7M_STEPS = 4  # 1 warm-up + 3 timed
+# the 7.6M packed runs' iterations a step ((a) run_karman_fast, (b-auto)
+# the bench stepper), pinned from the card (H100 80GB HBM3, 700 W): every
+# sum of these runs reads a member table (the packed layout's dof sums,
+# P1Hierarchy's restriction), so they repeat. The unpacked run's are
+# logged, not held: its dof sums are FunctionSpace.dof_sum's index_add_,
+# whose order varies on the card
+KARMAN_7M_ITERS = {
+    "a": {"newton_iters": [1, 1, 2, 1], "linear_iters": [5, 4, 10, 6],
+          "pressure_iters": [4, 4, 3, 3], "correction_iters": [8, 8, 9, 9]},
+    "b-auto": {"newton_iters": [1, 1, 1, 1], "linear_iters": [4, 4, 4, 5],
+               "pressure_iters": [3, 3, 3, 3], "correction_iters": [6, 6, 7, 6]},
+}
+PATCH_STEPS = 6  # 1 warm-up + 5 timed at KARMAN_MAIN
+# the patch stepper's iterations a step at 1.9M, pinned as above
+PATCH_ITERS = {"newton_iters": [1, 1, 1, 1, 1, 1], "linear_iters": [4, 3, 4, 4, 4, 5],
+               "pressure_iters": [3, 3, 3, 3, 3, 3], "correction_iters": [6, 6, 8, 8, 8, 8]}
+DIFF_STEPS = 3
 CAVITY3D_TANGENT = "linearize"
 EINSUM_PARITY = dict(lcar=0.2, n_refine=2)  # the einsum CUDA-vs-CPU parity mesh
 # the TPU probes' ELL shapes (rows, band, entries a row): P1's and P2's
@@ -1178,16 +1255,22 @@ def _timed_step(st, U, P, dt):
             return out
         return wrapper
 
-    # the correction substep: the window route's or the packed stepper's,
-    # or NSContext's on the einsum route
-    owner, name = ((st, "_correction") if getattr(st, "winkernel", True)
-                   else (st.ctx, "velocity_correction"))
-    st._pressure_solve = timed("pressure", st._pressure_solve)
+    # the correction substep: the window route's or the packed-patch
+    # stepper's, FastStepper's packed layout's, or NSContext's on the
+    # einsum route (and in patch mode)
+    pressure = "_pressure_solve"
+    if getattr(st, "pctx", None) is not None and st.packed:
+        pressure, owner, name = "_pressure_solve_pk", st, "_correction_pk"
+    elif getattr(st, "winkernel", True):
+        owner, name = st, "_correction"
+    else:
+        owner, name = st.ctx, "velocity_correction"
+    setattr(st, pressure, timed("pressure", getattr(st, pressure)))
     setattr(owner, name, timed("correction", getattr(owner, name)))
     try:
         timed("step", st._step_impl)(U, P, dt)
     finally:
-        del st._pressure_solve
+        delattr(st, pressure)
         delattr(owner, name)
     times["momentum"] = times["step"] - times["pressure"] - times["correction"]
     return times
@@ -3258,6 +3341,409 @@ def phase_boussinesq3d_mg():
           f"{BOUSSINESQ3D_MG_ITERS}")
 
 
+# -- FastStepper's other routes (PR 16): parity, DiffStepper, patch mode, 7.6M --
+def _fast_stepper(prob, options, lmax=None):
+    """FastStepper on `prob` with FAST_PARITY_SETTINGS and `options` (patches=
+    True builds the patch layout) and its pressure V-cycle (P1Hierarchy, or
+    PatchP1Hierarchy in patch mode), lambda_max carried in `lmax`."""
+    from flow_tpu_torch import interop
+    from flow_tpu_torch.fem.patch import build_patch_info
+    from flow_tpu_torch.navier_stokes.fast import FastStepper
+    from flow_tpu_torch.solvers.multigrid import P1Hierarchy
+    from flow_tpu_torch.solvers.patch_mg import PatchP1Hierarchy
+
+    kw = dict(FAST_PARITY_SETTINGS, **options)
+    info = build_patch_info(prob.mesh_hierarchy) if kw.pop("patches", False) else None
+    st = FastStepper(prob.V, prob.Q, prob.u_bcs, prob.p_bcs, prob.rho, prob.mu,
+                     patches=info, forces_probe=prob.consistent_force_probe(), **kw)
+    if info is not None:
+        hier = PatchP1Hierarchy(info, bc_mask=st.mask_p, smoother_degree=3)
+    else:
+        hier = P1Hierarchy(prob.mesh_hierarchy, bc_mask=st.mask_p, smoother_degree=3)
+    if lmax is not None:
+        interop.load_hierarchy_lmax(hier, lmax)
+    st.pressure_precond = hier.v_cycle
+    return st, hier
+
+
+def phase_fast_parity():
+    """FastStepper's options of this slice at KarmanProblem(lcar=0.2,
+    n_refine=2) in float64, 3 steps from dt0 = 1e-4 on the card and on the
+    CPU, lambda_max carried across: the packed layout, patch mode, GMRES
+    momentum, forward Euler, the assembled Newton Jacobian, the lagged ELL
+    operator, the vertex preconditioner and the divergence probe. Equal
+    per-step counts; U, P within 1e-8, the forces (and div_norm) within
+    1e-8 of their largest entries."""
+    import torch
+    from flow_tpu_torch.models.karman import KarmanProblem
+
+    probs = {d: KarmanProblem(dtype=torch.float64, device=d, **EINSUM_PARITY)
+             for d in ("cpu", "cuda")}
+    for name, options in FAST_PARITY_OPTIONS.items():
+        runs, lmax = {}, None
+        for device in ("cpu", "cuda"):
+            st, hier = _fast_stepper(probs[device], options, lmax=lmax)
+            lmax = [L.lmax for L in hier.levels]
+            U, P, _, tel = st.run(*st.zeros(), KARMAN_DT0, 3)
+            _check_solves(tel, f"fast-parity {name} ({device})")
+            runs[device] = (U.cpu(), P.cpu(), {k: v.cpu() for k, v in tel.items()}, st)
+        (U_c, P_c, tel_c, st_c), (U_g, P_g, tel_g, st_g) = runs["cpu"], runs["cuda"]
+        counts = {}
+        for key in ("newton_iters", "linear_iters", "pressure_iters", "correction_iters"):
+            a, b = tel_g[key].tolist(), tel_c[key].tolist()
+            counts[key] = a
+            check(a == b, f"fast parity {name}: {key} differ (cuda {a}, cpu {b})")
+        du = float((U_g - U_c).abs().max())
+        dp = float((P_g - P_c).abs().max())
+        F_c, F_g = tel_c["forces"].numpy(), tel_g["forces"].numpy()
+        df = float(np.abs(F_g - F_c).max() / np.abs(F_c).max())
+        extra = ""
+        if "div_norm" in tel_c:
+            dd = float((tel_g["div_norm"] - tel_c["div_norm"]).abs().max()
+                       / tel_c["div_norm"].abs().max())
+            extra = f" div_norm {tel_g['div_norm'].tolist()} rel {dd:.3e}"
+            check(dd <= 1e-8, f"fast parity {name}: div_norm differs by {dd}")
+        layout = ("packed" if st_g.packed else "patch" if st_g.patch else "dense")
+        log(f"[fast-parity] {name} ({layout}, {st_g.mom_solver}, theta={st_g.theta}): "
+            f"{counts} max|dU|={du:.3e} max|dP|={dp:.3e} (max|P| "
+            f"{float(P_c.abs().max()):.3e}) forces rel {df:.3e}{extra}")
+        check(du <= 1e-8 and dp <= 1e-8 and df <= 1e-8,
+              f"fast parity {name}: U, P or the forces differ ({du}, {dp}, {df})")
+        check(max(counts["linear_iters"]) > 0, f"fast parity {name}: no momentum iteration")
+        check((name == "packed") == st_g.packed and (name == "patches") == st_g.patch,
+              f"fast parity {name}: the layout is {layout}")
+
+
+def phase_diffstep():
+    """DiffStepper at KarmanProblem(lcar=0.2, n_refine=2) in float64: the
+    gradient of a DIFF_STEPS-step rollout's loss (sum U^2 + 0.1 sum P^2)
+    with respect to mu and U0, on the card and on the CPU (agree within
+    1e-8 relative), each against a central finite difference (mu: rel
+    2e-5, step 1e-3 mu; U0 along a random free-dof direction: rel 5e-6)."""
+    import torch
+    from flow_tpu_torch.models.karman import KarmanProblem
+    from flow_tpu_torch.navier_stokes import DiffStepper
+
+    out = {}
+    dt = 1e-3
+    for device in ("cpu", "cuda"):
+        prob = KarmanProblem(dtype=torch.float64, device=device, **EINSUM_PARITY)
+        ds = DiffStepper(prob.V, prob.Q, prob.u_bcs, prob.p_bcs, rho=prob.rho,
+                         mu=prob.mu, rotational_form=True)
+        st = ds.st
+
+        def loss(U, mu):
+            U1, P1 = ds.rollout(U, st.zeros()[1], dt, DIFF_STEPS, mu=mu)
+            return (U1 * U1).sum() + 0.1 * (P1 * P1).sum()
+
+        U0 = st.zeros()[0]
+        t0 = time.perf_counter()
+        mu = st._scalar(prob.mu).requires_grad_(True)
+        U = U0.clone().requires_grad_(True)
+        g_mu, g_U = torch.autograd.grad(loss(U, mu), (mu, U))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rng = np.random.default_rng(3)
+        v = (1.0 - st.mask_u) * torch.as_tensor(rng.standard_normal(tuple(U0.shape)),
+                                                 device=U0.device)
+        with torch.no_grad():
+            h = 1e-3 * prob.mu
+            fd_mu = float(loss(U0, st._scalar(prob.mu + h))
+                          - loss(U0, st._scalar(prob.mu - h))) / (2 * h)
+            h = 1e-6
+            fd_v = float(loss(U0 + h * v, st._scalar(prob.mu))
+                         - loss(U0 - h * v, st._scalar(prob.mu))) / (2 * h)
+        gv = float((g_U * v).sum())
+        out[device] = (float(g_mu), g_U.cpu(), gv)
+        log(f"[diffstep] {device}: dL/dmu={float(g_mu):.10e} (fd {fd_mu:.10e}) "
+            f"dL/dU0.v={gv:.10e} (fd {fd_v:.10e}) {secs:.2f} s")
+        check(abs(float(g_mu) - fd_mu) <= 2e-5 * abs(fd_mu),
+              f"diffstep {device}: dL/dmu {float(g_mu)} against fd {fd_mu}")
+        check(abs(gv - fd_v) <= 5e-6 * abs(fd_v),
+              f"diffstep {device}: dL/dU0.v {gv} against fd {fd_v}")
+    (m_c, U_c, _), (m_g, U_g, _) = out["cpu"], out["cuda"]
+    rel_mu = abs(m_g - m_c) / abs(m_c)
+    rel_U = float((U_g - U_c).abs().max() / U_c.abs().max())
+    log(f"[diffstep] card against CPU: dL/dmu rel {rel_mu:.3e}, dL/dU0 rel {rel_U:.3e}")
+    check(rel_mu <= 1e-8 and rel_U <= 1e-8,
+          f"diffstep: card and CPU gradients differ ({rel_mu}, {rel_U})")
+
+
+def _run_chunks(st, U, P, dt, n_steps):
+    """n_steps of st.run, one a call, each timed to a device sync ->
+    (U, P, dt, telemetry of all steps, seconds a step)."""
+    import torch
+
+    tels, secs = [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        U, P, dt, tel = st.run(U, P, dt, 1)[:4]
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        tels.append(tel)
+    tel = {k: torch.cat([t[k] for t in tels]).cpu() for k in tels[0]}
+    return U, P, dt, tel, secs
+
+
+def _fast_report(tag, st, tel, secs, peak, setup, launches):
+    """Log a FastStepper run: steps/s after the warm-up, setup seconds,
+    peak memory (the path's own: above what earlier phases still held,
+    `peak` a (peak, base) pair), counts, forces, ELL launches by operator."""
+    timed = sum(secs[1:])
+    log(f"[{tag}] layout={'packed' if st.packed else 'patch' if st.patch else 'dense'} "
+        f"convection={'lagged' if st.lagged else 'newton'} momentum={st.mom_solver} "
+        f"steps/s={(len(secs) - 1) / timed:.4f} ({len(secs) - 1} steps in {timed:.3f} s "
+        f"after 1 warm-up step of {secs[0]:.3f} s; setup {setup:.1f} s) "
+        f"peak_mem_bytes={peak[0] - peak[1]} (above {peak[1]} held before) "
+        f"launches={launches}")
+    for k in ("dt", "newton_iters", "linear_iters", "pressure_iters", "correction_iters"):
+        log(f"[{tag}] {k}: {tel[k].tolist()}")
+    forces = np.asarray(tel["forces"])
+    log(f"[{tag}] drag: {forces[:, 0].tolist()}")
+    log(f"[{tag}] lift: {forces[:, 1].tolist()}")
+
+
+def _fast_checks(tag, st, U, P, tel, launches, ell_expected):
+    import torch
+
+    check(bool(torch.isfinite(U).all()) and bool(torch.isfinite(P).all()),
+          f"{tag}: non-finite state")
+    forces = np.asarray(tel["forces"])
+    check(np.isfinite(forces).all(), f"{tag}: non-finite forces")
+    check(forces[-1, 0] > 0, f"{tag}: the last step's drag is not positive")
+    _check_solves(tel, tag)
+    windows = {k: v for k, v in launches.items() if not k.startswith("ELL_")}
+    check(not any(windows.values()), f"{tag}: a window or stencil kernel was launched: "
+          f"{windows}")
+    if ell_expected:
+        check(launches["ELL_DIRECT"] > 0, f"{tag}: the direct ELL kernel was never launched")
+
+
+def _ell_by_operator(st, hier):
+    ops = {} if st.K_Q is None else {"pressure operator": st.K_Q}
+    ops.update({f"level n={L.n}": L.ell for L in hier.levels
+                if getattr(L, "ell", None) is not None})
+    return ", ".join(f"{k} n={A.n} K={A.width} {A.kernel} {A.launches}"
+                     for k, A in ops.items())
+
+
+def phase_karman7m(kell, ell_jobs):
+    """The einsum route at 7,607,104 DoF (KarmanProblem(lcar=0.02,
+    n_refine=6), built once), float32: (a) run_karman_fast at its defaults
+    (Newton, BiCGStab, backward Euler; packed="auto" takes the lane-packed
+    layout), (b) bench.py's FastStepper at BENCH_PATCH=0 with packed="auto"
+    and with packed=False; each 1 warm-up + 3 timed steps, one a chunk, and
+    one synchronised step split by substep. Then the ELL kernels at this
+    mesh's pressure operator and its two largest hierarchy levels (phase
+    23's report). Returns the (a) and (b-auto) steppers and states for the
+    profiler."""
+    import torch
+    from flow_tpu_torch.models.karman import KarmanProblem, run_karman_fast
+    from flow_tpu_torch.solvers.multigrid import P1Hierarchy
+    from flow_tpu_torch.navier_stokes.fast import FastStepper
+
+    hand = _hand_kernels()
+    t0 = time.perf_counter()
+    prob = KarmanProblem(dtype=torch.float32, device="cuda", **KARMAN_7M)
+    torch.cuda.synchronize()
+    t_prob = time.perf_counter() - t0
+    log(f"[karman7m] {KARMAN_7M} n_dofs={prob.n_dofs} (V {prob.V.n_dofs}, Q "
+        f"{prob.Q.n_dofs}, cells {prob.mesh.n_cells}) problem setup {t_prob:.1f} s")
+    check(prob.n_dofs == KARMAN_7M_DOFS, f"karman7m: unexpected n_dofs {prob.n_dofs}")
+    keep, counts = {}, {}
+
+    # (a) run_karman_fast at its defaults
+    for k in hand.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = run_karman_fast(num_steps=KARMAN_7M_STEPS, chunk_size=1, problem=prob)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    st, tel = out["stepper"], out["telemetry"]
+    launches = {n: k.launches for n, k in hand.items()}
+    _fast_report("karman7m-a", st, tel, out["chunk_seconds"],
+                 (torch.cuda.max_memory_allocated(), base),
+                 total - sum(out["chunk_seconds"]), launches)
+    hier = st.pressure_precond.__self__
+    log(f"[karman7m-a] ELL operators (the rule's kernel, launches): {_ell_by_operator(st, hier)}")
+    check(st.packed and not st.lagged and st.mom_solver == "bicgstab"
+          and st.theta == (0.0, 1.0), "karman7m-a: not the driver's defaults on the packed layout")
+    _fast_checks("karman7m-a", st, out["u"], out["p"], tel, launches, True)
+    counts["a"] = {k: tel[k].tolist() for k in ("newton_iters", "linear_iters",
+                                                "pressure_iters", "correction_iters")}
+    times = _timed_step(st, out["u"], out["p"], st._scalar(out["dt"]))
+    log("[karman7m-a] substeps ms (one synchronised step): "
+        + ", ".join(f"{k}={v:.2f}" for k, v in times.items()))
+    keep["a"] = (st, out["u"], out["p"], st._scalar(out["dt"]))
+    for name, A in (("pressure n=%d" % st.K_Q.n, st.K_Q),
+                    *((f"level n={L.n}", L.ell) for L in hier.levels[-3:-1])):
+        _ell_report(f"karman7m {name}", A, kell, ell_jobs)
+    del out, hier
+    torch.cuda.empty_cache()
+
+    # (b) the bench's FastStepper, packed="auto" and packed=False
+    for tag, packed in (("b-auto", "auto"), ("b-unpacked", False)):
+        for k in hand.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        st = FastStepper(prob.V, prob.Q, prob.u_bcs, prob.p_bcs, prob.rho, prob.mu,
+                         packed=packed, forces_probe=prob.consistent_force_probe(),
+                         **FAST_BENCH)
+        hier = P1Hierarchy(prob.mesh_hierarchy, bc_mask=st.mask_p, smoother_degree=3)
+        st.pressure_precond = hier.v_cycle
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        U, P, dt, tel, secs = _run_chunks(st, *st.zeros(), KARMAN_DT0, KARMAN_7M_STEPS)
+        launches = {n: k.launches for n, k in hand.items()}
+        _fast_report(f"karman7m-{tag}", st, tel, secs,
+                     (torch.cuda.max_memory_allocated(), base), setup, launches)
+        log(f"[karman7m-{tag}] ELL operators (the rule's kernel, launches): "
+            f"{_ell_by_operator(st, hier)}")
+        check(st.packed == (packed == "auto"), f"karman7m-{tag}: packed={st.packed}")
+        _fast_checks(f"karman7m-{tag}", st, U, P, tel, launches, True)
+        counts[tag] = {k: tel[k].tolist() for k in ("newton_iters", "linear_iters",
+                                                    "pressure_iters", "correction_iters")}
+        times = _timed_step(st, U, P, dt)
+        log(f"[karman7m-{tag}] substeps ms (one synchronised step): "
+            + ", ".join(f"{k}={v:.2f}" for k, v in times.items()))
+        if tag == "b-auto":
+            keep["b"] = (st, U, P, dt)
+        del st, hier, U, P
+        torch.cuda.empty_cache()
+    log(f"[karman7m] counts: {json.dumps(counts)}")
+    held = {k: counts[k] for k in KARMAN_7M_ITERS}
+    check(held == KARMAN_7M_ITERS,
+          f"karman7m: the iterations moved: {held} against {KARMAN_7M_ITERS}")
+    return keep
+
+
+def phase_patch_main():
+    """Patch mode at KARMAN_MAIN (1,905,056 DoF) in float32: bench.py's
+    BENCH_PATCH=1 stepper (FAST_BENCH with patches= and PatchP1Hierarchy),
+    the state kept in the patch layout, and beside it PackedPatchStepper
+    with GMRES at the same settings; 1 warm-up + 5 timed steps each, one a
+    call. Fails on a non-finite state or force, a last drag <= 0, an
+    unconverged solve, a hand-kernel launch (none belongs on either), or
+    patch counts other than PATCH_ITERS."""
+    import torch
+    from flow_tpu_torch.fem.patch import build_patch_info
+    from flow_tpu_torch.models.karman import KarmanProblem
+    from flow_tpu_torch.navier_stokes.fast import FastStepper
+    from flow_tpu_torch.solvers.patch_mg import PatchP1Hierarchy
+
+    hand = _hand_kernels()
+    prob = KarmanProblem(dtype=torch.float32, device="cuda", **KARMAN_MAIN)
+    check(prob.n_dofs == KARMAN_DOFS, f"patch: unexpected n_dofs {prob.n_dofs}")
+    counts = {}
+    for k in hand.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    info = build_patch_info(prob.mesh_hierarchy)
+    st = FastStepper(prob.V, prob.Q, prob.u_bcs, prob.p_bcs, prob.rho, prob.mu,
+                     patches=info, forces_probe=prob.consistent_force_probe(), **FAST_BENCH)
+    hier = PatchP1Hierarchy(info, bc_mask=st.mask_p, smoother_degree=3)
+    st.pressure_precond = hier.v_cycle
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    U, P, dt, tel, secs = _run_chunks(st, st.V.zeros(), st.Q.zeros(), KARMAN_DT0,
+                                      PATCH_STEPS)
+    launches = {n: k.launches for n, k in hand.items()}
+    _fast_report("patch", st, tel, secs, (torch.cuda.max_memory_allocated(), base), setup,
+                 launches)
+    log(f"[patch] C={info.C} n={info.n} n_flat V={st.V.n_dofs} Q={st.Q.n_dofs} "
+        f"levels={[L.n for L in hier.levels]}")
+    check(st.patch and tuple(U.shape) == (st.V.n_dofs, 2), "patch: not the patch layout")
+    _fast_checks("patch", st, U, P, tel, launches, False)
+    check(not any(launches.values()), f"patch: a hand kernel was launched: {launches}")
+    counts["patch"] = {k: tel[k].tolist() for k in ("newton_iters", "linear_iters",
+                                                    "pressure_iters", "correction_iters")}
+    times = _timed_step(st, st.V.from_patch(U), st.Q.from_patch(P), dt)
+    log("[patch] substeps ms (one synchronised step, global layout in and out): "
+        + ", ".join(f"{k}={v:.2f}" for k, v in times.items()))
+    del st, hier, U, P
+    torch.cuda.empty_cache()
+
+    # beside it: PackedPatchStepper with GMRES at the same settings
+    for k in hand.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ps, _ = _packed_stepper(prob, **dict(PACKED_SETTINGS, momentum_solver="gmres"))
+    ps.forces_probe = prob.consistent_force_probe()
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    tels, secs = [], []
+    U, P = ps.zeros()
+    dt = KARMAN_DT0
+    for _ in range(PATCH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        U, P, dt, tel1 = ps.run(U, P, dt, 1)[:4]
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        tels.append(tel1)
+    tel = {k: torch.cat([torch.as_tensor(t[k]).reshape(-1) for t in tels]).cpu()
+           for k in tels[0] if k != "forces"}
+    tel["forces"] = torch.cat([torch.as_tensor(t["forces"]).reshape(-1, 2) for t in tels]).cpu()
+    launches = {n: k.launches for n, k in hand.items()}
+    timed = sum(secs[1:])
+    log(f"[patch-packed] PackedPatchStepper momentum=gmres steps/s="
+        f"{(PATCH_STEPS - 1) / timed:.4f} (after 1 warm-up step of {secs[0]:.3f} s; "
+        f"setup {setup:.1f} s) peak_mem_bytes={torch.cuda.max_memory_allocated() - base} "
+        f"(above {base} held before)")
+    counts["packed-patch"] = {k: tel[k].tolist() for k in ("newton_iters", "linear_iters",
+                                                          "pressure_iters",
+                                                          "correction_iters")}
+    for k in counts["packed-patch"]:
+        log(f"[patch] {k}: patch {counts['patch'][k]} packed-patch {counts['packed-patch'][k]}")
+    check(not any(launches.values()), f"patch-packed: a hand kernel was launched: {launches}")
+    _check_solves(tel, "patch-packed")
+    Ug, Pg = ps.from_packed_state(U, P)
+    check(bool(torch.isfinite(Ug).all()) and bool(torch.isfinite(Pg).all()),
+          "patch-packed: non-finite state")
+    log(f"[patch] counts: {json.dumps(counts)}")
+    check(counts["patch"] == PATCH_ITERS,
+          f"patch: the iterations moved: {counts['patch']} against {PATCH_ITERS}")
+    del ps
+    torch.cuda.empty_cache()
+
+
+def _profile_fast_steps(keep):
+    """One step of (a) and (b-auto) at 7.6M under torch.profiler: device
+    events, launch calls, device ms and the aten ops with the most device
+    time; the idle share is 1 - device ms / the wall ms of the same step
+    run unprofiled just before (the profiler slows the host several-fold)."""
+    import torch
+
+    for tag, (st, U, P, dt) in keep.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st._step_impl(U, P, dt)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ev, calls, ms, top = _profile_split(lambda: st._step_impl(U, P, dt))
+        prof_wall = 1e3 * (time.perf_counter() - t0)
+        log(f"[profile] karman7m ({tag}) one step: {ev} device events, {calls} launch "
+            f"calls, {ms:.2f} ms of device; wall {wall:.2f} ms unprofiled ({prof_wall:.2f} "
+            f"profiled), idle {max(0.0, 1.0 - ms / wall):.3f}; top: "
+            + ", ".join(f"{k} {t:.2f} ms x{c}" for k, t, c in top))
+        check(ev > 0, f"karman7m ({tag}): the profiler shows no device event")
+
+
 def main():
     # a workspace setting under which cuBLAS is deterministic, for the
     # references run under deterministic() (read when cuBLAS starts)
@@ -3352,8 +3838,18 @@ def main():
         b3_grids, b3_jobs = phase_boussinesq3d_packed()
         phase_boussinesq3d_mg()
         torch.cuda.empty_cache()
+        # FastStepper's other routes and options: card-vs-CPU parity of
+        # each, DiffStepper, patch mode at 1.9M, the einsum route at 7.6M
+        # (its ELL operators join phase 23's rows)
+        phase_fast_parity()
+        phase_diffstep()
+        phase_patch_main()
+        keep7m = phase_karman7m(kell, ell_jobs)
         # device times from the profiler, last: a profiler session slows
         # later host code in the process
+        _profile_fast_steps(keep7m)
+        del keep7m
+        torch.cuda.empty_cache()
         ev, calls = _minres_launches(prob_boot)
         log(f"[profile] bootstrap MINRES ({prob_boot.mesh.dtype}, {prob_boot.n_dofs} DoF): "
             f"{ev:.1f} device events and {calls:.1f} launch calls an iteration")

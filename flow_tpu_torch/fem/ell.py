@@ -1,9 +1,16 @@
-# Padded-ELL sparse operators for constant bilinear forms. Port of
-# flow_tpu/fem/ell.py, cut to ell_from_local/ell_stiffness and the apply:
-# the pressure operator of FastStepper's einsum route and the operator of
-# every P1Hierarchy level the window kernels do not take. Assembly is host
-# numpy (duplicate (row, col) pairs summed once); the tables move to the
-# device once.
+# Padded-ELL sparse operators. Port of flow_tpu/fem/ell.py:
+# - ELLMatrix (ell_from_local/ell_stiffness): constant scalar operators, the
+#   pressure operator of FastStepper's einsum route and the operator of
+#   every P1Hierarchy level the window kernels do not take. Assembly is host
+#   numpy (duplicate (row, col) pairs summed once); the tables move to the
+#   device once.
+# - ELLGraph, FacetMassELL, momentum_const_ell and
+#   momentum_bnd_stress_ell_vals: the assembled momentum operators of
+#   FastStepper(assembled_jacobian=True) and of its lagged ELL operator
+#   (lagged_ell=True). These are block-ELL gathers and sums in torch (the
+#   JAX package computes them in XLA, not in a Pallas kernel); the graph
+#   assembles element tensors on the device by gathers from member tables,
+#   no scatter.
 #
 # On a CUDA device ELLMatrix.apply launches one of the two hand-written
 # kernels of csrc/ell.cu, chosen once by shape at construction and recorded
@@ -61,9 +68,12 @@ import torch
 from .._build import Kernel
 from ..mesh3d import _device
 from . import assembly
+from .gathersum import member_table
 from .spaces import FunctionSpace
 
 __all__ = ["ELLMatrix", "WindowTables", "ell_from_local", "ell_stiffness",
+           "ELLGraph", "FacetMassELL", "momentum_const_ell",
+           "momentum_bnd_stress_ell_vals",
            "ell_apply_plain", "ell_apply_window_plain", "ell_window_tables",
            "ELL_DIRECT", "ELL_WINDOW", "WINDOW_ROWS", "WINDOW_GAP",
            "WINDOW_SEGMENTS", "WINDOW_SMEM_BYTES", "WINDOW_FACTOR"]
@@ -354,3 +364,155 @@ def ell_stiffness(space: FunctionSpace, geom, coeff=None, dtype=None, device=Non
         space, assembly.stiffness_local(space, geom, coeff=coeff), dtype=dtype,
         device=device,
     )
+
+
+class ELLGraph:
+    """The scalar dof graph of `space` as padded ELL (cols [n, W], vertex
+    rows first and wider than the P2 edge rows), with member tables that
+    assemble element tensors into ELL values on `device` by gathers.
+
+    assemble(loc): loc [nc, nl, nl(, m, m)] -> vals [n, W(, m, m)], padding
+    slots exactly 0; apply(vals, x); diag(vals); assemble_np (host numpy)
+    for the constant parts built at setup."""
+
+    def __init__(self, space: FunctionSpace, device=None):
+        device = _device(space.mesh.device if device is None else device)
+        cd = space.cell_dofs_np.astype(np.int64)
+        nc, nl = cd.shape
+        n = space.n_dofs
+        rows = np.repeat(cd, nl, axis=1).ravel()
+        cols = np.tile(cd, (1, nl)).ravel()
+        key = rows * n + cols
+        uniq, inv = np.unique(key, return_inverse=True)
+        inv = inv.ravel()
+        r = (uniq // n).astype(np.int64)
+        c = (uniq % n).astype(np.int64)
+        counts = np.bincount(r, minlength=n)
+        width = int(counts.max())
+        pos = np.arange(len(r)) - np.concatenate([[0], np.cumsum(counts)])[r]
+        cols_pad = np.zeros((n, width), dtype=np.int64)
+        cols_pad[r, pos] = c
+        self.valid_np = np.arange(width)[None, :] < counts[:, None]
+        # P2 vertex rows (~17-25 wide) and edge rows (<= 9): apply reads each
+        # class at its own width
+        nv = space.mesh.n_points if space.degree == 2 else n
+        self.n_vert = int(nv)
+        self.w_edge = int(counts[nv:].max()) if nv < n else 0
+        slot = r * width + pos
+        self.dest_np = slot[inv].reshape(nc, nl, nl)  # ELL slot of each entry
+        self.cols_np = cols_pad
+        self.n, self.width, self.n_local = n, width, nl
+        self.device = device
+        self.cols = torch.as_tensor(cols_pad, device=device)
+        self._valid = torch.as_tensor(self.valid_np, device=device)
+        # each slot's source entries (flat e*nl*nl + i*nl + j), padded with
+        # the extra zero entry nc*nl*nl
+        self._members = torch.as_tensor(
+            member_table(self.dest_np.ravel(), n * width), device=device)
+
+    def assemble_np(self, loc):
+        """Host assembly of element tensors (setup-time constant parts)."""
+        loc = np.asarray(loc)
+        block = loc.shape[3:]
+        flat = np.zeros((self.n * self.width,) + block, dtype=loc.dtype)
+        np.add.at(flat, self.dest_np.ravel(), loc.reshape((-1,) + block))
+        return flat.reshape((self.n, self.width) + block)
+
+    def assemble(self, loc):
+        """Element tensors -> padded ELL values on the device, by gathers."""
+        block = loc.shape[3:]
+        flat = loc.reshape((-1,) + block)
+        flat = torch.cat([flat, flat.new_zeros((1,) + block)])
+        return flat[self._members].sum(dim=1).reshape((self.n, self.width) + block)
+
+    def apply(self, vals, x):
+        """vals [n, W] @ x [n(, m)], or vals [n, W, m, m] @ x [n, m]; vertex
+        and edge rows at their own widths."""
+        nv, we = self.n_vert, self.w_edge
+        if 0 < we < self.width and nv < self.n:
+            return torch.cat([self._apply_rows(vals[:nv], self.cols[:nv], x),
+                              self._apply_rows(vals[nv:, :we], self.cols[nv:, :we], x)])
+        return self._apply_rows(vals, self.cols, x)
+
+    @staticmethod
+    def _apply_rows(vals, cols, x):
+        xg = x[cols]
+        if vals.dim() == 2:
+            if x.dim() == 1:
+                return torch.einsum("nk,nk->n", vals, xg)
+            return torch.einsum("nk,nkm->nm", vals, xg)
+        return torch.einsum("nkab,nkb->na", vals, xg)
+
+    def diag(self, vals):
+        """The (block) diagonal: [n] from [n, W], [n, m] from [n, W, m, m]."""
+        eye = (self.cols == torch.arange(self.n, device=self.cols.device)[:, None]) & self._valid
+        if vals.dim() == 2:
+            return torch.where(eye, vals, torch.zeros_like(vals)).sum(dim=1)
+        d = torch.einsum("nkaa->nka", vals)
+        return torch.where(eye[:, :, None], d, torch.zeros_like(d)).sum(dim=1)
+
+
+class FacetMassELL:
+    """The weighted facet mass vals[i, j] += sum_f sum_q wl s phi_i phi_j,
+    assembled into the cell graph each step from per-facet-point weights
+    s [nb, nq] (the directional do-nothing term's Jacobian, whose weight
+    follows the lagged transport). Surface-sized: an index_add_."""
+
+    def __init__(self, graph: ELLGraph, btab, dtype):
+        phi = btab.phi.detach().cpu().numpy().astype(np.float64)
+        wl = btab.wl.detach().cpu().numpy().astype(np.float64)
+        cells = np.asarray(btab.space.mesh.boundary_cells_np, dtype=np.int64)
+        core = np.einsum("fq,fqi,fqj->fqij", wl, phi, phi)
+        self._core = torch.as_tensor(core, dtype=dtype, device=graph.device)
+        self._dest = torch.as_tensor(graph.dest_np[cells].reshape(-1), device=graph.device)
+        self._n, self._w = graph.n, graph.width
+
+    def assemble(self, s):
+        """s [nb, nq] -> vals [n, W]."""
+        el = torch.einsum("fqij,fq->fij", self._core, s)
+        flat = el.new_zeros(self._n * self._w)
+        return flat.index_add_(0, self._dest, el.reshape(-1)).reshape(self._n, self._w)
+
+
+def momentum_const_ell(V: FunctionSpace, geom, graph: ELLGraph):
+    """The state-independent ELL pieces of the momentum Jacobian, host numpy:
+    mass [n, W] (int phi_i phi_j), visc1 [n, W] (int grad phi_i . grad
+    phi_j, the component-diagonal part) and visc2 [n, W, d, d]
+    (int d_a phi_j d_b phi_i, the grad-transpose part of the stress form);
+    the element tensors are forms.sym_grad_loc's and mass_loc's."""
+    dim = assembly._dim(V)
+    Mref = assembly.ref_mass(V.degree, dim)
+    Kref = assembly.ref_stiffness(V.degree, dim)
+    detJ = np.asarray(geom.detJ, dtype=np.float64)
+    C = np.asarray(geom.C, dtype=np.float64)
+    G = np.asarray(geom.G, dtype=np.float64)
+    nc, d, nl = detJ.shape[0], G.shape[1], graph.n_local
+    mass = graph.assemble_np(Mref[None, :, :] * detJ[:, None, None])
+    visc1 = graph.assemble_np(np.einsum("ekl,klij->eij", C, Kref))
+    visc2 = np.zeros((graph.n * graph.width, d, d))
+    chunk = max(1, 50_000_000 // (nl * nl * d * d * 8))
+    for s in range(0, nc, chunk):
+        e = min(nc, s + chunk)
+        el = np.einsum("e,eak,ebl,klji->eijab", detJ[s:e], G[s:e], G[s:e], Kref)
+        np.add.at(visc2, graph.dest_np[s:e].ravel(), el.reshape(-1, d, d))
+    return mass, visc1, visc2.reshape(graph.n, graph.width, d, d)
+
+
+def momentum_bnd_stress_ell_vals(V: FunctionSpace, geom, btab, graph: ELLGraph):
+    """The constant ELL values [n, W, d, d] of the boundary stress term's
+    Jacobian: mu (grad u)^T n is linear in u, so
+    B[f, i, j, a, b] = int_facet phi_i (d_a phi_j) n_b ds assembles once;
+    the stepper scales it at run time."""
+    def host(t):
+        return t.detach().cpu().numpy().astype(np.float64)
+
+    phi, dphi, wl, nrm, Gb = (host(btab.phi), host(btab.dphi), host(btab.wl),
+                              host(btab.normals), host(btab.Gb))
+    cells = np.asarray(btab.space.mesh.boundary_cells_np, dtype=np.int64)
+    gphi = np.einsum("fqjk,fak->fqja", dphi, Gb)
+    core = np.einsum("fq,fqi,fqja->fija", wl, phi, gphi)
+    el = core[:, :, :, :, None] * nrm[:, None, None, None, :]
+    d = el.shape[-1]
+    vals = np.zeros((graph.n * graph.width, d, d))
+    np.add.at(vals, graph.dest_np[cells].ravel(), el.reshape(-1, d, d))
+    return vals.reshape(graph.n, graph.width, d, d)

@@ -33,6 +33,9 @@ __all__ = [
     "stiffness_scalar_loc",
     "sym_grad_transpose_loc",
     "conv_lagged_jacobian_loc",
+    "conv_jacobian_loc",
+    "convection_rhs",
+    "skew_convection_rhs",
     "div_rhs",
     "grad_div_ustar",
     "grad_div_ustar_rhs",
@@ -90,6 +93,25 @@ def skew_convection_combined_rhs(V, geom, U, rule_degree=5):
     """The skew convection of the velocity by itself, assembled:
     0.5 [((u.grad)u, v) - ((u.grad)v, u)] at the dof level."""
     return V.dof_sum(skew_convection_combined_loc(V, geom, V.gather(U), rule_degree))
+
+
+def convection_rhs(V, geom, W, U, rule_degree=5):
+    """b[(i,a)] = int ((w . grad) u)_a v_i, by quadrature."""
+    tab = assembly.tabulation(V, rule_degree).on(U.dtype, U.device)
+    Wq = assembly.values_at_qp(tab, V.gather(W))
+    gradU = assembly.grads_at_qp(tab, geom, V.gather(U))
+    val = torch.einsum("eqd,eqad->eqa", Wq, gradU)
+    return assembly.integrate_rhs(V, tab, geom, val=val)
+
+
+def skew_convection_rhs(V, geom, W, U, rule_degree=5):
+    """b[(i,a)] = int (w . grad(phi_i)) u_a: the second half of the skew
+    convection 0.5 [((u.grad)u, v) - ((u.grad)v, u)]."""
+    tab = assembly.tabulation(V, rule_degree).on(U.dtype, U.device)
+    Wq = assembly.values_at_qp(tab, V.gather(W))
+    Uq = assembly.values_at_qp(tab, V.gather(U))
+    grad = torch.einsum("eqd,eqa->eqad", Wq, Uq)
+    return assembly.integrate_rhs(V, tab, geom, grad=grad)
 
 
 def mass_loc(V, geom, Uloc):
@@ -170,12 +192,16 @@ def stiffness_scalar_loc(V, geom):
     return torch.einsum("ekl,klij->eij", geom.C, _Kref(V, geom.C))
 
 
-def sym_grad_transpose_loc(V, geom, Xloc):
+def sym_grad_transpose_loc(V, geom, Xloc, kref_dtype=None):
     """loc[e,i,a] = detJ[e] G[e,a,k] G[e,b,l] Kref[k,l,j,i] X[e,j,b]: the
     component-coupling grad(u)^T:grad(v) half of the stress form, through
-    its factored reference tensor."""
+    its factored reference tensor (rounded to kref_dtype where given: the
+    bfloat16 EMA tangent's)."""
+    K = _Kref(V, Xloc)
+    if kref_dtype is not None:
+        K = K.to(kref_dtype).to(Xloc.dtype)
     w = torch.einsum("ebl,ejb->elj", geom.G, Xloc)
-    u = torch.einsum("klji,elj->eki", _Kref(V, Xloc), w)
+    u = torch.einsum("klji,elj->eki", K, w)
     return torch.einsum("e,eak,eki->eia", geom.detJ, geom.G, u)
 
 
@@ -192,6 +218,26 @@ def conv_lagged_jacobian_loc(V, geom, Tloc, rule_degree=5):
     A = torch.einsum("eqd,qmk,edk->eqm", Tq, tab.dphi, geom.G)  # T.grad phi_m
     s = torch.einsum("eq,qi,eqj->eij", wd, tab.phi, A)
     return 0.5 * (s - s.transpose(1, 2))
+
+
+def conv_jacobian_loc(V, geom, Wloc, rule_degree=5):
+    """The element Jacobian of skew_convection_combined_loc with respect to
+    the velocity dofs, d conv[e, i, a] / d U[j, b] -> [nc, nl, nl, d, d],
+    in the residual's quadrature (so its assembly is the exact discrete
+    volume Jacobian):
+       0.5 phi_i phi_j d_b w_a + 0.5 delta_ab phi_i (w.grad phi_j)
+     - 0.5 delta_ab phi_j (w.grad phi_i) - 0.5 w_a phi_j d_b phi_i."""
+    tab = assembly.tabulation(V, rule_degree).on(Wloc.dtype, Wloc.device)
+    Wq = assembly.values_at_qp(tab, Wloc)  # [e,q,d]
+    gradW = assembly.grads_at_qp(tab, geom, Wloc)  # [e,q,a,d] = dw_a/dx_d
+    wd = tab.w[None, :] * geom.detJ[:, None]
+    A = torch.einsum("eqd,qmk,edk->eqm", Wq, tab.dphi, geom.G)  # w.grad phi_m
+    t1 = torch.einsum("eq,qi,qj,eqab->eijab", wd, tab.phi, tab.phi, gradW)
+    s23 = torch.einsum("eq,qi,eqj->eij", wd, tab.phi, A)
+    s23 = s23 - torch.einsum("eq,qj,eqi->eij", wd, tab.phi, A)
+    t4 = torch.einsum("eq,eqa,qj,qik,ebk->eijab", wd, Wq, tab.phi, tab.dphi, geom.G)
+    eye = torch.eye(Wq.shape[-1], dtype=Wloc.dtype, device=Wloc.device)
+    return 0.5 * (t1 - t4 + s23[:, :, :, None, None] * eye)
 
 
 def div_rhs(V, Q, geom, U, dof_sum=None):

@@ -1,12 +1,15 @@
-# The momentum residual and the setup tables of the pressure-correction
-# (projection) step on a P2/P1 pair, on triangles or tets. Port of the
-# pieces of flow_tpu/navier_stokes/pressure_correction.py::_Context that the
-# window and einsum routes of navier_stokes/fast.py read: the theta-weighted
-# residual (Newton or with a lagged transport), its boundary (ds) terms, the
-# pressure solve without a preconditioner, the velocity correction on the
-# consistent mass, the Jacobi diagonals and the boundary tabulations
-# (BoundaryTab on edges in 2-D, BoundaryFaceTab on faces in 3-D). The
-# Chorin/IPCS/Rotational scheme drivers are not ported.
+# The pressure-correction (projection) step on a P2/P1 pair, on triangles
+# or tets. Port of flow_tpu/navier_stokes/pressure_correction.py:
+# - NSContext, the JAX package's _Context: the theta-weighted momentum
+#   residual (Newton or with a lagged transport), its boundary (ds) terms,
+#   the pressure solve without a preconditioner, the velocity correction on
+#   the consistent mass, the Jacobi diagonals and the boundary tabulations
+#   (BoundaryTab on edges in 2-D, BoundaryFaceTab on faces in 3-D), read by
+#   navier_stokes/fast.py and, over the patch layout, by
+#   navier_stokes/patchctx.py;
+# - the public scheme drivers Chorin, IPCS and Rotational (one host-stepped
+#   projection step a call; IPCS/Rotational with backend="packed"|"auto"
+#   route through navier_stokes/packedapi.py).
 #
 # The residual of the tentative velocity, theta = (w_ex, w_im):
 #   F1(ui) = (ui - u0, v) - dt/rho * [w_ex rhs_weak(u0, v; p0, u0)
@@ -36,6 +39,8 @@ F_RULE = 6  # quadrature degree of the body-force integrals
 
 class NSContext:
     """Per-(V, Q) tables of the projection step, in `dtype` on `device`."""
+
+    _cg_dot = None  # the solves' inner product (the patch layout's weighted one)
 
     def __init__(self, V, Q, dtype, device):
         self.V, self.Q = V, Q
@@ -174,7 +179,7 @@ class NSContext:
         if neumann:
             phi, sinfo = krylov.cg(
                 K, L2, M=lambda r: r / diag, rtol=tol, maxiter=1000,
-                nullspace=[self.ones_Q],
+                nullspace=[self.ones_Q], dot=self._cg_dot,
             )
         else:
             free = 1.0 - mask
@@ -186,7 +191,7 @@ class NSContext:
             rhs = free * (L2 - K(pin)) + pin
             phi, sinfo = krylov.cg(
                 K_bc, rhs, M=lambda r: r / (free * diag + mask), rtol=tol,
-                maxiter=1000,
+                maxiter=1000, dot=self._cg_dot,
             )
         return P0 + phi, sinfo
 
@@ -210,7 +215,7 @@ class NSContext:
         dmask = mask * (gvals - Ui)
         rhs = free * (L3 - assembly.mass_apply(V, geom, dmask)) + dmask
         d, sinfo = krylov.cg(M_bc, rhs, M=lambda r: r / diag, rtol=tol,
-                             maxiter=500)
+                             maxiter=500, dot=self._cg_dot)
         return Ui + d, sinfo
 
 

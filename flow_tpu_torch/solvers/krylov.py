@@ -259,13 +259,11 @@ def gmres(
     vector across devices where the vectors are sharded (identity by
     default). One device->host read per iteration carries the new Hessenberg
     column; the rotations and the triangular solve run on the host in the
-    working precision. basis_dtype (a reduced-precision basis) is not
-    ported."""
-    if basis_dtype is not None:
-        raise NotImplementedError(
-            "gmres: a reduced-precision Arnoldi basis (basis_dtype) is not "
-            "ported (ROADMAP queue 1 item 5)"
-        )
+    working precision. basis_dtype (e.g. torch.bfloat16) stores the
+    Arnoldi basis in a reduced precision, as the JAX package's: the
+    projections read it upcast and accumulate in the working precision,
+    and each restart cycle re-measures the true residual before deciding
+    to stop (the Givens estimate drifts with a reduced basis)."""
     M = M or _identity
     _dot_ = dot or _dot
     _red_ = reduce or _identity
@@ -283,13 +281,24 @@ def gmres(
     target = max(real(rtol) * host(bnorm), real(atol))
     r0 = b if x0 is None else b - A(x)
     rnorm = host(torch.sqrt(_dot_(r0, r0)))
-    V = torch.empty((m + 1, N), dtype=b.dtype, device=b.device)
+    dtype = b.dtype
+    bd = dtype if basis_dtype is None else basis_dtype
+    V = torch.empty((m + 1, N), dtype=bd, device=b.device)
+    if bd == dtype:
+        def basis(rows):
+            return rows
+    else:
+        def basis(rows):
+            # the reduced basis (and what meets it) in the working precision:
+            # products of reduced values are exact there, as in the JAX
+            # package's preferred_element_type accumulation
+            return rows.to(dtype)
 
     def cycle(x, r, beta):
         """One restart cycle from residual r of norm beta (a 0-d tensor)
         -> (x, |g_j|, j)."""
         beta_h = host(beta)
-        V[0] = r.reshape(N) / _nz(beta)
+        V[0] = (r.reshape(N) / _nz(beta)).to(bd)
         R = np.zeros((m + 1, m), dtype=real)  # rotated Hessenberg columns
         cs = np.zeros(m, dtype=real)
         sn = np.zeros(m, dtype=real)
@@ -297,17 +306,18 @@ def gmres(
         g[0] = beta_h
         j, brk = 0, False
         while j < m and abs(g[j]) > target and not brk:
-            Vj = V[: j + 1]
-            w = A(M(V[j].view(shape))).reshape(N)
-            h = _red_(Vj @ w)
-            w = w - h @ Vj
-            h2 = _red_(Vj @ w)
-            w = w - h2 @ Vj
+            Vj = basis(V[: j + 1])
+            w = A(M(basis(V[j]).view(shape))).reshape(N)
+            h = _red_(Vj @ basis(w.to(bd)))
+            w = w - basis(h.to(bd)) @ Vj
+            h2 = _red_(Vj @ basis(w.to(bd)))
+            w = w - basis(h2.to(bd)) @ Vj
             h = h + h2
             hj1 = torch.sqrt(_dot_(w.view(shape), w.view(shape)))
             col = torch.cat([h, hj1.reshape(1)]).cpu().numpy().astype(real)
             brk = bool(col[j + 1] <= tiny10)
-            V[j + 1] = torch.where(hj1 <= float(tiny10), torch.zeros_like(w), w / _nz(hj1))
+            V[j + 1] = torch.where(hj1 <= float(tiny10), torch.zeros_like(w),
+                                   w / _nz(hj1)).to(bd)
             for i in range(j):
                 hi, hi1 = col[i], col[i + 1]
                 col[i] = cs[i] * hi + sn[i] * hi1
@@ -327,7 +337,8 @@ def gmres(
             y = np.zeros(j, dtype=real)
             for i in range(j - 1, -1, -1):  # back substitution, R[:j, :j] y = g[:j]
                 y[i] = (g[i] - np.dot(R[i, i + 1: j], y[i + 1:])) / R[i, i]
-            dx = torch.as_tensor(y, dtype=b.dtype, device=b.device) @ V[:j]
+            yt = torch.as_tensor(y, dtype=dtype, device=b.device)
+            dx = basis(yt.to(bd)) @ basis(V[:j])
             x = x + M(dx.view(shape))
         return x, abs(g[j]), j
 
@@ -335,6 +346,9 @@ def gmres(
     while rnorm > target and iters < maxiter and it_prev != 0:
         r = b - A(x)
         x, rnorm, it_prev = cycle(x, r, torch.sqrt(_dot_(r, r)))
+        if bd != dtype:
+            rt = b - A(x)
+            rnorm = host(torch.sqrt(_dot_(rt, rt)))
         iters += it_prev
     # the true residual (the Givens estimate can drift over restarts)
     rtrue = b - A(x)

@@ -20,6 +20,7 @@ import torch
 from ..fem import assembly, dense
 from ..fem.assembly import geometry
 from ..fem.ell import ell_stiffness
+from ..fem.gathersum import member_table
 from ..fem.spaces import FunctionSpace
 from ..mesh3d import _device
 from .chebyshev import power_iteration_lmax
@@ -121,11 +122,16 @@ class P1Hierarchy:
             self.levels.append(L)
 
         # prolongation data: fine edge midpoint dof n_coarse+e interpolates
-        # the coarse edge (edges of the coarse mesh)
-        self.edges = [
-            torch.as_tensor(m.edges_np, dtype=torch.int64, device=device)
-            for m in meshes[:-1]
-        ]
+        # the coarse edge (edges of the coarse mesh); the restriction sums
+        # each coarse vertex's edge halves in the order of a member table
+        # (fem/gathersum), so a V-cycle repeats bit for bit on the card
+        self.edges, self.restrict_tables = [], []
+        for m in meshes[:-1]:
+            e = m.edges_np.astype(np.int64)
+            self.edges.append(torch.as_tensor(e, device=device))
+            self.restrict_tables.append(torch.as_tensor(
+                member_table(np.concatenate([e[:, 0], e[:, 1]]), m.n_points),
+                device=device))
 
         # coarsest solve: dense (pin the nullspace by a rank-1 shift if
         # Neumann)
@@ -165,12 +171,9 @@ class P1Hierarchy:
     def restrict(self, l, xf):
         """fine level l+1 -> coarse level l (transpose of prolong)."""
         nc = self.levels[l].n
-        e = self.edges[l]
         half = 0.5 * xf[nc:]
-        xr = xf[:nc].clone()
-        xr.index_add_(0, e[:, 0], half)
-        xr.index_add_(0, e[:, 1], half)
-        return xr
+        halves = torch.cat([half, half, half.new_zeros(1)])
+        return xf[:nc] + halves[self.restrict_tables[l]].sum(dim=1)
 
     # -- smoothing -----------------------------------------------------------
     def _smooth(self, L, b, x):

@@ -95,31 +95,18 @@ def test_state_round_trip_through_interop():
 
 
 @pytest.mark.parametrize("route, item", [
-    # the einsum route itself is ported (tests/test_torch_fast_einsum.py);
-    # its assembled-ELL momentum Jacobian and vertex preconditioner are not
-    (dict(winkernel=False, assembled_jacobian=True), 5),
-    (dict(winkernel=False, momentum_precond="vertex"), 5),
-    (dict(time_step_method="forward euler"), 5),
-    (dict(momentum_solver="gmres"), 5),
-    (dict(packed=True), 5),
+    # every FastStepper route is ported (tests/test_torch_fast_einsum.py,
+    # test_torch_fast_packed.py, test_torch_fast_patch.py,
+    # test_torch_fast_ell.py); the host driver's output writer is not
     (dict(driver=True, writer=object()), 6),
-    (dict(patches=object()), 5),
-    (dict(divergence_probe=True), 5),
-], ids=["einsum", "einsum-vertex", "forward-euler", "gmres", "packed",
-        "driver-stokes", "patches", "divergence-probe"])
+], ids=["driver-stokes"])
 def test_unported_routes_raise(route, item):
     # each route raises NotImplementedError naming its ROADMAP item
-    tp = KarmanProblem(lcar=0.2, dtype=torch.float64, device="cpu")
     route = dict(route)
     match = f"ROADMAP queue 1 item {item}\\b"
-    if route.pop("driver", False):
-        # the Stokes-bootstrapped host driver's output writer (io/xdmf.py)
-        from flow_tpu_torch.models.karman import run_karman
+    assert route.pop("driver")
+    # the Stokes-bootstrapped host driver's output writer (io/xdmf.py)
+    from flow_tpu_torch.models.karman import run_karman
 
-        with pytest.raises(NotImplementedError, match=match):
-            run_karman(num_steps=1, lcar=0.2, device="cpu", **route)
-        return
-    kw = dict(BENCH, winkernel=True)
-    kw.update(route)
     with pytest.raises(NotImplementedError, match=match):
-        FastStepper(tp.V, tp.Q, tp.u_bcs, tp.p_bcs, tp.rho, tp.mu, **kw)
+        run_karman(num_steps=1, lcar=0.2, device="cpu", **route)

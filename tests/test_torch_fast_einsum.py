@@ -22,6 +22,8 @@
 # - run_cavity3d_fast(winkernel=False, n=4) against the JAX driver, 3 steps,
 #   lambda_max carried across: equal counts, U within 1e-8 and the
 #   mean-removed P within 1e-8.
+from concurrent.futures import ThreadPoolExecutor
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -129,25 +131,46 @@ def karman_problems():
                                  device="cpu"))
 
 
+@pytest.fixture(scope="module")
+def jax_runs(karman_problems):
+    """Each case's JAX stepper (the multigrid ones on one P1Hierarchy: one
+    pressure mask) and its 3-step run from dt0 = 1e-4 -> {case: (stepper,
+    output)}, and the hierarchy's lambda_max. The programs are traced in
+    turn and compiled at once (XLA compiles outside the GIL)."""
+    jp, _ = karman_problems
+    args = (jp.V.zeros(), jp.Q.zeros(), jnp.asarray(1e-4))
+    jh, steppers, lowered = None, {}, []
+    for case in CASES:
+        kw = {**DRIVER, **CASES[case]}
+        js = JaxStepper(jp.V, jp.Q, jp.u_bcs, jp.p_bcs, jp.rho, jp.mu, **kw)
+        assert not js.packed and not js.winkernel
+        if "jacobi" not in case:
+            if jh is None:
+                jh = JaxHierarchy(jp.mesh_hierarchy, bc_mask=js.mask_p, smoother_degree=3)
+            js.pressure_precond = jh.v_cycle
+        steppers[case] = js
+        lowered.append(js._run_jit.lower(*args, n_steps=3))
+    with ThreadPoolExecutor(len(lowered)) as pool:
+        compiled = list(pool.map(lambda low: low.compile(), lowered))
+    return ({case: (steppers[case], run(*args)) for case, run in zip(CASES, compiled)},
+            [float(L.lmax) for L in jh.levels])
+
+
 @pytest.mark.parametrize("case", list(CASES))
-def test_stepper_iterate_exact_with_jax(karman_problems, case):
-    jp, tp = karman_problems
+def test_stepper_iterate_exact_with_jax(karman_problems, jax_runs, case):
+    _, tp = karman_problems
     kw = {**DRIVER, **CASES[case]}
     mg = "jacobi" not in case
-    js = JaxStepper(jp.V, jp.Q, jp.u_bcs, jp.p_bcs, jp.rho, jp.mu, **kw)
-    assert not js.packed and not js.winkernel
+    (js, outj), lmax = jax_runs[0][case], jax_runs[1]
     ts = FastStepper(tp.V, tp.Q, tp.u_bcs, tp.p_bcs, tp.rho, tp.mu, **kw,
                      tangent_mode="linearize" if mg else "jvp", device="cpu")
     # the ELL kernel it takes on the card: in float64 this 425-row operator's
     # window would stage more bytes than its 16-bit indices save
     assert ts.K_Q.kernel == "direct"
     if mg:
-        jh = JaxHierarchy(jp.mesh_hierarchy, bc_mask=js.mask_p, smoother_degree=3)
-        js.pressure_precond = jh.v_cycle
         th = P1Hierarchy(tp.mesh_hierarchy, bc_mask=ts.mask_p, smoother_degree=3)
-        interop.load_hierarchy_lmax(th, [float(L.lmax) for L in jh.levels])
+        interop.load_hierarchy_lmax(th, lmax)
         ts.pressure_precond = th.v_cycle
-    outj = js._run_jit(jp.V.zeros(), jp.Q.zeros(), jnp.asarray(1e-4), n_steps=3)
     outt = ts.run(*ts.zeros(), 1e-4, n_steps=3)
     telj, telt = outj[3], outt[3]
     for key in ITERS:

@@ -51,14 +51,47 @@ ITERS = ("newton_iters", "linear_iters", "pressure_iters", "correction_iters")
 FLAGS = ("momentum_converged", "pressure_converged", "correction_converged")
 
 
+def _shared(module, name, mp):
+    """Make the JAX driver's stepper class `module.name` hand back one
+    instance per (spaces, settings): the JAX driver builds and compiles a
+    stepper in every call, and a stepper's compiled chunk serves every later
+    call with the same settings (the forces probe of the first call stays:
+    it is the same problem's)."""
+    cls = getattr(module, name)
+    built = {}
+
+    def make(V, *args, **kw):
+        key = (id(V), repr(sorted((k, v) for k, v in kw.items() if k != "forces_probe")))
+        if key not in built:
+            built[key] = cls(V, *args, **kw)
+        return built[key]
+
+    mp.setattr(module, name, make)
+
+
 @pytest.fixture(scope="module")
-def drivers(tmp_path_factory):
+def jax_problems():
+    """The JAX problems whose driver steppers the JAX runs of this module
+    share (einsum at n_refine=0, packed at n_refine=2)."""
+    import flow_tpu.navier_stokes.fast as jfast
+    import flow_tpu.navier_stokes.patchfast as jpatchfast
+
+    mp = pytest.MonkeyPatch()
+    _shared(jfast, "FastStepper", mp)
+    _shared(jpatchfast, "PackedPatchStepper", mp)
+    yield {0: jax_karman.KarmanProblem(lcar=0.2, n_refine=0),
+           2: jax_karman.KarmanProblem(lcar=0.2, n_refine=2)}
+    mp.undo()
+
+
+@pytest.fixture(scope="module")
+def drivers(tmp_path_factory, jax_problems):
     ck = str(tmp_path_factory.mktemp("ck") / "jax.npz")
     mp = pytest.MonkeyPatch()
     mp.delenv("FLOW_WINKERNEL", raising=False)
     try:
-        jout = jax_karman.run_karman_fast(num_steps=3, chunk_size=2,
-                                          checkpoint_path=ck, **SMALL)
+        jout = jax_karman.run_karman_fast(num_steps=3, chunk_size=2, checkpoint_path=ck,
+                                          problem=jax_problems[0], **SMALL)
     finally:
         mp.undo()
     tout = karman.run_karman_fast(num_steps=3, chunk_size=2, **SMALL, **PORT)
@@ -213,12 +246,13 @@ PACKED = dict(backend="packed", convection="lagged", lcar=0.2, n_refine=2)
 
 
 @pytest.fixture(scope="module")
-def packed_drivers(tmp_path_factory):
+def packed_drivers(tmp_path_factory, jax_problems):
     """run_karman_fast(backend="packed") at its defaults (GMRES, backward
     Euler, consistent force probe) for 2 steps: the JAX driver writing a
     checkpoint, and the port with the JAX hierarchy's lambda_max."""
     ck = str(tmp_path_factory.mktemp("ck") / "jax_packed.npz")
-    jout = jax_karman.run_karman_fast(num_steps=2, checkpoint_path=ck, **PACKED)
+    jout = jax_karman.run_karman_fast(num_steps=2, checkpoint_path=ck,
+                                      problem=jax_problems[2], **PACKED)
     lmax = [float(L.lmax) for L in jout["stepper"].pressure_precond.__self__.levels]
     tout = karman.run_karman_fast(num_steps=2, lmax=lmax, device="cpu",
                                   dtype=torch.float64, **PACKED)
@@ -375,11 +409,11 @@ def test_run_karman_matches_jax():
     dict(backend="fast", n_refine=0, use_multigrid=False),
     dict(backend="packed", convection="lagged", n_refine=2),
 ], ids=["fast", "packed"])
-def test_run_karman_fast_from_stokes_matches_jax(route):
+def test_run_karman_fast_from_stokes_matches_jax(route, jax_problems):
     # from_rest=False: the Stokes bootstrap (the dense path at this size;
     # MINRES is held above), then 2 steps on each backend
     kw = dict(num_steps=2, lcar=0.2, from_rest=False, **route)
-    jout = jax_karman.run_karman_fast(**kw)
+    jout = jax_karman.run_karman_fast(problem=jax_problems[route["n_refine"]], **kw)
     lmax = None
     if route["backend"] == "packed":
         lmax = [float(L.lmax) for L in jout["stepper"].pressure_precond.__self__.levels]

@@ -163,7 +163,19 @@ def test_gmres_breakdown_matches_jax():
     np.testing.assert_allclose(xt, xj, rtol=0, atol=1e-14)
 
 
-def test_gmres_reduced_basis_raises():
-    b = torch.ones(4, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 5\b"):
-        tk.gmres(lambda v: v, b, basis_dtype=torch.bfloat16)
+@pytest.mark.parametrize("dtype, rtol", [(np.float32, 1e-3), (np.float64, 1e-4)])
+def test_gmres_reduced_basis_matches_jax(dtype, rtol):
+    # a bfloat16 Arnoldi basis (the momentum solve's gmres_basis), restart 8:
+    # equal iteration counts, the solutions at the working precision
+    rng = np.random.default_rng(2)
+    A = (np.diag(np.geomspace(1.0, 10.0, N))
+         + rng.standard_normal((N, N)) / np.sqrt(N)).astype(dtype)
+    b = rng.standard_normal(N).astype(dtype)
+    xj, ij = jk.gmres(lambda v: jnp.asarray(A) @ v, jnp.asarray(b), rtol=rtol,
+                      restart=8, basis_dtype=jnp.bfloat16)
+    xt, it = tk.gmres(lambda v: torch.as_tensor(A) @ v, torch.as_tensor(b), rtol=rtol,
+                      restart=8, basis_dtype=torch.bfloat16)
+    assert it.iters == int(ij.iters) > 8 and bool(it.converged) and bool(ij.converged)
+    assert float(it.resnorm) <= rtol * np.linalg.norm(b)
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=0,
+                               atol=1e-4 if dtype == np.float32 else 1e-12)

@@ -51,7 +51,9 @@ def test_port_imports_no_jax_and_turns_tf32_off():
                 "fem.gathersum", "navier_stokes.pressure_correction",
                 "navier_stokes.packedapi", "stabilization", "parabolic",
                 "solvers.shifted_mg", "heat", "models.boussinesq", "stokes",
-                "models.boussinesq3d", "experimental.ab2tr"):
+                "models.boussinesq3d", "experimental.ab2tr", "fem.packed",
+                "navier_stokes.patchctx", "solvers.patch_mg",
+                "navier_stokes.diffstep"):
         assert f"flow_tpu_torch.{mod}" in out["modules"], mod
     assert out["foreign"] == []
     assert out["tf32"] == [False, False]
@@ -69,7 +71,7 @@ def test_public_surface_and_unported_names():
                  "parabolic", "materials", "unit_square_mesh", "refine_uniform",
                  "rectangle_with_hole_mesh"):
         assert hasattr(flow_tpu_torch, name), name
-    for name in ("Chorin", "IPCS", "Rotational"):
+    for name in ("Chorin", "IPCS", "Rotational", "FastStepper", "DiffStepper"):
         assert hasattr(flow_tpu_torch.navier_stokes, name), name
     # the slice that stood here unported now runs; what is left of it
     # raises NotImplementedError naming its ROADMAP item
@@ -79,12 +81,12 @@ def test_public_surface_and_unported_names():
     assert callable(stokes.solve) and callable(boussinesq3d.compute_boussinesq_3d)
     assert callable(ab2tr.AB2TR) and stokes.DENSE_THRESHOLD == 20000
     b = torch.ones(3, dtype=torch.float64)
-    for call, item in ((lambda: run_karman(1, lcar=0.2, writer=object(), device="cpu"),
-                        "io/xdmf.py, not ported \\(ROADMAP queue 1 item 6\\)"),
-                       (lambda: krylov.gmres(lambda x: x, b, basis_dtype=torch.float32),
-                        "is not ported \\(ROADMAP queue 1 item 5\\)")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(NotImplementedError,
+                       match="io/xdmf.py, not ported \\(ROADMAP queue 1 item 6\\)"):
+        run_karman(1, lcar=0.2, writer=object(), device="cpu")
+    # GMRES's reduced-precision basis (ROADMAP queue 1 item 5) now runs
+    x, info = krylov.gmres(lambda x: x, b, basis_dtype=torch.float32)
+    assert bool(info.converged) and torch.allclose(x, b)
     # the new entry points default to the card: without one they raise
     if not torch.cuda.is_available():
         for call in (lambda: boussinesq3d.compute_boussinesq_3d(0.0, n=(2, 2, 2)),

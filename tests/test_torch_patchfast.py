@@ -8,15 +8,18 @@
 # - GMRES (the sqrt-weight-conjugated solve): one step;
 # equal per-step iteration counts, U within 1e-10, the mean-removed P within
 # 1e-8 and dt within 1e-12. One JAX stepper serves every case: its time
-# scheme and momentum solver are read when a step is traced, so each case
-# jits the JAX stepper with its flags set. Then the port alone: the packed
+# scheme, momentum solver and forces probe are read when a run is traced,
+# so JAX's own 3-step run is jitted once for each (solver, scheme) with
+# its flags set and a probe that records each step's state; a run's first
+# step is the step test's reference. Then the port alone: the packed
 # state round trip, a body force through step_api, the Picard mode and the
 # argument checks.
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
 import jax
-import jax.numpy as jnp
 
 from flow_tpu.fem.patch import build_patch_info as jax_patch_info
 from flow_tpu.models.karman import KarmanProblem as JaxProblem
@@ -66,44 +69,62 @@ def _jax_with(js, **flags):
     return saved
 
 
-def _assert_state(js, ts, Uj, Pj, Ut, Pt):
-    Ug_j, Pg_j = (np.asarray(a) for a in js.from_packed_state(Uj, Pj))
+def _global_state(js, Uj, Pj):
+    return tuple(np.asarray(a) for a in js.from_packed_state(Uj, Pj))
+
+
+def _assert_state(ts, Ug_j, Pg_j, Ut, Pt):
     Ug_t, Pg_t = (a.numpy() for a in ts.from_packed_state(Ut, Pt))
     np.testing.assert_allclose(Ug_t, Ug_j, rtol=0, atol=1e-10)
     dp = Pg_t - Pg_j
     np.testing.assert_allclose(dp - dp.mean(), 0.0, rtol=0, atol=1e-8)
 
 
-def _assert_stats(sj, st):
-    for key in ITERS:
-        assert int(getattr(st, key)) == int(getattr(sj, key)), key
-    assert bool(st.pressure_converged) and bool(st.correction_converged)
-
-
-@pytest.mark.parametrize("solver", ["bicgstab", "gmres"])
-def test_step_matches_jax(jax_side, problem, solver):
-    js, lmax = jax_side
-    saved = _jax_with(js, mom_solver=solver)
+def _jax_lowered(js, solver, bdf2):
+    """JAX's own run (patchfast.py _run_impl, 3 steps from rest), traced
+    with the route flags set; its forces probe hands back each step's
+    global-layout state, so the run's first step is a step reference."""
+    saved = _jax_with(js, mom_solver=solver, bdf2=bdf2, forces_probe=lambda U, P: (U, P))
     try:
-        Uj, Pj, sj = jax.jit(js._step_impl)(*js.zeros(), jnp.asarray(DT0))
-    finally:
-        _jax_with(js, **saved)
-    ts = _port(problem, lmax, momentum_solver=solver)
-    Ut, Pt, st = ts.step(*ts.zeros(), DT0)
-    _assert_stats(sj, st)
-    assert int(st.linear_iters) > 1
-    _assert_state(js, ts, Uj, Pj, Ut, Pt)
-
-
-@pytest.mark.parametrize("method", ["backward euler", "bdf2"])
-def test_run_matches_jax(jax_side, problem, method):
-    js, lmax = jax_side
-    saved = _jax_with(js, bdf2=method == "bdf2")
-    try:
-        out_j = jax.jit(js._run_impl, static_argnames=("n_steps",))(
+        return jax.jit(js._run_impl, static_argnames=("n_steps",)).lower(
             *js.zeros(), DT0, n_steps=3)
     finally:
         _jax_with(js, **saved)
+
+
+@pytest.fixture(scope="module")
+def jax_runs(jax_side):
+    """The three JAX programs of this file, each compiled once: BiCGStab
+    with backward Euler (the step and the run reference), GMRES with
+    backward Euler (the step reference) and BiCGStab with BDF2 (the run
+    reference). XLA compiles outside the GIL, so the three compile at
+    once."""
+    js, _ = jax_side
+    keys = (("bicgstab", False), ("gmres", False), ("bicgstab", True))
+    lowered = [_jax_lowered(js, *key) for key in keys]
+    with ThreadPoolExecutor(len(keys)) as pool:
+        compiled = list(pool.map(lambda low: low.compile(), lowered))
+    return {key: run(*js.zeros(), DT0) for key, run in zip(keys, compiled)}
+
+
+@pytest.mark.parametrize("solver", ["bicgstab", "gmres"])
+def test_step_matches_jax(jax_side, jax_runs, problem, solver):
+    _, lmax = jax_side
+    telj = jax_runs[solver, False][3]
+    ts = _port(problem, lmax, momentum_solver=solver)
+    Ut, Pt, st = ts.step(*ts.zeros(), DT0)
+    for key in ITERS:
+        assert int(getattr(st, key)) == int(telj[key][0]), key
+    assert bool(st.pressure_converged) and bool(st.correction_converged)
+    assert int(st.linear_iters) > 1
+    Ug_j, Pg_j = (np.asarray(a[0]) for a in telj["forces"])
+    _assert_state(ts, Ug_j, Pg_j, Ut, Pt)
+
+
+@pytest.mark.parametrize("method", ["backward euler", "bdf2"])
+def test_run_matches_jax(jax_side, jax_runs, problem, method):
+    js, lmax = jax_side
+    out_j = jax_runs["bicgstab", method == "bdf2"]
     ts = _port(problem, lmax, momentum_solver="bicgstab", time_step_method=method)
     out_t = ts.run(*ts.zeros(), DT0, 3)
     assert len(out_t) == len(out_j) == (5 if method == "bdf2" else 4)
@@ -116,7 +137,7 @@ def test_run_matches_jax(jax_side, problem, method):
     for key in ("momentum_converged", "pressure_converged", "correction_converged"):
         assert bool(telt[key].all()), key
     assert abs(float(out_t[2]) - float(out_j[2])) < 1e-12
-    _assert_state(js, ts, out_j[0], out_j[1], out_t[0], out_t[1])
+    _assert_state(ts, *_global_state(js, out_j[0], out_j[1]), out_t[0], out_t[1])
     if method == "bdf2":
         Um1_j, dtp_j = out_j[4]
         Um1_t, dtp_t = out_t[4]
