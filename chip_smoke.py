@@ -143,8 +143,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    that did not launch the kernel its rule names, and only that one, or any
    window-kernel launch;
 22. 3-D einsum path: run_cavity3d_fast(winkernel=False, n=64), 6,714,692
-   DoF, float32, tangent_mode CAVITY3D_TANGENT, 1 warm-up and 3 timed steps,
-   with its peak memory; fails on a non-finite state, an unconverged solve,
+   DoF, float32, tangent_mode CAVITY3D_TANGENT, 1 warm-up and 1 timed step
+   (CAVITY3D_EINSUM_STEPS; 3 timed until phase 31 needed the time), with
+   its peak memory; fails on a non-finite state, an unconverged solve,
    a pressure operator whose rule does not name the windowed ELL kernel or
    that launched another, or no K1 launch;
 23. ELL kernels against plain: the direct kernel (P1) and, wherever the
@@ -283,6 +284,34 @@ Phases, in order; any failure exits non-zero and prints no result:
    synchronisation, divided by the count, the least of five such loops;
    the K3 3-D rows the same over 20 calls, the least of three loops.
 
+31. the distributed layer (flow_tpu_torch/parallel/), run as
+   `chip_smoke.py --distributed` in a process of its own (ranks on
+   torch.distributed, world size = the cards present, one a rank on NCCL;
+   a world of 1 runs in that process): (a) card against CPU: the four
+   distributed steppers on small float64 problems on the cards and on as
+   many gloo CPU ranks (parallel/cases.parity_cases): equal counts, state
+   within 1e-8 (the window route, float32 inside: U within 2e-6 of max|U|,
+   P within 1e-4 of max|P|); (b) ShardedPackedStepper at KARMAN_MAIN in
+   float32 at PACKED_SETTINGS (BiCGStab), 1 + 5 steps: counts (at one rank
+   they must be KARMAN_PACKED_ITERS; at more, SHARDED_PACKED_ITERS where
+   pinned), steps/s, peak memory a rank, collectives a step and the host
+   µs of a 0-d all_reduce, the device and NCCL time of one profiled step;
+   (c) HaloProjection at KARMAN_MAIN in float32 with the
+   multigrid on its refinement chain: the einsum route lagged and Newton,
+   then the window route (K3 2-D) lagged and Newton, 1 + 2 steps each
+   (HALO_SETTINGS): counts, s a step, one profiled step's device events
+   and µs, the hand kernels' launches of each route (K3 on the window
+   route, the ELL kernels in the replicated coarse hierarchy), and K3
+   against its plain version at each rank's halo layout (<= 1e-5
+   relative); the window route lagged and Newton one step each on
+   box_mesh N=32 (K3 3-D); fails on a non-finite state, a route without
+   its kernels' launches or a K3 that differs;
+   (d) ShardedProjection one step and HaloPoisson one solve at
+   KARMAN_MAIN's spaces; (e) on four cards or more, the sharded packed
+   stepper at KarmanProblem(lcar=0.0175, n_refine=6) (9,894,272 DoF):
+   counts, steps/s, peak memory a rank, NCCL time of one profiled step.
+   Its summary (the halo route's launches) joins the kernel report;
+
 Then every hand kernel's launches by path (karman_packed: 0 for each), and
 K1's and K2's launches by grid on each path (path B's in float64), with
 launches x (device time - bound) a grid. The line before the last holds the kernel report, the
@@ -334,6 +363,7 @@ KARMAN_DOFS = 1905056  # 2 n_V + n_Q of the JAX package's mesh at these args
 CAVITY3D_MAIN = 64  # run_cavity3d_fast's n on the 3-D window route
 CAVITY3D_DOFS = 6714692  # 3 n_V + n_Q at n=64
 CAVITY3D_STEPS = 4  # 1 warm-up + 3 timed
+CAVITY3D_EINSUM_STEPS = 2  # 1 warm-up + 1 timed: ~10 s a step
 # the 3-D window route's iterations a step at N=64 on the card (H100 80GB
 # HBM3) with K3 3-D summing its local results from a device scratch along
 # the scatter lists: the cluster walk sums every window row in the same
@@ -542,6 +572,27 @@ FORMWIN_KAPPA = 2.5e-4
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
 # tensor cores
+# the distributed layer (parallel/, PR 17): world size = the cards present
+DIST_SCRIPT_TIMEOUT = 900  # seconds for `chip_smoke.py --distributed`
+SHARDED_PACKED_STEPS = 6  # 1 warm-up + 5 timed, as the single-card packed path
+# HaloProjection at KARMAN_MAIN in float32 (no settings of the JAX package's
+# own for this size: absolute Newton tolerance at the float32 floor of the
+# momentum residual, two Newton steps at most, float32 Krylov tolerances)
+HALO_SETTINGS = dict(newton_tol=1e-9, newton_maxiter=2, linear_rtol=1e-4,
+                     pressure_rtol=1e-4, correction_rtol=1e-4, smoother_degree=3,
+                     cfl_target=1.0, dt_max=1.0)
+HALO_STEPS = 3  # 1 warm-up + 2 timed, each route
+HALO3D_N = 32  # box_mesh N of the cavity route's K3 3-D check
+PROJECTION_SETTINGS = dict(newton_tol=1e-6, newton_maxiter=2, linear_rtol=1e-3,
+                           pressure_rtol=1e-4)
+# the sharded packed stepper's counts at KARMAN_MAIN by world size where
+# two four-card calls agreed (world 1 is held to KARMAN_PACKED_ITERS)
+SHARDED_PACKED_ITERS = {4: {"linear_iters": [3, 2, 3, 3, 3, 3],
+                            "pressure_iters": [3, 3, 3, 3, 3, 3],
+                            "correction_iters": [6, 6, 8, 8, 8, 8]}}
+KARMAN_10M = dict(lcar=0.0175, n_refine=6)  # BENCH_LARGE.json's "10M"
+KARMAN_10M_DOFS = 9894272
+
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12  # float64 outside the tensor cores
@@ -2380,7 +2431,7 @@ def phase_einsum_main():
 
 def phase_cavity3d_einsum():
     """run_cavity3d_fast on the einsum route at N=64 (the JAX driver's
-    route), one step per chunk: 1 warm-up and 3 timed steps. The pressure
+    route), one step per chunk: 1 warm-up and 1 timed step. The pressure
     operator is the ELL stiffness of 274,625 rows, the V-cycle K1's; the
     tangent is kept per Newton iteration (tangent_mode "linearize"), and the
     peak memory says whether that fits."""
@@ -2393,7 +2444,7 @@ def phase_cavity3d_einsum():
     for k in counters.values():
         k.launches = 0
     GRID_LAUNCHES.clear()
-    out = run_cavity3d_fast(num_steps=CAVITY3D_STEPS, n=CAVITY3D_MAIN, winkernel=False,
+    out = run_cavity3d_fast(num_steps=CAVITY3D_EINSUM_STEPS, n=CAVITY3D_MAIN, winkernel=False,
                             tangent_mode=CAVITY3D_TANGENT, chunk_size=1,
                             dtype=torch.float32, device="cuda")
     torch.cuda.synchronize()
@@ -2403,7 +2454,7 @@ def phase_cavity3d_einsum():
     prob, st, tel = out["problem"], out["stepper"], out["telemetry"]
     n_dofs = 3 * prob.V.n_dofs + prob.Q.n_dofs
     timed = sum(out["chunk_seconds"][1:])
-    n_timed = CAVITY3D_STEPS - 1
+    n_timed = CAVITY3D_EINSUM_STEPS - 1
     log(f"[cavity3d-einsum] run_cavity3d_fast n={CAVITY3D_MAIN} n_dofs={n_dofs} float32 "
         f"winkernel=False tangent_mode={st.tangent_mode} pressure operator "
         f"n={st.K_Q.n} K={st.K_Q.width} staged_max={st.K_Q.staged_max} "
@@ -3744,6 +3795,211 @@ def _profile_fast_steps(keep):
         check(ev > 0, f"karman7m ({tag}): the profiler shows no device event")
 
 
+# -- the distributed layer (31) ------------------------------------------------
+RUN_CASES = "flow_tpu_torch.parallel.cases:run_cases"
+
+
+def _ranks(cases, device, world, timeout=DIST_SCRIPT_TIMEOUT):
+    """Every rank's results of parallel/cases.run_cases: NCCL ranks on the
+    cards (device "cuda") or gloo ranks on the CPU."""
+    from flow_tpu_torch.parallel import comm
+
+    return comm.launch(RUN_CASES, world, args=(cases, device),
+                       backend="nccl" if device == "cuda" else "gloo", timeout=timeout)
+
+
+def phase_dist_parity(world):
+    """(31a) the four distributed steppers in float64 on the cards and on as
+    many gloo CPU ranks."""
+    from flow_tpu_torch.parallel import cases
+
+    pc = cases.parity_cases()
+    t0 = time.perf_counter()
+    card = _ranks(pc, "cuda", world)[0]
+    t1 = time.perf_counter()
+    cpu = _ranks(pc, "cpu", world)[0]
+    log(f"[dist-parity] world={world}: cards {t1 - t0:.1f} s, CPU ranks "
+        f"{time.perf_counter() - t1:.1f} s")
+    names = ["packed karman lcar=0.2 bicgstab 3 steps", "projection lid n=10",
+             "halo_poisson lid n=24", "halo mg bdf2 3 steps", "halo window lagged 2 steps",
+             "halo window newton 2 steps"]
+    for (i, same, du, dp, umax), name in zip(cases.compare(card, cpu), names):
+        log(f"[dist-parity] {name}: counts equal={same} max|dU|={du:.3e} "
+            f"max|dP - mean|={dp:.3e} (max|U| {umax:.3e})")
+        check(same, f"dist parity: {name}: counts differ between the cards and the CPU")
+        if "window" in name:
+            pmax = float(np.abs(cpu[i]["steps"][-1][1]).max())
+            check(du <= 2e-6 * umax and dp <= 1e-4 * pmax,
+                  f"dist parity: {name}: state differs (dU {du}, dP {dp})")
+        else:
+            check(du <= 1e-8 and dp <= 1e-8,
+                  f"dist parity: {name}: state differs (dU {du}, dP {dp})")
+    packed = card[0]["run"][3]
+    log(f"[dist-parity] packed counts (cards): " + ", ".join(
+        f"{k}={packed[k].tolist()}" for k in ("linear_iters", "pressure_iters",
+                                               "correction_iters")))
+
+
+def _prof_text(p):
+    if p is None:
+        return "not profiled (no card)"
+    return (f"{p['events']} device events, {p['device_us']:.1f} device us, NCCL "
+            f"{p['nccl_us']:.1f} us")
+
+
+def _pin_counts(tel):
+    return {k: list(tel[k]) for k in ("linear_iters", "pressure_iters", "correction_iters")}
+
+
+def phase_dist_packed(world, spec, tag, expect=None):
+    """(31b, 31e) ShardedPackedStepper at `spec` in float32 at
+    PACKED_SETTINGS, 1 + 5 steps from rest."""
+    case = dict(kind="packed_main", spec=dict(problem="karman", **spec), dtype="float32",
+                kw=PACKED_SETTINGS, dt=KARMAN_DT0, n_steps=SHARDED_PACKED_STEPS)
+    t0 = time.perf_counter()
+    res = _ranks([case], "cuda", world)
+    wall = time.perf_counter() - t0
+    r = res[0][0]
+    counts = _pin_counts(r["tel"])
+    prof = r["profile"]
+    log(f"[{tag}] {spec} n_dofs={r['n_dofs']} world={world} float32: steps/s="
+        f"{r['steps_per_s']:.4f} (after 1 warm-up step); setup {r['setup_s']:.1f} s "
+        f"(wall of the job {wall:.1f} s); patches {r['seam_stats']}")
+    log(f"[{tag}] counts {counts}; single-card pin KARMAN_PACKED_ITERS "
+        f"{KARMAN_PACKED_ITERS}")
+    log(f"[{tag}] peak memory a rank (bytes): {[x[0]['peak_bytes'] for x in res]}")
+    log(f"[{tag}] collectives a step: {r['collectives_per_step']}; host us a 0-d "
+        f"all_reduce (200 enqueued, one sync): {r['all_reduce_host_us']:.2f}")
+    log(f"[{tag}] one profiled step (rank 0): {_prof_text(prof)}; ranks' NCCL us "
+        f"{[round((x[0]['profile'] or {}).get('nccl_us', -1), 1) for x in res]}")
+    check(all(x[0]["finite"] for x in res), f"{tag}: non-finite state")
+    for key in ("pressure_converged", "correction_converged"):
+        check(all(r["tel"][key]), f"{tag}: a {key.split('_')[0]} solve did not converge")
+    check(not r["launches"], f"{tag}: a hand kernel was launched: {r['launches']}")
+    check(0.0099 <= r["umax"] <= 0.1, f"{tag}: max |u| {r['umax']} out of range")
+    if expect is not None:
+        check(counts == expect, f"{tag}: counts {counts} are not {expect}")
+    return r
+
+
+def phase_dist_halo(world):
+    """(31c) HaloProjection at KARMAN_MAIN in float32: the einsum and window
+    routes, lagged and Newton, then the window route on box_mesh N=32."""
+    routes = [(False, "lagged"), (False, "newton"), (True, "lagged"), (True, "newton")]
+    case = dict(kind="halo_main", spec=dict(problem="karman", **KARMAN_MAIN),
+                dtype="float32", mg=True, routes=routes, kw=HALO_SETTINGS,
+                dt=KARMAN_DT0, n_steps=HALO_STEPS)
+    box = dict(kind="halo_main", spec=dict(problem="box", n=(HALO3D_N,) * 3, x1=1.0),
+               dtype="float32", routes=[(True, "lagged"), (True, "newton")],
+               kw=HALO_SETTINGS, dt=KARMAN_DT0, n_steps=2)
+    res = _ranks([case, box], "cuda", world)
+    launches = {}
+    for tag, out in (("halo karman", res[0][0]), ("halo box N=32", res[0][1])):
+        for route, r in out.items():
+            log(f"[dist-halo] {tag} {route} world={world}: {r['s_per_step']:.3f} s a step "
+                f"(setup {r['setup_s']:.1f} s), pressure {r['tel']['pressure_iters']}, "
+                f"correction {r['tel']['correction_iters']}, max|u| {r['umax']:.4e}, "
+                f"one profiled step {_prof_text(r['profile'])}, hand-kernel launches "
+                f"{r['launches']}, peak {r['peak_bytes']} bytes, collectives a step "
+                f"{r['collectives_per_step']}")
+            check(all(x[0 if tag == "halo karman" else 1][route]["finite"] for x in res),
+                  f"dist halo: {tag} {route}: non-finite state")
+            if r["kernel_check"] is not None:
+                # K3 at the halo layout against its plain version (launches
+                # outside the run's count); float32 sums in another order
+                errs = [x[0 if tag == "halo karman" else 1][route]["kernel_check"]
+                        for x in res]
+                log(f"[dist-halo] {tag} {route}: K3 against plain at each rank's layout, "
+                    f"max|kernel - plain| / max|plain| "
+                    f"{[f'{e / m:.3e}' for e, m in errs]}")
+                check(all(e <= 1e-5 * m for e, m in errs),
+                      f"dist halo: {tag} {route}: K3 differs from its plain version")
+            launches[f"{tag} {route}"] = r["launches"]
+    k = launches
+    check(k["halo karman window lagged"].get("WINMOM", 0) > 0,
+          "dist halo: the window route launched no K3 2-D lagged")
+    check(k["halo karman window newton"].get("WINMOM_NEWTON", 0) > 0,
+          "dist halo: the Newton window route launched no K3 2-D Newton")
+    check(k["halo box N=32 window lagged"].get("WINMOM3D", 0) > 0,
+          "dist halo: the 3-D window route launched no K3 3-D lagged")
+    check(k["halo box N=32 window newton"].get("WINMOM3D_NEWTON", 0) > 0,
+          "dist halo: the 3-D Newton window route launched no K3 3-D Newton")
+    ell = {n: sum(v.get(n, 0) for key, v in k.items() if key.startswith("halo karman"))
+           for n in ("ELL_DIRECT", "ELL_WINDOW")}
+    check(ell["ELL_DIRECT"] + ell["ELL_WINDOW"] > 0,
+          "dist halo: the coarse hierarchy launched no ELL kernel")
+    return launches
+
+
+def phase_dist_projection(world):
+    """(31d) ShardedProjection one step, HaloPoisson one solve at
+    KARMAN_MAIN's spaces, float32."""
+    case = dict(kind="projection_main", spec=dict(problem="karman", **KARMAN_MAIN),
+                dtype="float32", kw=PROJECTION_SETTINGS, dt=KARMAN_DT0,
+                poisson_rtol=1e-4, poisson_maxiter=2000)
+    res = _ranks([case], "cuda", world)
+    r = res[0][0]
+    log(f"[dist-projection] ShardedProjection world={world}: one step {r['projection']['step_s']:.2f} s "
+        f"(setup {r['projection']['setup_s']:.1f} s), max|u| {r['projection']['umax']:.4e}")
+    log(f"[dist-projection] HaloPoisson world={world}: {r['poisson']['iters']} CG iterations in "
+        f"{r['poisson']['solve_s']:.2f} s (setup {r['poisson']['setup_s']:.1f} s)")
+    check(r["projection"]["finite"] and r["poisson"]["finite"],
+          "dist projection: non-finite result")
+    check(r["poisson"]["iters"] < 2000, "dist projection: HaloPoisson did not converge")
+
+
+def distributed_main():
+    """`chip_smoke.py --distributed`: phase 31 alone (after the build)."""
+    import torch
+
+    world = torch.cuda.device_count()
+    log(f"[dist] world size {world} (the cards present)")
+    t0 = time.perf_counter()
+    phase_build()
+    phase_dist_parity(world)
+    packed = phase_dist_packed(world, KARMAN_MAIN, "dist-packed",
+                               expect=KARMAN_PACKED_ITERS if world == 1 else
+                               SHARDED_PACKED_ITERS.get(world))
+    halo = phase_dist_halo(world)
+    phase_dist_projection(world)
+    summary = {"world": world, "halo_launches": halo,
+               "packed_counts": _pin_counts(packed["tel"])}
+    if world >= 4:
+        big = phase_dist_packed(world, KARMAN_10M, "dist-packed-10M")
+        check(big["n_dofs"] == KARMAN_10M_DOFS, f"10M: n_dofs {big['n_dofs']}")
+        summary["packed_10m_counts"] = _pin_counts(big["tel"])
+    log(f"[dist] phase 31 in {time.perf_counter() - t0:.1f} s")
+    print("[dist-summary] " + json.dumps(summary), flush=True)
+    return summary
+
+
+def phase_distributed():
+    """Phase 31 in a process of its own (`chip_smoke.py --distributed`): its
+    ranks' host timings are not slowed by this process's profiler sessions,
+    and the cards' memory is its own. Returns its summary."""
+    import torch
+
+    torch.cuda.empty_cache()
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--distributed"],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=str(ROOT))
+    summary = None
+    try:
+        for line in proc.stdout:
+            print(line, end="", flush=True)
+            if line.startswith("[dist-summary] "):
+                summary = json.loads(line[len("[dist-summary] "):])
+        proc.wait(timeout=DIST_SCRIPT_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0 and summary is not None,
+          f"phase 31 (chip_smoke.py --distributed) failed with exit code {proc.returncode}")
+    return summary
+
+
+
 def main():
     # a workspace setting under which cuBLAS is deterministic, for the
     # references run under deterministic() (read when cuBLAS starts)
@@ -3767,6 +4023,21 @@ def main():
     log(f"[device] {smi}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    if sys.argv[1:] == ["--distributed"]:
+        try:
+            distributed_main()
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (only --distributed)",
+              file=sys.stderr)
+        return 2
     t_start = time.perf_counter()
     try:
         phase_build()
@@ -3844,6 +4115,8 @@ def main():
         phase_fast_parity()
         phase_diffstep()
         phase_patch_main()
+        # the distributed layer, in a process of its own (phase 31)
+        dist = phase_distributed()
         keep7m = phase_karman7m(kell, ell_jobs)
         # device times from the profiler, last: a profiler session slows
         # later host code in the process
@@ -3962,6 +4235,14 @@ def main():
           f"the launches by path name {sorted(counter_of.values())}, not {sorted(packed)}")
     for name, counter in counter_of.items():
         paths[name]["karman_packed"] = packed[counter]
+    # the halo route of the distributed layer (phase 31c): K3 on the window
+    # routes, the ELL kernels in the replicated coarse hierarchy
+    halo = {}
+    for route, counts in dist["halo_launches"].items():
+        for name, counter in counter_of.items():
+            if counts.get(counter):
+                paths[name][route.replace(" ", "_")] = counts[counter]
+                halo[name] = halo.get(name, 0) + counts[counter]
     rows = [
         dict(name="stencil_apply_3d", route="cuda",
              source="flow_tpu_torch/csrc/stencil3d.cu",
@@ -4012,6 +4293,13 @@ def main():
              launches=einsum3["ell_window"],
              **kell[("window", "cavity3d pressure n=274625")]),
     ]
+    by_row = {"momentum_windows (lagged)": "winmom", "momentum_windows (Newton)": "winmom_newton",
+              "momentum_windows 3-D (lagged)": "winmom3d",
+              "momentum_windows 3-D (Newton)": "winmom3d_newton",
+              "ell_apply direct": "ell_direct", "ell_apply window": "ell_window"}
+    for r in rows:
+        if r["name"] in by_row:
+            r["halo_launches"] = halo.get(by_row[r["name"]], 0)
     log(f"[done] launches by path: {json.dumps(paths)}")
     # the stencils' launches by level on each path, and launches x (device
     # time - bound) a level: what the path loses to each kernel above its bound
@@ -4033,9 +4321,10 @@ def main():
         + f"; sum {sum(loss.values()):.1f}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # host_us: the host µs per call of the K1, K2, K4b and K3 rows
-    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("host_us",) if k in keys or k in r}
-                                  for r in rows]}))
+    # host_us: the host µs per call of the K1, K2, K4b and K3 rows;
+    # halo_launches: the launches of K3 and the ELL kernels on the halo route
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("host_us", "halo_launches")
+                                   if k in keys or k in r} for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -53,7 +53,10 @@ def test_port_imports_no_jax_and_turns_tf32_off():
                 "solvers.shifted_mg", "heat", "models.boussinesq", "stokes",
                 "models.boussinesq3d", "experimental.ab2tr", "fem.packed",
                 "navier_stokes.patchctx", "solvers.patch_mg",
-                "navier_stokes.diffstep"):
+                "navier_stokes.diffstep", "parallel", "parallel.comm",
+                "parallel.pc_context_shared", "parallel.packed_shard",
+                "parallel.domain", "parallel.halo", "parallel.halo_step",
+                "parallel.cases", "attic.halo_win"):
         assert f"flow_tpu_torch.{mod}" in out["modules"], mod
     assert out["foreign"] == []
     assert out["tf32"] == [False, False]
@@ -145,3 +148,24 @@ def test_chip_smoke_alone_fails(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_parallel_exports_the_jax_names_and_imports_no_jax():
+    import ast
+
+    import flow_tpu_torch.parallel as par
+
+    tree = ast.parse((ROOT / "flow_tpu" / "parallel" / "__init__.py").read_text())
+    names = [a.asname or a.name for node in tree.body if isinstance(node, ast.ImportFrom)
+             for a in node.names]
+    assert names and all(hasattr(par, n) for n in names), names
+    paths = [*(ROOT / "flow_tpu_torch" / "parallel").glob("*.py"),
+             ROOT / "flow_tpu_torch" / "attic" / "halo_win.py"]
+    assert len(paths) >= 8
+    for path in paths:
+        for node in ast.walk(ast.parse(path.read_text())):
+            mods = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                    [node.module or ""] if isinstance(node, ast.ImportFrom) and not node.level
+                    else [])
+            for m in mods:
+                assert m.split(".")[0] not in ("jax", "jaxlib", "flow_tpu"), (path, m)
