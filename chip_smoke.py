@@ -311,6 +311,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    stepper at KarmanProblem(lcar=0.0175, n_refine=6) (9,894,272 DoF):
    counts, steps/s, peak memory a rank, NCCL time of one profiled step.
    Its summary (the halo route's launches) joins the kernel report;
+32. seeding and I/O: scripts/schafer_turek.py's DFG 2D-2 seeding route.
+   (a) In float64 at lcar=0.1 (n_refine 1 -> 2), on the CPU and on the
+   card, lambda_max carried across: equal counts in both legs, U within
+   1e-9 of max|U|, the mean-removed P within 1e-7 of max|P|. (b) On the
+   card in float32: schafer_turek_problem(lcar=0.03, n_refine=3) (which
+   must equal level 3 of the n_refine=4 hierarchy, points and cells) from
+   the script's antisymmetric vortex blob (amplitude 0.4, Dirichlet rows
+   zeroed), run_karman_fast(backend="packed", lagged, BDF2, the bench's
+   tolerances, dt0 1e-4, dt_max 4e-3) 1 + 5 steps with a checkpoint;
+   load_checkpoint, prolong_vector of U and P onto n_refine=4 (its DoF
+   printed), the fine Dirichlet values re-imposed, restrict_vector giving
+   the coarse vectors back bitwise and the card's prolongation equal to the
+   CPU's bitwise, the transfer's seconds; the fine leg 1 + 5 steps from the
+   prolonged state: steps/s, peak memory, counts (held to
+   SEEDED_PACKED_ITERS), drag and lift (finite), each step through
+   MetricsLogger, one more step under profiling.trace (a trace file must
+   exist), device_memory_stats() naming the card. (c) The fine mesh through
+   save_mesh/load_mesh, write_dolfin_xml/read_dolfin_xml and a gmsh 4.1
+   binary file (written here) through read_msh (rcm=False: the same points
+   and cells; rcm=True: reorder_rcm's), seconds and bytes of each; where
+   h5py imports, XDMFFile.write of velocity and pressure and write_checkpoint
+   / read_checkpoint back to the card (bitwise), else one line saying the
+   XDMF leg did not run; run_karman(writer=) and compute_boussinesq(writer=)
+   at their CPU tests' sizes, 2 steps each, through an XDMFFile (without
+   h5py an in-memory writer). Fails on a hand-kernel launch;
 
 Then every hand kernel's launches by path (karman_packed: 0 for each), and
 K1's and K2's launches by grid on each path (path B's in float64), with
@@ -592,6 +617,31 @@ SHARDED_PACKED_ITERS = {4: {"linear_iters": [3, 2, 3, 3, 3, 3],
                             "correction_iters": [6, 6, 8, 8, 8, 8]}}
 KARMAN_10M = dict(lcar=0.0175, n_refine=6)  # BENCH_LARGE.json's "10M"
 KARMAN_10M_DOFS = 9894272
+# phase 32, the DFG 2D-2 seeding route of scripts/schafer_turek.py: a
+# coarse leg at SEEDED_LCAR and n_refine SEEDED_COARSE, its checkpoint
+# prolonged one refine_uniform level, a fine leg there; the script's dt0,
+# dt_max and perturbation amplitude, the bench's packed tolerances (the
+# driver's GMRES momentum solve, as the script runs it)
+SEEDED_LCAR = 0.03
+SEEDED_COARSE = 3  # the fine leg runs at n_refine 4
+SEEDED_STEPS = 6  # 1 warm-up + 5 timed, each leg
+SEEDED_DT0 = 1e-4
+SEEDED_DT_MAX = 4e-3
+SEEDED_AMPLITUDE = 0.4
+SEEDED_SETTINGS = dict(
+    backend="packed", convection="lagged", time_step_method="bdf2",
+    **{k: PACKED_SETTINGS[k] for k in ("newton_rtol", "linear_rtol", "pressure_rtol",
+                                       "correction_rtol", "cfl_target")})
+# the card-vs-CPU run of the route, float64: lcar=0.1 is the coarsest DFG
+# mesh with a cylinder (at 0.2 none of its cells touches it, and the
+# consistent force probe has no body dofs, in the JAX package too)
+SEEDED_PARITY = dict(lcar=0.1, n_coarse=1)
+# the fine leg's iterations a step on the card (H100 80GB HBM3, 700 W),
+# pinned from the first run of this phase: the packed route sums in a fixed
+# order, so the steps, and these counts, must not move
+SEEDED_PACKED_ITERS = {"linear_iters": [48, 22, 22, 26, 28, 28],
+                       "pressure_iters": [5, 5, 6, 6, 5, 6],
+                       "correction_iters": [8, 8, 8, 8, 8, 8]}
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -4000,6 +4050,364 @@ def phase_distributed():
 
 
 
+# -- phase 32: the DFG 2D-2 coarse-to-fine seeding route, mesh and field I/O --
+def _st_seed(prob):
+    """scripts/schafer_turek.py's initial velocity (:52-66): an antisymmetric
+    vortex blob downstream of the cylinder (SEEDED_AMPLITUDE), projected
+    onto V, its Dirichlet rows zeroed."""
+    import torch
+    from flow_tpu_torch import project
+    from flow_tpu_torch.fem.bc import combine_bcs
+
+    def u0x(x):
+        return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+
+    def u0y(x):
+        r2 = ((x[..., 0] - 0.35) ** 2 + (x[..., 1] - 0.20) ** 2) / 0.05**2
+        return SEEDED_AMPLITUDE * torch.exp(-r2)
+
+    U0 = project((u0x, u0y), prob.V).vector
+    mask, _ = combine_bcs(prob.V, prob.u_bcs)
+    return (1.0 - torch.as_tensor(mask, dtype=U0.dtype, device=U0.device)) * U0
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _seeded_route(dtype, device, lcar, n_coarse, workdir, lmax=None):
+    """scripts/schafer_turek.py's seeding route: the coarse leg (the
+    perturbed start, run_karman_fast with a checkpoint, 1 + 5 steps), the
+    transfer (load_checkpoint, prolong_vector of U and P one refine_uniform
+    level, the fine Dirichlet values re-imposed through combine_bcs, as
+    :77-115) and the fine leg from the prolonged state (:161-174). The coarse
+    mesh must equal level n_coarse of the fine problem's hierarchy. lmax:
+    {"coarse": [...], "fine": [...]} for the two pressure hierarchies."""
+    import torch
+    from flow_tpu_torch.fem.bc import combine_bcs
+    from flow_tpu_torch.fem.transfer import prolong_vector, restrict_vector
+    from flow_tpu_torch.io import load_checkpoint
+    from flow_tpu_torch.models.karman import run_karman_fast, schafer_turek_problem
+
+    lmax = lmax or {}
+    on = dict(dtype=dtype, device=device)
+    t0 = time.perf_counter()
+    fine = schafer_turek_problem(lcar=lcar, n_refine=n_coarse + 1, **on)
+    coarse = schafer_turek_problem(lcar=lcar, n_refine=n_coarse, **on)
+    setup = time.perf_counter() - t0
+    level = fine.mesh_hierarchy[n_coarse]
+    check(np.array_equal(coarse.mesh.points_np, level.points_np)
+          and np.array_equal(coarse.mesh.cells_np, level.cells_np),
+          f"seeding: schafer_turek_problem(lcar={lcar}, n_refine={n_coarse}).mesh is not "
+          f"level {n_coarse} of the n_refine={n_coarse + 1} hierarchy")
+    ckpt = os.path.join(workdir, f"coarse_{torch.device(device).type}_{lcar}.npz")
+    out_c = run_karman_fast(num_steps=SEEDED_STEPS, chunk_size=1, problem=coarse,
+                            initial_state=(_st_seed(coarse), coarse.Q.zeros()),
+                            dt0=SEEDED_DT0, dt_max=SEEDED_DT_MAX, checkpoint_path=ckpt,
+                            lmax=lmax.get("coarse"), **SEEDED_SETTINGS)
+    arrays, scalars = load_checkpoint(ckpt)
+    Us, Ps = (torch.as_tensor(arrays[k], **on) for k in ("U", "P"))
+    mask, val = (torch.as_tensor(a, **on) for a in combine_bcs(fine.V, fine.u_bcs))
+    transfer_s = []
+    for _ in range(2):  # the first call moves the edge tables to the device
+        _sync(device)
+        t0 = time.perf_counter()
+        Uf = prolong_vector(Us, coarse.V, fine.V)
+        Pf = prolong_vector(Ps, coarse.Q, fine.Q)
+        U_seed = (1.0 - mask) * Uf + mask * val  # the fine Dirichlet values
+        _sync(device)
+        transfer_s.append(time.perf_counter() - t0)
+    check(torch.equal(restrict_vector(Uf, fine.V, coarse.V), Us)
+          and torch.equal(restrict_vector(Pf, fine.Q, coarse.Q), Ps),
+          "seeding: restrict_vector(prolong_vector(x)) is not x")
+    dt0 = min(float(scalars["dt"]), SEEDED_DT_MAX)
+    if torch.device(device).type == "cuda":
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out_f = run_karman_fast(num_steps=SEEDED_STEPS, chunk_size=1, problem=fine,
+                            initial_state=(U_seed, Pf), dt0=dt0, dt_max=SEEDED_DT_MAX,
+                            lmax=lmax.get("fine"), **SEEDED_SETTINGS)
+    _sync(device)
+    fine_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base
+            if torch.device(device).type == "cuda" else None)
+    for leg, out in (("coarse", out_c), ("fine", out_f)):
+        _check_solves(out["telemetry"], f"seeding {leg} leg ({device})")
+        check(bool(torch.isfinite(out["u"]).all()) and bool(torch.isfinite(out["p"]).all()),
+              f"seeding {leg} leg ({device}): non-finite state")
+        check(np.isfinite(out["telemetry"]["forces"]).all(),
+              f"seeding {leg} leg ({device}): non-finite drag or lift")
+    return dict(coarse=coarse, fine=fine, out_c=out_c, out_f=out_f, Us=Us, Ps=Ps, Uf=Uf,
+                Pf=Pf, dt0=dt0, setup=setup, transfer_s=transfer_s, fine_s=fine_s,
+                peak=peak, ckpt=ckpt)
+
+
+SEEDED_KEYS = ("linear_iters", "pressure_iters", "correction_iters")
+
+
+def _seeded_counts(out):
+    return {k: out["telemetry"][k].tolist() for k in SEEDED_KEYS}
+
+
+def _write_msh41_binary(path, points, cells):
+    """A gmsh 4.1 binary file of a triangle mesh: one node block and one
+    triangle block on surface entity 1, 1-based tags, z = 0 (gmsh's own
+    layout; the JAX package has no .msh writer)."""
+    import struct
+
+    n, m = len(points), len(cells)
+    xyz = np.zeros((n, 3))
+    xyz[:, :2] = points
+    tags = np.arange(1, n + 1, dtype="<u8")
+    elem = np.empty((m, 4), dtype="<u8")
+    elem[:, 0] = np.arange(1, m + 1)
+    elem[:, 1:] = cells + 1
+    with open(path, "wb") as f:
+        f.write(b"$MeshFormat\n4.1 1 8\n" + struct.pack("<i", 1) + b"\n$EndMeshFormat\n")
+        f.write(b"$Nodes\n" + struct.pack("<4Q", 1, n, 1, n) + struct.pack("<3iQ", 2, 1, 0, n))
+        f.write(tags.tobytes() + xyz.astype("<f8").tobytes() + b"\n$EndNodes\n")
+        f.write(b"$Elements\n" + struct.pack("<4Q", 1, m, 1, m) + struct.pack("<3iQ", 2, 1, 2, m))
+        f.write(elem.tobytes() + b"\n$EndElements\n")
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+class _HostWriter:
+    """A writer that keeps each written Function's name, time and host
+    values: the writer routes of the drivers where h5py is absent."""
+
+    def __init__(self):
+        self.rows = []
+
+    def write(self, fn, t=0.0):
+        self.rows.append((fn.name, float(t), fn.vector.detach().cpu().numpy()))
+
+
+def _seeding_io(fine, U, P, work):
+    """The mesh and field files of the fine state (phase 32's last leg)."""
+    import torch
+    from flow_tpu_torch import Function, mesh as tmesh, reorder_rcm
+    from flow_tpu_torch.io import read_dolfin_xml, read_msh, write_dolfin_xml
+
+    mesh = fine.mesh
+    pts, cells = mesh.points_np, mesh.cells_np
+
+    def same(m, p=pts, c=cells):
+        return np.array_equal(m.points_np, p) and np.array_equal(m.cells_np, c)
+
+    def size(path):
+        return os.path.getsize(path)
+
+    f_npz = os.path.join(work, "fine_mesh.npz")
+    _, w = _timed(lambda: tmesh.save_mesh(f_npz, mesh))
+    m, r = _timed(lambda: tmesh.load_mesh(f_npz, dtype=mesh.dtype))
+    check(same(m) and m.device == mesh.device, "seeding io: load_mesh(save_mesh(mesh)) differs")
+    log(f"[seeding-io] save_mesh {w:.3f} s, load_mesh {r:.3f} s, {size(f_npz)} bytes "
+        f"({mesh.n_points} points, {mesh.n_cells} cells)")
+    f_xml = os.path.join(work, "fine_mesh.xml")
+    _, w = _timed(lambda: write_dolfin_xml(f_xml, mesh))
+    m, r = _timed(lambda: read_dolfin_xml(f_xml, dtype=mesh.dtype))
+    check(same(m) and m.device == mesh.device,
+          "seeding io: read_dolfin_xml(write_dolfin_xml(mesh)) differs")
+    log(f"[seeding-io] write_dolfin_xml {w:.3f} s, read_dolfin_xml {r:.3f} s, "
+        f"{size(f_xml)} bytes")
+    f_msh = os.path.join(work, "fine_mesh.msh")
+    _, w = _timed(lambda: _write_msh41_binary(f_msh, pts, cells))
+    m, r = _timed(lambda: read_msh(f_msh, dtype=mesh.dtype, rcm=False))
+    check(same(m) and m.device == mesh.device, "seeding io: read_msh(rcm=False) differs")
+    m_rcm, r_rcm = _timed(lambda: read_msh(f_msh, dtype=mesh.dtype))
+    p2, c2 = reorder_rcm(pts, cells)
+    check(same(m_rcm, p2, c2), "seeding io: read_msh(rcm=True) is not reorder_rcm's")
+    log(f"[seeding-io] gmsh 4.1 binary: written {w:.3f} s, read_msh rcm=False {r:.3f} s, "
+        f"rcm=True {r_rcm:.3f} s (renumbered: {not np.array_equal(p2, pts)}), "
+        f"{size(f_msh)} bytes")
+    try:
+        import h5py  # noqa: F401
+    except ImportError as e:
+        log(f"[seeding-io] XDMF leg did not run: h5py does not import on this machine "
+            f"({e}); XDMFFile needs it (the io extra)")
+        return False
+    from flow_tpu_torch.io import XDMFFile
+
+    u = Function(fine.V, U).rename("velocity")
+    p = Function(fine.Q, P).rename("pressure")
+    f_x = os.path.join(work, "fine_state.xdmf")
+    with XDMFFile(f_x) as xf:
+        _, w = _timed(lambda: (xf.write(u, 0.0), xf.write(p, 0.0)))
+        _, wc = _timed(lambda: xf.write_checkpoint(u, t=0.0))
+    log(f"[seeding-io] XDMFFile.write of velocity and pressure {w:.3f} s, write_checkpoint "
+        f"{wc:.3f} s, {size(f_x[:-5] + '.h5')} bytes of h5")
+    (back, t), r = _timed(lambda: XDMFFile(f_x).read_checkpoint(fine.V, "velocity"))
+    check(back.vector.device == U.device and torch.equal(back.vector, U),
+          "seeding io: read_checkpoint differs from the written velocity")
+    log(f"[seeding-io] read_checkpoint to the card {r:.3f} s: bitwise equal")
+    return True
+
+
+def _writer_routes(xdmf, work):
+    """run_karman(writer=) and compute_boussinesq(writer=) on the card at
+    their CPU tests' sizes in float64, 2 steps each, through an XDMFFile
+    where h5py imports (else an in-memory writer)."""
+    import torch
+    from flow_tpu_torch.models.boussinesq import compute_boussinesq
+    from flow_tpu_torch.models.karman import run_karman
+
+    def writer(name):
+        if xdmf:
+            from flow_tpu_torch.io import XDMFFile
+
+            return XDMFFile(os.path.join(work, f"{name}.xdmf"))
+        return _HostWriter()
+
+    for name, run, per_step in (
+            ("run_karman", lambda w: run_karman(num_steps=2, lcar=0.2, dtype=torch.float64,
+                                                writer=w), 2),
+            ("compute_boussinesq", lambda w: compute_boussinesq(
+                target_time=0.05, lcar=0.03, n_refine=1, backend="packed", writer=w), 3)):
+        w = writer(name)
+        _, secs = _timed(lambda: run(w))
+        if xdmf:
+            import h5py
+
+            w.close()
+            h5_path = os.path.join(work, f"{name}.h5")
+            with h5py.File(h5_path, "r") as h5:
+                n = sum(len(h5[g]) for g in h5 if g != "mesh")
+            nbytes = os.path.getsize(h5_path)
+        else:
+            n, nbytes = len(w.rows), sum(a.nbytes for *_, a in w.rows)
+            check(all(np.isfinite(a).all() for *_, a in w.rows),
+                  f"writer routes: {name} wrote a non-finite field")
+        log(f"[seeding-io] {name}(writer={type(w).__name__}): {n} fields written in 2 "
+            f"steps, {nbytes} bytes, {secs:.2f} s")
+        check(n == 2 * per_step, f"writer routes: {name} wrote {n} fields in 2 steps, "
+              f"not {2 * per_step}")
+
+
+def phase_seeding_io():
+    """Phase 32: scripts/schafer_turek.py's seeding route and the I/O of
+    its fine state."""
+    import tempfile
+
+    import torch
+    from flow_tpu_torch.fem.transfer import prolong_vector
+    from flow_tpu_torch.utils import MetricsLogger, device_memory_stats, profiling
+
+    hand = _hand_kernels()
+    for k in hand.values():
+        k.launches = 0
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seeding_") as work:
+        # (a) the route in float64 on the CPU and on the card, lambda_max
+        # carried across
+        runs, lmax = {}, None
+        for device in ("cpu", "cuda"):
+            r = _seeded_route(torch.float64, device, SEEDED_PARITY["lcar"],
+                              SEEDED_PARITY["n_coarse"], work, lmax=lmax)
+            if lmax is None:
+                lmax = {leg: [L.lmax for L in r[f"out_{leg[0]}"]["stepper"].hierarchy.levels]
+                        for leg in ("coarse", "fine")}
+            runs[device] = r
+        for leg in ("out_c", "out_f"):
+            a, b = (_seeded_counts(runs[d][leg]) for d in ("cuda", "cpu"))
+            log(f"[seeding-parity] {leg[-1]} leg counts: cuda={a} cpu={b}")
+            check(a == b, f"seeding parity: the {leg} counts differ (cuda {a}, cpu {b})")
+            U_c, P_c = runs["cpu"][leg]["u"], runs["cpu"][leg]["p"]
+            U_g, P_g = (runs["cuda"][leg][k].cpu() for k in ("u", "p"))
+            du = float((U_g - U_c).abs().max())
+            dp = P_g - P_c
+            dp = float((dp - dp.mean()).abs().max())
+            umax, pmax = float(U_c.abs().max()), float(P_c.abs().max())
+            log(f"[seeding-parity] {leg[-1]} leg max|dU|={du:.3e} (max|U| {umax:.3e}) "
+                f"max|dP - mean|={dp:.3e} (max|P| {pmax:.3e})")
+            check(du <= 1e-9 * umax and dp <= 1e-7 * pmax,
+                  f"seeding parity: the {leg} states differ (dU {du}, dP {dp})")
+        del runs
+        # (b) the route at the campaign's width, float32 on the card
+        r = _seeded_route(torch.float32, "cuda", SEEDED_LCAR, SEEDED_COARSE, work)
+        coarse, fine, out_f = r["coarse"], r["fine"], r["out_f"]
+        log(f"[seeding] coarse: schafer_turek_problem(lcar={SEEDED_LCAR}, "
+            f"n_refine={SEEDED_COARSE}) {coarse.n_dofs} DoF, equal (points and cells) "
+            f"to level {SEEDED_COARSE} of the n_refine={SEEDED_COARSE + 1} hierarchy, "
+            f"so the coarse leg ran on it; fine: {fine.n_dofs} DoF; both problems "
+            f"built in {r['setup']:.1f} s")
+        log(f"[seeding] coarse leg counts {_seeded_counts(r['out_c'])}, dt "
+            f"{r['out_c']['telemetry']['dt'].tolist()}")
+        cpu_U = prolong_vector(r["Us"].cpu(), coarse.V, fine.V)
+        cpu_P = prolong_vector(r["Ps"].cpu(), coarse.Q, fine.Q)
+        check(torch.equal(r["Uf"].cpu(), cpu_U) and torch.equal(r["Pf"].cpu(), cpu_P),
+              "seeding: the card's prolongation differs from the CPU's")
+        log(f"[seeding] transfer (prolong_vector of U [{r['Us'].shape[0]}, 2] and P, the "
+            f"fine Dirichlet values re-imposed): {r['transfer_s'][0]:.4f} s on the card "
+            f"with the edge tables' move to it, {r['transfer_s'][1]:.4f} s again; "
+            f"restrict_vector gives the coarse vectors back bitwise; the card's "
+            f"prolongation equals the CPU's bitwise; dt0 {r['dt0']:.6g}")
+        tel, secs = out_f["telemetry"], out_f["chunk_seconds"]
+        steps_s = (SEEDED_STEPS - 1) / sum(secs[1:])
+        counts = _seeded_counts(out_f)
+        log(f"[seeding] fine leg run_karman_fast(backend=packed, lagged, bdf2) "
+            f"{fine.n_dofs} DoF float32: steps/s={steps_s:.4f} (after 1 warm-up step of "
+            f"{secs[0]:.3f} s; stepper setup {r['fine_s'] - sum(secs):.1f} s), peak "
+            f"{r['peak'] / 1e9:.3f} GB above the allocated before the leg")
+        for k in SEEDED_KEYS + ("dt",):
+            log(f"[seeding] fine {k}: {tel[k].tolist()}")
+        log(f"[seeding] fine drag: {tel['forces'][:, 0].tolist()}")
+        log(f"[seeding] fine lift: {tel['forces'][:, 1].tolist()}")
+        if SEEDED_PACKED_ITERS is not None:
+            check(counts == SEEDED_PACKED_ITERS,
+                  f"seeding: fine counts {counts}, not SEEDED_PACKED_ITERS "
+                  f"{SEEDED_PACKED_ITERS}")
+        f_log = os.path.join(work, "fine_leg.jsonl")
+        with MetricsLogger(f_log) as ml:
+            for i in range(SEEDED_STEPS):
+                ml.log(step=i, dt=float(tel["dt"][i]), seconds=float(secs[i]),
+                       drag=float(tel["forces"][i, 0]), lift=float(tel["forces"][i, 1]),
+                       **{k: int(tel[k][i]) for k in SEEDED_KEYS})
+        summary = ml.summary()
+        check(summary["linear_iters"]["n"] == SEEDED_STEPS
+              and len(open(f_log).read().splitlines()) == SEEDED_STEPS,
+              "seeding: the MetricsLogger lost a step")
+        log(f"[seeding] MetricsLogger summary: " + json.dumps(
+            {k: summary[k] for k in ("seconds",) + SEEDED_KEYS}))
+        st = out_f["stepper"]
+        Up, Pp = st.to_packed_state(out_f["u"], out_f["p"])
+        trace_dir = os.path.join(work, "trace")
+        with profiling.Timer("traced step", sync=True) as timer:
+            with profiling.trace(trace_dir):
+                st.run(Up, Pp, out_f["dt"], 1, dt_max=SEEDED_DT_MAX)
+        files = [os.path.join(d, f) for d, _, fs in os.walk(trace_dir) for f in fs]
+        check(files and all(os.path.getsize(f) > 0 for f in files),
+              "seeding: profiling.trace wrote no trace file")
+        log(f"[seeding] profiling.trace of one fine step: {timer.elapsed:.3f} s, "
+            f"{len(files)} file(s), {sum(os.path.getsize(f) for f in files)} bytes")
+        stats = device_memory_stats()
+        key = f"cuda:{torch.cuda.current_device()}"
+        check(key in stats and stats[key]["allocated_bytes.all.current"]
+              == torch.cuda.memory_allocated(),
+              f"seeding: device_memory_stats() does not name {key}: {sorted(stats)}")
+        log(f"[seeding] device_memory_stats(): {sorted(stats)}, {key} "
+            f"({torch.cuda.get_device_name()}) allocated "
+            f"{stats[key]['allocated_bytes.all.current']} bytes, peak "
+            f"{stats[key]['allocated_bytes.all.peak']}")
+        # (c) the fine state's files
+        xdmf = _seeding_io(fine, out_f["u"], out_f["p"], work)
+        _writer_routes(xdmf, work)
+        del r, out_f, st, Up, Pp
+    launches = {name: k.launches for name, k in hand.items()}
+    check(not any(launches.values()), f"seeding: a hand kernel was launched: {launches}")
+    log(f"[seeding] phase 32 in {time.perf_counter() - t_phase:.1f} s; no hand-kernel "
+        f"launch")
+    torch.cuda.empty_cache()
+
+
 def main():
     # a workspace setting under which cuBLAS is deterministic, for the
     # references run under deterministic() (read when cuBLAS starts)
@@ -4118,6 +4526,10 @@ def main():
         # the distributed layer, in a process of its own (phase 31)
         dist = phase_distributed()
         keep7m = phase_karman7m(kell, ell_jobs)
+        # the DFG 2D-2 seeding route and the I/O of its fine state (phase
+        # 32; no hand kernel), before the profiler phases: its one traced
+        # step comes last in it
+        phase_seeding_io()
         # device times from the profiler, last: a profiler session slows
         # later host code in the process
         _profile_fast_steps(keep7m)

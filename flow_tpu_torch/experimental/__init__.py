@@ -1,0 +1,1 @@
+from . import ab2tr  # noqa: F401

@@ -72,7 +72,7 @@ from .gathersum import member_table
 from .spaces import FunctionSpace
 
 __all__ = ["ELLMatrix", "WindowTables", "ell_from_local", "ell_stiffness",
-           "ELLGraph", "FacetMassELL", "momentum_const_ell",
+           "ell_scaled_ZtMZ", "ELLGraph", "FacetMassELL", "momentum_const_ell",
            "momentum_bnd_stress_ell_vals",
            "ell_apply_plain", "ell_apply_window_plain", "ell_window_tables",
            "ELL_DIRECT", "ELL_WINDOW", "WINDOW_ROWS", "WINDOW_GAP",
@@ -364,6 +364,13 @@ def ell_stiffness(space: FunctionSpace, geom, coeff=None, dtype=None, device=Non
         space, assembly.stiffness_local(space, geom, coeff=coeff), dtype=dtype,
         device=device,
     )
+
+
+def ell_scaled_ZtMZ(space: FunctionSpace, loc, dtype=None, device=None):
+    """Generic: assemble any precomputed element matrices (e.g. multigrid
+    Galerkin level operators) into ELL; ell_from_local under the JAX
+    package's name."""
+    return ell_from_local(space, loc, dtype=dtype, device=device)
 
 
 class ELLGraph:

@@ -124,6 +124,10 @@ class FunctionSpace:
     def sub(self, component):
         return SubSpace(self, component)
 
+    @property
+    def value_shape(self):
+        return () if self.n_components == 1 else (self.n_components,)
+
     def __repr__(self):
         kind = "P%d" % self.degree
         if self.n_components > 1:
@@ -158,6 +162,12 @@ class Function:
     def copy(self):
         return Function(self.space, self.vector)
 
+    def assign(self, other):
+        """Take the values of another Function or a dof vector (dolfin's
+        u0.assign(u1)): rebinds the vector, copying nothing."""
+        self.vector = other.vector if isinstance(other, Function) else other
+        return self
+
     def rename(self, name, _label=None):
         self._name = name
         return self
@@ -165,6 +175,14 @@ class Function:
     @property
     def name(self):
         return self._name
+
+    def split(self):
+        """The component Functions of a vector Function, on a scalar space
+        of the same mesh and degree (column views of the vector)."""
+        assert self.space.n_components > 1
+        scalar = FunctionSpace(self.space.mesh, self.space.degree)
+        return tuple(Function(scalar, self.vector[:, c])
+                     for c in range(self.space.n_components))
 
     def __repr__(self):
         return f"Function({self.space!r})"

@@ -1,12 +1,12 @@
-# Material properties. Port of flow_tpu/materials.py, cut to what the
-# Karman and Boussinesq models read: liquid water's density, viscosity,
-# heat capacity and conductivity from standard correlations, host numpy.
-# Temperatures in Kelvin, SI units throughout.
+# Material properties. Port of flow_tpu/materials.py: the density,
+# viscosity, heat capacity and conductivity of liquid water and dry air
+# from standard correlations, host numpy. Temperatures in Kelvin, SI units
+# throughout.
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["water"]
+__all__ = ["water", "air"]
 
 
 class _Water:
@@ -47,3 +47,31 @@ class _Water:
 
 water = _Water()
 
+
+
+class _Air:
+    """Dry air at atmospheric pressure, 250 K .. 400 K."""
+
+    @staticmethod
+    def density(T):
+        """kg/m^3 - ideal gas at 101325 Pa."""
+        return 101325.0 / (287.058 * np.asarray(T))
+
+    @staticmethod
+    def dynamic_viscosity(T):
+        """Pa s - Sutherland's law."""
+        T = np.asarray(T)
+        return 1.716e-5 * (T / 273.15) ** 1.5 * (273.15 + 110.4) / (T + 110.4)
+
+    @staticmethod
+    def specific_heat_capacity(T):
+        return 1006.0 + 0.0 * np.asarray(T)
+
+    @staticmethod
+    def thermal_conductivity(T):
+        """W/(m K) - Sutherland-type correlation."""
+        T = np.asarray(T)
+        return 2.624e-2 * (T / 300.0) ** 1.5 * (300.0 + 245.4) / (T + 245.4)
+
+
+air = _Air()

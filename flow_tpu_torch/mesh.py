@@ -20,7 +20,7 @@ from . import native
 from .mesh3d import _device
 
 __all__ = ["Mesh", "refine_uniform", "reorder_rcm", "rectangle_with_hole_mesh",
-           "rectangle_mesh", "unit_square_mesh"]
+           "rectangle_mesh", "unit_square_mesh", "save_mesh", "load_mesh"]
 
 
 class Mesh:
@@ -100,6 +100,14 @@ class Mesh:
     @property
     def n_edges(self):
         return self.edges_np.shape[0]
+
+    def cell_volumes(self):
+        """Signed cell areas [n_cells] (host numpy; positive, cells are CCW)."""
+        p = self.points_np
+        c = self.cells_np
+        d0 = p[c[:, 1]] - p[c[:, 0]]
+        d1 = p[c[:, 2]] - p[c[:, 0]]
+        return 0.5 * (d0[:, 0] * d1[:, 1] - d0[:, 1] * d1[:, 0])
 
     def __repr__(self):
         return (
@@ -299,3 +307,23 @@ def rectangle_with_hole_mesh(
     if rcm:
         pk, cells = reorder_rcm(pk, cells)
     return Mesh(pk, cells, dtype=dtype, device=device)
+
+
+def save_mesh(path, mesh):
+    """Cache a Mesh or TetMesh to .npz (points, cells, dim), the JAX
+    package's format: either package loads the other's file."""
+    np.savez(path, points=mesh.points_np, cells=mesh.cells_np,
+             dim=np.asarray(getattr(mesh, "dim", 2)))
+
+
+def load_mesh(path, dtype=None, device=None):
+    """Load a mesh cached by save_mesh: a Mesh, or a TetMesh where dim is
+    3. `dtype` and `device` as for the mesh constructors (device None: the
+    card)."""
+    with np.load(path) as data:
+        points, cells, dim = data["points"], data["cells"], int(data["dim"])
+    if dim == 3:
+        from .mesh3d import TetMesh
+
+        return TetMesh(points, cells, dtype=dtype, device=device)
+    return Mesh(points, cells, dtype=dtype, device=device)

@@ -134,6 +134,14 @@ class TetMesh:
     def n_edges(self):
         return self.edges_np.shape[0]
 
+    def cell_volumes(self):
+        """Signed cell volumes [n_cells] (host numpy; positive, cells are
+        oriented)."""
+        p = self.points_np
+        c = self.cells_np
+        d = p[c[:, 1:]] - p[c[:, 0]][:, None, :]
+        return np.linalg.det(d) / 6.0
+
     def __repr__(self):
         return (
             f"TetMesh(n_points={self.n_points}, n_cells={self.n_cells}, "

@@ -221,14 +221,10 @@ def run_karman(
     """The host-stepped driver: the Stokes bootstrap, then Rotational steps
     (Newton, tol 1e-10) with the smooth CFL-style dt controller. `device`
     and `dtype` are the problem's (defaults: the card, torch's default
-    dtype). Returns a dict with the problem, the final u and p Functions
-    and the time series (t, dt, forces as (F_x, F_y) rows where
-    collect_forces)."""
-    if writer is not None:
-        raise NotImplementedError(
-            "run_karman: writer= needs io/xdmf.py, not ported (ROADMAP queue 1 "
-            "item 6)"
-        )
+    dtype). `writer` (e.g. an io.XDMFFile) gets the velocity and the
+    pressure of every step through writer.write(fn, t). Returns a dict
+    with the problem, the final u and p Functions and the time series (t,
+    dt, forces as (F_x, F_y) rows where collect_forces)."""
     problem = KarmanProblem(lcar=lcar, n_refine=n_refine, mu=mu, dtype=dtype,
                             device=device)
     if verbose:
@@ -253,6 +249,9 @@ def run_karman(
             forces.append(problem.forces(u0.vector, p0.vector))
         times.append(t)
         dts.append(dt)
+        if writer is not None:
+            writer.write(u0.rename("velocity"), t)
+            writer.write(p0.rename("pressure"), t)
 
         # smooth CFL-style step-size adaptation
         unorm = float(torch.max(torch.sqrt(torch.sum(u0.vector**2, dim=1))))

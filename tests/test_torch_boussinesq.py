@@ -11,7 +11,9 @@
 # against the JAX package's packed route, same counts, u within 1e-12,
 # p within 1e-10 of max|p|); the einsum route (backend=None) without
 # refinement to the same time, equal Newton, pressure and correction
-# iterations, u and theta within 1e-8. The goldens of
+# iterations, u and theta within 1e-8. Each package's packed run writes its
+# steps through its XDMFFile: the same XML text, the same datasets, values
+# within 1e-8 of their largest entries. The goldens of
 # tests/test_boussinesq.py (lcar = 0.01, t = 1.0, 1e-6 relative) are
 # slow-marked, as the JAX package's are.
 import numpy as np
@@ -35,9 +37,16 @@ PACKED_KEYS = ("newton_iters", "linear_iters", "pressure_iters", "correction_ite
 
 
 @pytest.fixture(scope="module")
-def packed_runs():
+def packed_runs(tmp_path_factory):
     """The JAX driver's packed run with its packed steps recorded (inputs,
-    outputs and StepStats), and the port's with its telemetry."""
+    outputs and StepStats), and the port's with its telemetry; each writes
+    its steps to <dir>/jax/b.xdmf and <dir>/port/b.xdmf."""
+    from flow_tpu.io import XDMFFile as JaxXDMFFile
+    from flow_tpu_torch.io import XDMFFile
+
+    out_dir = tmp_path_factory.mktemp("boussinesq")
+    (out_dir / "jax").mkdir()
+    (out_dir / "port").mkdir()
     steps, stats = [], []
     mp = pytest.MonkeyPatch()
     orig_try, orig_api = jpa.try_packed_step, jpf.PackedPatchStepper.step_api
@@ -60,17 +69,19 @@ def packed_runs():
     mp.setattr(jpa, "try_packed_step", try_packed_step)
     mp.setattr(jpf.PackedPatchStepper, "step_api", step_api)
     try:
-        ju, _, jt = jax_boussinesq(backend="packed", n_refine=1, **KW)
+        with JaxXDMFFile(str(out_dir / "jax" / "b.xdmf")) as jxf:
+            ju, _, jt = jax_boussinesq(backend="packed", n_refine=1, writer=jxf, **KW)
     finally:
         mp.undo()
     tel = []
-    tu, _, tt = compute_boussinesq(backend="packed", n_refine=1, device="cpu",
-                                   telemetry=tel, **KW)
-    return (ju, jt, steps, stats), (tu, tt, tel)
+    with XDMFFile(str(out_dir / "port" / "b.xdmf")) as txf:
+        tu, _, tt = compute_boussinesq(backend="packed", n_refine=1, device="cpu",
+                                       telemetry=tel, writer=txf, **KW)
+    return (ju, jt, steps, stats), (tu, tt, tel), out_dir
 
 
 def test_packed_driver_matches_jax(packed_runs):
-    (ju, jt, _, jstats), (tu, tt, tel) = packed_runs
+    (ju, jt, _, jstats), (tu, tt, tel), _ = packed_runs
     assert [tuple(r[k] for k in PACKED_KEYS) for r in tel] == jstats
     assert [r["heat_solver"] for r in tel] == ["dense"] * len(tel)
     assert len({r["step"] for r in tel}) == 5 and len(tel) == 6
@@ -82,7 +93,7 @@ def test_packed_driver_matches_jax(packed_runs):
 
 
 def test_packed_scheme_matches_jax_packed_route(packed_runs):
-    (_, _, steps, jstats), _ = packed_runs
+    (_, _, steps, jstats), _, _ = packed_runs
     mesh = flow_tpu_torch.rectangle_with_hole_mesh(
         0.0, 0.1, 0.0, 0.2, cx=0.05, cy=0.05, r=0.02, lcar=KW["lcar"],
         dtype=torch.float64, device="cpu")
@@ -104,6 +115,34 @@ def test_packed_scheme_matches_jax_packed_route(packed_runs):
                                    atol=1e-10 * np.abs(rec["p1"]).max())
         moved += counts[1] > 0
     assert moved >= 3
+
+
+def test_packed_driver_writes_the_jax_series(packed_runs):
+    import h5py
+
+    _, (tu, tt, tel), out_dir = packed_runs
+    text = (out_dir / "port" / "b.xdmf").read_text()
+    assert text == (out_dir / "jax" / "b.xdmf").read_text()
+    n_steps = len({r["step"] for r in tel})
+    with h5py.File(out_dir / "jax" / "b.h5") as jh, h5py.File(out_dir / "port" / "b.h5") as th:
+        names = []
+        jh.visit(names.append)
+        other = []
+        th.visit(other.append)
+        assert sorted(names) == sorted(other)
+        data = [k for k in names if isinstance(jh[k], h5py.Dataset) and "/" in k
+                and not k.startswith("mesh/")]
+        assert len(data) == 3 * n_steps  # temperature, velocity, pressure a step
+        np.testing.assert_array_equal(th["mesh/cells"][...], jh["mesh/cells"][...])
+        for k in data:
+            a, b = th[k][...], jh[k][...]
+            assert a.shape == b.shape, k
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-8 * max(np.abs(b).max(), 1e-300),
+                                       err_msg=k)
+        last_theta = max((k for k in data if int(k.split("/")[1]) % 3 == 0),
+                         key=lambda k: int(k.split("/")[1]))
+        npts = th["mesh/points"].shape[0]
+        np.testing.assert_array_equal(th[last_theta][...], tt.vector.numpy()[:npts])
 
 
 def test_einsum_driver_matches_jax(monkeypatch):

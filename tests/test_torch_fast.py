@@ -13,6 +13,9 @@
 # 7.2e-6). P is ~670 here (it scales with rho/dt at dt = 1e-4), so the
 # 1e-4 absolute bound of tests/test_winmom.py, set for a pressure of order
 # 10, is stated relative to max|P|.
+import ast
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -95,18 +98,31 @@ def test_state_round_trip_through_interop():
 
 
 @pytest.mark.parametrize("route, item", [
-    # every FastStepper route is ported (tests/test_torch_fast_einsum.py,
-    # test_torch_fast_packed.py, test_torch_fast_patch.py,
-    # test_torch_fast_ell.py); the host driver's output writer is not
-    (dict(driver=True, writer=object()), 6),
+    # the last route this test held unported, the host driver's output
+    # writer, now runs: the test holds it, and that no NotImplementedError
+    # of the port names a ROADMAP item any more
+    (dict(driver=True), 6),
 ], ids=["driver-stokes"])
-def test_unported_routes_raise(route, item):
-    # each route raises NotImplementedError naming its ROADMAP item
-    route = dict(route)
-    match = f"ROADMAP queue 1 item {item}\\b"
-    assert route.pop("driver")
-    # the Stokes-bootstrapped host driver's output writer (io/xdmf.py)
+def test_unported_routes_raise(route, item, tmp_path):
+    import h5py
+
+    from flow_tpu_torch.io import XDMFFile
     from flow_tpu_torch.models.karman import run_karman
 
-    with pytest.raises(NotImplementedError, match=match):
-        run_karman(num_steps=1, lcar=0.2, device="cpu", **route)
+    assert dict(route).pop("driver")
+    path = tmp_path / "karman.xdmf"
+    with XDMFFile(str(path)) as xf:
+        out = run_karman(num_steps=1, lcar=0.2, device="cpu", dtype=torch.float64,
+                         writer=xf)
+    npts = out["problem"].mesh.n_points
+    with h5py.File(tmp_path / "karman.h5") as h5:
+        np.testing.assert_array_equal(h5["velocity/0"][...][:, :2],
+                                      out["u"].vector.numpy()[:npts])
+        np.testing.assert_array_equal(h5["pressure/1"][...], out["p"].vector.numpy())
+    assert f'<Time Value="{out["t"][0]}"/>' in path.read_text()
+    port = Path(__file__).resolve().parents[1] / "flow_tpu_torch"
+    for src in port.rglob("*.py"):
+        for node in ast.walk(ast.parse(src.read_text())):
+            if (isinstance(node, ast.Raise) and isinstance(node.exc, ast.Call)
+                    and getattr(node.exc.func, "id", None) == "NotImplementedError"):
+                assert "ROADMAP" not in ast.unparse(node.exc), (src, node.lineno, item)

@@ -8,6 +8,7 @@
 # shifted hierarchy (1e-12), the parabolic steppers, projection and the
 # norms, the message scopes and the adaptive time controller. Inputs are
 # made from numpy with a seed.
+import importlib
 import logging
 
 import numpy as np
@@ -34,13 +35,16 @@ from flow_tpu_torch import heat as theat
 from flow_tpu_torch import interop, message
 from flow_tpu_torch import parabolic as tpar
 from flow_tpu_torch import stabilization as tstab
-from flow_tpu_torch.fem import interpolate as tinterp
 from flow_tpu_torch.fem.bc import DirichletBC as TBC
 from flow_tpu_torch.fem.spaces import FunctionSpace as TFS
 from flow_tpu_torch.mesh import refine_uniform as trefine
 from flow_tpu_torch.mesh import unit_square_mesh as tsquare
 from flow_tpu_torch.mesh3d import box_mesh as tbox
 from flow_tpu_torch.utils.timestep import AdaptiveTimeController, step_with_retry
+
+# the module: flow_tpu_torch.fem binds the name `interpolate` to the
+# function, as flow_tpu.fem does
+tinterp = importlib.import_module("flow_tpu_torch.fem.interpolate")
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")

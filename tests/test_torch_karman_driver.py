@@ -24,7 +24,8 @@
 #   n_refine=2 (within 1e-9) and at lcar=0.2, where both raise after the
 #   same count (the recurrence stops with the true residual above the
 #   target); run_karman (2 Rotational steps from the bootstrap: t, dt,
-#   forces and state against JAX's) and run_karman_fast(from_rest=False)
+#   forces and state against JAX's, and the velocity and pressure series
+#   each driver writes through its XDMFFile within 1e-10) and run_karman_fast(from_rest=False)
 #   on both backends, 2 steps, equal counts, the state within 1e-8 and the
 #   forces within 3e-8 of their largest entries (measured 1.1e-8 on the
 #   packed route).
@@ -387,10 +388,22 @@ def test_stokes_bootstrap_matches_jax(path, mesh, monkeypatch):
     np.testing.assert_allclose(tpp.vector.numpy(), Pj, rtol=0, atol=tol * np.abs(Pj).max())
 
 
-def test_run_karman_matches_jax():
-    jout = jax_karman.run_karman(num_steps=2, lcar=0.2, collect_forces=True)
-    tout = karman.run_karman(num_steps=2, lcar=0.2, collect_forces=True, device="cpu",
-                             dtype=torch.float64)
+def test_run_karman_matches_jax(tmp_path):
+    # each driver writes its steps through its package's XDMFFile; the two
+    # written series agree to 1e-10 and sit on identical XML
+    import h5py
+
+    from flow_tpu.io import XDMFFile as JaxXDMFFile
+    from flow_tpu_torch.io import XDMFFile
+
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "port").mkdir()
+    with JaxXDMFFile(str(tmp_path / "jax" / "karman.xdmf")) as jxf:
+        jout = jax_karman.run_karman(num_steps=2, lcar=0.2, collect_forces=True,
+                                     writer=jxf)
+    with XDMFFile(str(tmp_path / "port" / "karman.xdmf")) as txf:
+        tout = karman.run_karman(num_steps=2, lcar=0.2, collect_forces=True, device="cpu",
+                                 dtype=torch.float64, writer=txf)
     np.testing.assert_allclose(tout["t"], jout["t"], rtol=1e-12)
     np.testing.assert_allclose(tout["dt"], jout["dt"], rtol=1e-12)
     Uj, Pj = np.asarray(jout["u"].vector), np.asarray(jout["p"].vector)
@@ -401,8 +414,22 @@ def test_run_karman_matches_jax():
     F = np.asarray(jout["forces"])
     assert tout["forces"].shape == F.shape == (2, 2)
     np.testing.assert_allclose(tout["forces"], F, rtol=0, atol=1e-9 * np.abs(F).max())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6\\b"):
-        karman.run_karman(num_steps=1, lcar=0.2, writer=object(), device="cpu")
+    assert ((tmp_path / "port" / "karman.xdmf").read_text()
+            == (tmp_path / "jax" / "karman.xdmf").read_text())
+    npts = tout["problem"].mesh.n_points
+    with h5py.File(tmp_path / "jax" / "karman.h5") as jh, \
+            h5py.File(tmp_path / "port" / "karman.h5") as th:
+        assert sorted(th["velocity"]) == sorted(jh["velocity"]) == ["0", "2"]
+        assert sorted(th["pressure"]) == sorted(jh["pressure"]) == ["1", "3"]
+        np.testing.assert_array_equal(th["mesh/cells"][...], jh["mesh/cells"][...])
+        for name, k in (("velocity", "0"), ("pressure", "1"), ("velocity", "2"),
+                        ("pressure", "3")):
+            Wj, Wt = jh[f"{name}/{k}"][...], th[f"{name}/{k}"][...]
+            assert Wt.shape == Wj.shape == ((npts, 3) if name == "velocity" else (npts,))
+            np.testing.assert_allclose(Wt, Wj, rtol=0, atol=1e-10 * np.abs(Wj).max())
+        np.testing.assert_array_equal(th["velocity/2"][...][:, :2],
+                                      tout["u"].vector.numpy()[:npts])
+        np.testing.assert_array_equal(th["pressure/3"][...], tout["p"].vector.numpy())
 
 
 @pytest.mark.parametrize("route", [

@@ -25,6 +25,7 @@ print(json.dumps({
     "modules": mods,
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flow_tpu")),
+    "optional": sorted(m for m in ("h5py", "matplotlib") if m in sys.modules),
     "tf32": [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32],
 }))
 """
@@ -56,9 +57,13 @@ def test_port_imports_no_jax_and_turns_tf32_off():
                 "navier_stokes.diffstep", "parallel", "parallel.comm",
                 "parallel.pc_context_shared", "parallel.packed_shard",
                 "parallel.domain", "parallel.halo", "parallel.halo_step",
-                "parallel.cases", "attic.halo_win"):
+                "parallel.cases", "attic.halo_win", "fem.transfer", "io.xdmf",
+                "io.msh", "io.dolfin_xml", "io.checkpoint", "utils.metrics",
+                "utils.profiling", "utils.expression", "utils.plotting"):
         assert f"flow_tpu_torch.{mod}" in out["modules"], mod
     assert out["foreign"] == []
+    # the io and plot extras load where a file is opened or a plot drawn
+    assert out["optional"] == []
     assert out["tf32"] == [False, False]
 
 
@@ -76,17 +81,17 @@ def test_public_surface_and_unported_names():
         assert hasattr(flow_tpu_torch, name), name
     for name in ("Chorin", "IPCS", "Rotational", "FastStepper", "DiffStepper"):
         assert hasattr(flow_tpu_torch.navier_stokes, name), name
-    # the slice that stood here unported now runs; what is left of it
-    # raises NotImplementedError naming its ROADMAP item
+    # every slice of the JAX package now runs: run_karman's writer too
+    # (tests/test_torch_fast.py::test_unported_routes_raise holds it)
+    import inspect
+
     from flow_tpu_torch.models.karman import run_karman
     from flow_tpu_torch.solvers import krylov
 
     assert callable(stokes.solve) and callable(boussinesq3d.compute_boussinesq_3d)
     assert callable(ab2tr.AB2TR) and stokes.DENSE_THRESHOLD == 20000
+    assert "NotImplementedError" not in inspect.getsource(run_karman)
     b = torch.ones(3, dtype=torch.float64)
-    with pytest.raises(NotImplementedError,
-                       match="io/xdmf.py, not ported \\(ROADMAP queue 1 item 6\\)"):
-        run_karman(1, lcar=0.2, writer=object(), device="cpu")
     # GMRES's reduced-precision basis (ROADMAP queue 1 item 5) now runs
     x, info = krylov.gmres(lambda x: x, b, basis_dtype=torch.float32)
     assert bool(info.converged) and torch.allclose(x, b)
@@ -169,3 +174,69 @@ def test_parallel_exports_the_jax_names_and_imports_no_jax():
                     else [])
             for m in mods:
                 assert m.split(".")[0] not in ("jax", "jaxlib", "flow_tpu"), (path, m)
+
+
+def _imported_names(path):
+    """The names a package __init__ binds by its `from ... import` lines."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+    return [a.asname or a.name for node in tree.body if isinstance(node, ast.ImportFrom)
+            for a in node.names]
+
+
+@pytest.mark.parametrize("package", ["", "io", "utils", "fem"])
+def test_exports_the_jax_names(package):
+    # every name the JAX package's __init__ binds, but the one config that
+    # nothing reads (utils.config.BenchmarkConfig)
+    import importlib
+
+    import flow_tpu_torch
+
+    jax_init = ROOT / "flow_tpu" / package / "__init__.py"
+    port = importlib.import_module("flow_tpu_torch" + (f".{package}" if package else ""))
+    names = [n for n in _imported_names(jax_init) if n != "BenchmarkConfig"]
+    assert len(names) >= 4
+    missing = [n for n in names if not hasattr(port, n)]
+    assert missing == [], missing
+    if not package:
+        assert flow_tpu_torch.__version__ == "0.1.0"
+        for n in ("io", "utils", "native", "mesh3d", "experimental", "read_msh", "TetMesh",
+                  "box_mesh", "refine_uniform_tet"):
+            assert n in flow_tpu_torch.__all__, n
+    # modules where the JAX name is a module are modules in the port too
+    for n in names:
+        jax_side = (ROOT / "flow_tpu" / package / f"{n}.py").is_file()
+        port_side = (ROOT / "flow_tpu_torch" / package / f"{n}.py").is_file()
+        assert jax_side <= port_side, n
+
+
+@pytest.mark.parametrize("module", ["materials", "mesh", "mesh3d", "fem.spaces", "fem.ell",
+                                    "fem.transfer", "io.msh", "io.xdmf", "io.dolfin_xml",
+                                    "utils.metrics", "utils.profiling", "utils.expression",
+                                    "utils.plotting", "utils.timestep"])
+def test_module_all_covers_the_jax_all(module):
+    import ast
+    import importlib
+
+    tree = ast.parse((ROOT / "flow_tpu" / (module.replace(".", "/") + ".py")).read_text())
+    jax_all = next(ast.literal_eval(node.value) for node in tree.body
+                   if isinstance(node, ast.Assign)
+                   and getattr(node.targets[0], "id", None) == "__all__")
+    port = importlib.import_module(f"flow_tpu_torch.{module}")
+    assert set(jax_all) <= set(port.__all__), set(jax_all) - set(port.__all__)
+    assert all(hasattr(port, n) for n in port.__all__)
+
+
+def test_every_jax_module_has_a_counterpart():
+    # a module of the JAX package is ported at its relative path, or its
+    # counterpart is named here, or it is a TPU workaround that ROADMAP's
+    # "Not ported" list drops
+    renamed = {"ops/pallas_stencil.py": "ops/stencil.py"}
+    not_ported = {"utils/hoist.py", "utils/hostsetup.py", "utils/winguard.py"}
+    for path in sorted((ROOT / "flow_tpu").rglob("*.py")):
+        rel = path.relative_to(ROOT / "flow_tpu").as_posix()
+        if rel in not_ported:
+            assert rel in (ROOT / "ROADMAP.md").read_text(), rel
+            continue
+        assert (ROOT / "flow_tpu_torch" / renamed.get(rel, rel)).is_file(), rel
