@@ -46,6 +46,7 @@ from .forms import ref_p1_integrals
 from .gathersum import member_table
 from .patch import PatchGeom, PatchInfo
 from .spaces import FunctionSpace
+from ..message import spanned
 from ..mesh3d import _device
 
 __all__ = [
@@ -733,6 +734,7 @@ class PackedPatchP1Hierarchy:
         return (x - torch.sum(w * x) / torch.sum(w)) * lay.valid_t
 
     # -- V-cycle -----------------------------------------------------------------
+    @spanned("flow.vcycle")
     def v_cycle(self, b):
         """One V(smooth, smooth) cycle applied to b (zero initial guess):
         linear and SPD, the pressure CG's M."""

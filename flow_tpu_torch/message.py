@@ -1,15 +1,24 @@
-# Indented logging scopes with wall time: the framework's tracing layer.
-# Port of flow_tpu/message.py. A Message scope is also a
-# torch.profiler.record_function range, so the heat and Navier-Stokes
-# substeps show up by name in the card's profiles.
+# Indented logging scopes with wall time, and named spans on the profiler's
+# clock: the framework's tracing layer. Port of flow_tpu/message.py, plus
+# the spans of the time loop.
+#
+# A span is a FUNCTION-scope record (torch's _RecordFunctionFast), the kind
+# every ATen operator opens: it lands among the operators in the host rows of
+# a torch.profiler trace and adds no row on the device's timeline (a
+# record_function range, USER_SCOPE, adds a gpu_user_annotation there). With
+# no profiler recording, a span costs one read of the profiler's flag.
 from __future__ import annotations
 
+import contextlib
+import functools
 import logging
 import time
 
 import torch
+from torch.autograd import profiler as _profiler
 
-__all__ = ["Message", "begin", "end", "info", "set_log_level"]
+__all__ = ["Message", "begin", "end", "host_read", "info", "set_log_level",
+           "span", "spanned"]
 
 logger = logging.getLogger("flow_tpu_torch")
 if not logger.handlers:
@@ -19,6 +28,42 @@ if not logger.handlers:
 logger.setLevel(logging.WARNING)
 
 _depth = 0
+
+# None where the torch build lacks it: spans then stay off (a USER_SCOPE
+# record_function in its place would add device rows to every trace)
+_RecordFunctionFast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+_OFF = contextlib.nullcontext()
+
+
+def span(name):
+    """`with span("flow.pressure"):` a named range in torch.profiler traces
+    while a profiler records, a no-op otherwise."""
+    if _profiler._is_profiler_enabled and _RecordFunctionFast is not None:
+        return _RecordFunctionFast(name)
+    return _OFF
+
+
+def spanned(name):
+    """Decorator: every call of the function inside span(name)."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
+
+
+def host_read(site, read, *args, **kwargs):
+    """read(*args, **kwargs) inside a flow.sync.<site> span: a transfer that
+    the host waits for on a card, so that traces count them by site. Mostly
+    a device value read to the host (`host_read("cg", bool, rnorm > tol)`);
+    also a host number copied to the device."""
+    with span("flow.sync." + site):
+        return read(*args, **kwargs)
 
 
 def set_log_level(level):
@@ -42,7 +87,7 @@ def end():
 
 class Message:
     """`with Message('Computing pressure'):` an indented, timed log scope
-    that is also a named range in torch.profiler traces."""
+    that is also a span of the same name in torch.profiler traces."""
 
     def __init__(self, string):
         self.string = string
@@ -52,7 +97,7 @@ class Message:
     def __enter__(self):
         begin(self.string)
         self._t0 = time.perf_counter()
-        self._trace = torch.profiler.record_function(self.string)
+        self._trace = span(self.string)
         self._trace.__enter__()
         return self
 

@@ -12,6 +12,7 @@ import numpy as np
 from ..fem.bc import DirichletBC
 from ..fem.spaces import FunctionSpace, VectorFunctionSpace
 from ..mesh3d import box_mesh
+from ..utils.profiling import setup_phase
 
 __all__ = ["Cavity3DProblem", "run_cavity3d_fast"]
 
@@ -19,26 +20,32 @@ __all__ = ["Cavity3DProblem", "run_cavity3d_fast"]
 class Cavity3DProblem:
     """Unit cube, n^3 Kuhn cubes, P2/P1 Taylor-Hood, lid u_x = lid_speed on
     z = 1 and no-slip elsewhere. `dtype` and `device` are those of the mesh
-    and the default of a stepper built on it."""
+    and the default of a stepper built on it. setup_seconds holds the
+    seconds of its phases (mesh, spaces, bcs), host clock between device
+    syncs."""
 
     def __init__(self, n=16, rho=1.0, mu=0.01, lid_speed=1.0, dtype=None,
                  device=None):
-        mesh = box_mesh((0, 0, 0), (1, 1, 1), n, n, n, dtype=dtype,
-                        device=device)
+        self.setup_seconds = {}
+        with setup_phase(self.setup_seconds, "mesh"):
+            mesh = box_mesh((0, 0, 0), (1, 1, 1), n, n, n, dtype=dtype,
+                            device=device)
         self.mesh = mesh
         self.rho = rho
         self.mu = mu
-        self.V = VectorFunctionSpace(mesh, 2, n_components=3)
-        self.Q = FunctionSpace(mesh, 1)
+        with setup_phase(self.setup_seconds, "spaces"):
+            self.V = VectorFunctionSpace(mesh, 2, n_components=3)
+            self.Q = FunctionSpace(mesh, 1)
 
         def lid(x):
             return np.where(x[:, 2] > 1 - 1e-12, lid_speed, 0.0)
 
-        self.u_bcs = [
-            DirichletBC(self.V.sub(0), lid, "on_boundary"),
-            DirichletBC(self.V.sub(1), 0.0, "on_boundary"),
-            DirichletBC(self.V.sub(2), 0.0, "on_boundary"),
-        ]
+        with setup_phase(self.setup_seconds, "bcs"):
+            self.u_bcs = [
+                DirichletBC(self.V.sub(0), lid, "on_boundary"),
+                DirichletBC(self.V.sub(1), 0.0, "on_boundary"),
+                DirichletBC(self.V.sub(2), 0.0, "on_boundary"),
+            ]
         self.p_bcs = []
 
 

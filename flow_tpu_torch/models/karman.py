@@ -24,6 +24,7 @@ from ..fem.bc import DirichletBC
 from ..fem.spaces import FunctionSpace, VectorFunctionSpace
 from ..mesh import rectangle_with_hole_mesh, refine_uniform
 from ..message import Message, info
+from ..utils.profiling import setup_phase
 
 __all__ = ["KarmanProblem", "schafer_turek_problem", "run_karman",
            "run_karman_fast", "strouhal_number"]
@@ -39,7 +40,10 @@ MESH_EPS = 1.0e-12
 class KarmanProblem:
     """Flow past a cylinder in a channel; the defaults are the JAX package's
     (its reference geometry). `dtype` and `device` are those of the meshes
-    and the defaults of a stepper built on them (device None: the card)."""
+    and the defaults of a stepper built on them (device None: the card).
+    setup_seconds holds the seconds of its phases (mesh: generation,
+    refinements and snapping; spaces; bcs; probes: the cylinder's boundary
+    tabulations), host clock between device syncs."""
 
     def __init__(
         self,
@@ -69,10 +73,7 @@ class KarmanProblem:
         self.u_ref = u_ref if u_ref is not None else u_in
         cx, cy = center
         r = 0.5 * diameter
-        mesh = rectangle_with_hole_mesh(
-            x0, x1, y0, y1, cx=cx, cy=cy, r=r, lcar=lcar, dtype=dtype,
-            device=device,
-        )
+        self.setup_seconds = {}
 
         def snap_fn(p):
             th = np.arctan2(p[:, 1] - cy, p[:, 0] - cx)
@@ -84,17 +85,23 @@ class KarmanProblem:
             )
             return out
 
-        self.mesh_hierarchy = [mesh]
-        for _ in range(n_refine):
-            mesh = refine_uniform(mesh, snap_boundary=snap_fn if snap else None)
-            self.mesh_hierarchy.append(mesh)
+        with setup_phase(self.setup_seconds, "mesh"):
+            mesh = rectangle_with_hole_mesh(
+                x0, x1, y0, y1, cx=cx, cy=cy, r=r, lcar=lcar, dtype=dtype,
+                device=device,
+            )
+            self.mesh_hierarchy = [mesh]
+            for _ in range(n_refine):
+                mesh = refine_uniform(mesh, snap_boundary=snap_fn if snap else None)
+                self.mesh_hierarchy.append(mesh)
 
         self.mesh = mesh
         self.mu = mu
         self.rho = rho if rho is not None else float(materials.water.density(T=293.0))
-        self.V = VectorFunctionSpace(mesh, 2)
-        self.Q = FunctionSpace(mesh, 1)
-        self.WP = stokes_mod.TaylorHood(mesh, V=self.V, Q=self.Q)
+        with setup_phase(self.setup_seconds, "spaces"):
+            self.V = VectorFunctionSpace(mesh, 2)
+            self.Q = FunctionSpace(mesh, 1)
+            self.WP = stokes_mod.TaylorHood(mesh, V=self.V, Q=self.Q)
 
         left = lambda x: x[:, 0] < x0 + MESH_EPS
         right = lambda x: x[:, 0] > x1 - MESH_EPS
@@ -114,28 +121,30 @@ class KarmanProblem:
             )
 
         V = self.V
-        self.u_bcs = [
-            DirichletBC(V, (0.0, 0.0), upper),
-            DirichletBC(V, (0.0, 0.0), lower),
-            DirichletBC(V, (0.0, 0.0), obstacle),
-            DirichletBC(V.sub(0), profile, left),
-        ]
-        if outflow_velocity_bc:
-            # the parabolic profile at the outlet too (the reference's
-            # semantics); the DFG benchmark uses an open outflow
-            self.u_bcs.append(DirichletBC(V.sub(0), profile, right))
-        # outlet pressure pin for the projection steps
-        self.p_bcs = [DirichletBC(self.Q, 0.0, right)]
+        with setup_phase(self.setup_seconds, "bcs"):
+            self.u_bcs = [
+                DirichletBC(V, (0.0, 0.0), upper),
+                DirichletBC(V, (0.0, 0.0), lower),
+                DirichletBC(V, (0.0, 0.0), obstacle),
+                DirichletBC(V.sub(0), profile, left),
+            ]
+            if outflow_velocity_bc:
+                # the parabolic profile at the outlet too (the reference's
+                # semantics); the DFG benchmark uses an open outflow
+                self.u_bcs.append(DirichletBC(V.sub(0), profile, right))
+            # outlet pressure pin for the projection steps
+            self.p_bcs = [DirichletBC(self.Q, 0.0, right)]
 
         # probe machinery: obstacle facets of the boundary tabulations
         self.obstacle_predicate = obstacle
-        self.btabV = BoundaryTab(self.V, rule_degree=4)
-        self.btabQ = BoundaryTab(self.Q, rule_degree=4)
-        mids = self.btabV.x_np.mean(axis=1)  # [nb, 2] facet qp centroid
-        self.obstacle_facets = torch.as_tensor(
-            np.asarray(obstacle(mids), dtype=np.float64), dtype=mesh.dtype,
-            device=mesh.device,
-        )
+        with setup_phase(self.setup_seconds, "probes"):
+            self.btabV = BoundaryTab(self.V, rule_degree=4)
+            self.btabQ = BoundaryTab(self.Q, rule_degree=4)
+            mids = self.btabV.x_np.mean(axis=1)  # [nb, 2] facet qp centroid
+            self.obstacle_facets = torch.as_tensor(
+                np.asarray(obstacle(mids), dtype=np.float64), dtype=mesh.dtype,
+                device=mesh.device,
+            )
         self.reynolds = self.u_ref * diameter * self.rho / mu
 
     def stokes_bootstrap(self, tol=1.0e-13, max_iter=10000):

@@ -6,7 +6,12 @@
 # pressure Poisson CG on ops/structured.StructuredLaplacian preconditioned by
 # the solvers/structured_mg V-cycle, and a mass-matrix CG velocity
 # correction. The JAX package's lax.scan loops are Python loops here; the
-# time step and the CFL controller stay on the device as 0-d tensors.
+# time step and the CFL controller stay on the device as 0-d tensors. Under
+# torch.profiler each step shows as message.span ranges: flow.step holding
+# flow.momentum, flow.pressure (one flow.vcycle a preconditioner call),
+# flow.correction and flow.cfl, and each transfer that the host waits for
+# as flow.sync.<site> (the Krylov and Picard stopping tests, run's host
+# numbers).
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -17,8 +22,10 @@ from ..fem import assembly
 from ..fem.assembly import geometry
 from ..fem.bc import combine_bcs
 from ..fem.boxpack import BoxPack
+from ..message import host_read, span, spanned
 from ..solvers import krylov
 from ..solvers.structured_mg import StructuredHierarchy
+from ..utils.profiling import setup_phase
 
 __all__ = ["BoxPackedStepper", "StepStats"]
 
@@ -37,7 +44,9 @@ class StepStats(NamedTuple):
 class BoxPackedStepper:
     """Projection stepper on a box_mesh P2/P1 pair (V, Q). Tables and state
     live on `device` in `dtype` (defaults: the mesh's); all setup runs in
-    numpy on the host and its tables move to the device once."""
+    numpy on the host and its tables move to the device once. setup_seconds
+    holds the seconds of building the BoxPack and the hierarchy (its
+    lambda_max included), host clock between device syncs."""
 
     def __init__(
         self,
@@ -71,7 +80,9 @@ class BoxPackedStepper:
         self.picard_tol = float(picard_tol)
         self.V_real, self.Q_real = V, Q
         mesh = V.mesh
-        self.bp = bp = BoxPack(mesh, dtype=dtype, device=device)
+        self.setup_seconds = {}
+        with setup_phase(self.setup_seconds, "BoxPack"):
+            self.bp = bp = BoxPack(mesh, dtype=dtype, device=device)
         self.device = bp.device
         self.dtype = dtype = bp.dtype
         self.rho, self.mu = float(rho), float(mu)
@@ -98,10 +109,11 @@ class BoxPackedStepper:
 
         # pressure operator/preconditioner on the standard P1 grid vector;
         # the Neumann hierarchy's finest operator is the pressure operator
-        self.hierarchy = StructuredHierarchy(
-            mesh, smoother_degree=mg_smoother_degree, device=self.device,
-            dtype=dtype,
-        )
+        with setup_phase(self.setup_seconds, "hierarchy"):
+            self.hierarchy = StructuredHierarchy(
+                mesh, smoother_degree=mg_smoother_degree, device=self.device,
+                dtype=dtype,
+            )
         self.K1 = self.hierarchy.levels[-1].K
         self.pressure_precond = self.hierarchy.v_cycle
         self.ones_p = torch.ones(bp.n1, dtype=dtype, device=self.device)
@@ -129,7 +141,14 @@ class BoxPackedStepper:
         )
 
     def _scalar(self, v):
-        return torch.as_tensor(v, dtype=self.dtype, device=self.device)
+        """v as a 0-d tensor on the device. A host number (or host tensor)
+        gets there by a copy that the host waits for on a card: a
+        flow.sync.scalar read (run makes three a call: dt_max, the CFL
+        target and t = 0)."""
+        if torch.is_tensor(v) and v.device.type != "cpu":
+            return torch.as_tensor(v, dtype=self.dtype, device=self.device)
+        return host_read("scalar", torch.as_tensor, v, dtype=self.dtype,
+                         device=self.device)
 
     def step(self, Uf, Pf, dt):
         """One projection step -> (U1, P1, StepStats)."""
@@ -181,6 +200,20 @@ class BoxPackedStepper:
 
     # -- one projection step ----------------------------------------------------
     def _step_impl(self, Uf, Pf, dt, transport=None, Ff=None):
+        with span("flow.momentum"):
+            Ui, nres, n_nonlin, lin_iters = self._momentum(Uf, Pf, dt,
+                                                           transport, Ff)
+        P1, pinfo = self._pressure_solve(Ui, Pf, dt)
+        U1, cinfo = self._correction(Ui, P1, Pf, dt)
+        return U1, P1, StepStats(
+            n_nonlin, nres, lin_iters, pinfo.iters,
+            cinfo.iters, pinfo.converged, cinfo.converged,
+        )
+
+    # -- substep 1: tentative velocity ------------------------------------------
+    def _momentum(self, Uf, Pf, dt, transport, Ff):
+        """-> (Ui, residual norm, nonlinear iterations, Krylov
+        iterations)."""
         rho, mu = self.rho, self.mu
         free = 1.0 - self.mask_u
         x0 = free * (Uf if transport is None else transport) \
@@ -218,20 +251,16 @@ class BoxPackedStepper:
                 return torch.sqrt(self.dotv(r, r))
 
             Ui, nres, n_nonlin, lin_iters = x0, res_norm(x0), 0, 0
-            while bool(nres > tol) and n_nonlin < self.picard_maxiter:
+            while (host_read("picard", bool, nres > tol)
+                   and n_nonlin < self.picard_maxiter):
                 Ui, sinfo = residual_and_solve(Ui, self.linear_rtol, 0.05 * tol)
                 nres = res_norm(Ui)
                 n_nonlin += 1
                 lin_iters += sinfo.iters
-
-        P1, pinfo = self._pressure_solve(Ui, Pf, dt)
-        U1, cinfo = self._correction(Ui, P1, Pf, dt)
-        return U1, P1, StepStats(
-            n_nonlin, nres, lin_iters, pinfo.iters,
-            cinfo.iters, pinfo.converged, cinfo.converged,
-        )
+        return Ui, nres, n_nonlin, lin_iters
 
     # -- substep 2: pressure Poisson (increment form, rotational) ---------------
+    @spanned("flow.pressure")
     def _pressure_solve(self, Ui, Pf, dt):
         bp = self.bp
         L2 = -(self.rho / dt) * bp.div_rhs(Ui) - self.mu * bp.grad_div_rhs(Ui)
@@ -243,6 +272,7 @@ class BoxPackedStepper:
         return Pf + phi, sinfo
 
     # -- substep 3: velocity correction (increment form, rotational) ------------
+    @spanned("flow.correction")
     def _correction(self, Ui, P1, Pf, dt):
         bp = self.bp
         phi = P1 - Pf
@@ -287,15 +317,17 @@ class BoxPackedStepper:
             dtp = dt if dtp0 is None else self._scalar(dtp0)
         rows = []
         for _ in range(n_steps):
-            if self.bdf2:
-                U1, P1, stats = self._step_impl_bdf2(Uf, Um1, Pf, dt, dtp)
-                Um1, dtp = Uf, dt
-            else:
-                U1, P1, stats = self._step_impl(Uf, Pf, dt)
-            t = t + dt
-            rows.append((t, dt, stats))
-            dt = self._next_dt(U1, dt, dt_cap, cfl)
-            Uf, Pf = U1, P1
+            with span("flow.step"):
+                if self.bdf2:
+                    U1, P1, stats = self._step_impl_bdf2(Uf, Um1, Pf, dt, dtp)
+                    Um1, dtp = Uf, dt
+                else:
+                    U1, P1, stats = self._step_impl(Uf, Pf, dt)
+                with span("flow.cfl"):
+                    t = t + dt
+                    rows.append((t, dt, stats))
+                    dt = self._next_dt(U1, dt, dt_cap, cfl)
+                Uf, Pf = U1, P1
         telemetry = {
             "t": torch.stack([r[0] for r in rows]),
             "dt": torch.stack([r[1] for r in rows]),

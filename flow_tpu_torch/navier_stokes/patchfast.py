@@ -19,9 +19,12 @@
 # momentum solver is a constructor argument (the JAX package's
 # FLOW_MOM_SOLVER environment variable is not read), and there is no
 # hoisting of constants (the JAX package's TPU-only FLOW_NO_HOIST path).
+# Under torch.profiler each step shows as message.span ranges: flow.step
+# holding flow.momentum, flow.pressure (one flow.vcycle a preconditioner
+# call), flow.correction, flow.forces and flow.cfl, and each transfer that
+# the host waits for as flow.sync.<site> (the Krylov and Picard stopping
+# tests, run's host numbers).
 from __future__ import annotations
-
-import time
 
 import torch
 
@@ -30,7 +33,9 @@ from ..fem.assembly import BoundaryTab, geometry
 from ..fem.bc import combine_bcs
 from ..fem.patch import PatchInfo
 from ..fem.patchpack import PackedBoundary, PackedPatch, PackedPatchP1Hierarchy
+from ..message import host_read, span, spanned
 from ..solvers import krylov
+from ..utils.profiling import setup_phase
 from .boxfast import StepStats
 
 __all__ = ["PackedPatchStepper"]
@@ -52,7 +57,8 @@ class PackedPatchStepper:
     `hierarchy.v_cycle` (pressure_precond). forces_probe: a callable
     (U1, P1) -> [2] on the global layout, or with needs_history
     (U1, P1, U0, dt) -> [2] (navier_stokes/forces.py). setup_seconds holds
-    the host seconds of building the PackedPatch and the hierarchy.
+    the seconds of building the PackedPatch and the hierarchy (its
+    lambda_max included), host clock between device syncs.
     """
 
     def __init__(
@@ -98,9 +104,9 @@ class PackedPatchStepper:
         self.picard_tol = float(picard_tol)
         self.V_real, self.Q_real = V, Q
         mesh = V.mesh
-        t0 = time.perf_counter()
-        self.pp = pp = PackedPatch(info, dtype=dtype, device=device)
-        self.setup_seconds = {"PackedPatch": time.perf_counter() - t0}
+        self.setup_seconds = {}
+        with setup_phase(self.setup_seconds, "PackedPatch"):
+            self.pp = pp = PackedPatch(info, dtype=dtype, device=device)
         self.device = pp.device
         self.dtype = dtype = pp.dtype
         self.rho, self.mu = float(rho), float(mu)
@@ -144,12 +150,12 @@ class PackedPatchStepper:
         self.btQ = PackedBoundary(BoundaryTab(Q, rule_degree=6, dtype=dtype,
                                               device=self.device), pp.lay1)
 
-        t0 = time.perf_counter()
-        self.hierarchy = PackedPatchP1Hierarchy(
-            info, bc_mask=self.mask_p if self.has_p_bcs else None,
-            smoother_degree=mg_smoother_degree, dtype=dtype, device=self.device,
-        )
-        self.setup_seconds["hierarchy"] = time.perf_counter() - t0
+        with setup_phase(self.setup_seconds, "hierarchy"):
+            self.hierarchy = PackedPatchP1Hierarchy(
+                info, bc_mask=self.mask_p if self.has_p_bcs else None,
+                smoother_degree=mg_smoother_degree, dtype=dtype,
+                device=self.device,
+            )
         self.pressure_precond = self.hierarchy.v_cycle
 
         # the replicated layout's metric
@@ -193,7 +199,14 @@ class PackedPatchStepper:
         )
 
     def _scalar(self, v):
-        return torch.as_tensor(v, dtype=self.dtype, device=self.device)
+        """v as a 0-d tensor on the device. A host number (or host tensor)
+        gets there by a copy that the host waits for on a card: a
+        flow.sync.scalar read (run makes three a call: dt_max, the CFL
+        target and t = 0)."""
+        if torch.is_tensor(v) and v.device.type != "cpu":
+            return torch.as_tensor(v, dtype=self.dtype, device=self.device)
+        return host_read("scalar", torch.as_tensor, v, dtype=self.dtype,
+                         device=self.device)
 
     def step(self, Uf, Pf, dt):
         """One projection step -> (U1f, P1f, StepStats)."""
@@ -268,6 +281,19 @@ class PackedPatchStepper:
 
     # -- one projection step ---------------------------------------------------
     def _step_impl(self, Uf, Pf, dt, transport=None, Ff=None):
+        with span("flow.momentum"):
+            Ui, nres, n_nonlin, lin_iters, mconv = self._momentum(
+                Uf, Pf, dt, transport, Ff)
+        P1, pinfo = self._pressure_solve(Ui, Pf, dt)
+        U1, cinfo = self._correction(Ui, P1, Pf, dt)
+        return U1, P1, StepStats(n_nonlin, nres, lin_iters, pinfo.iters,
+                                 cinfo.iters, pinfo.converged, cinfo.converged,
+                                 mconv)
+
+    # -- substep 1: tentative velocity -------------------------------------------
+    def _momentum(self, Uf, Pf, dt, transport, Ff):
+        """-> (Ui, residual norm, nonlinear iterations, Krylov iterations,
+        converged)."""
         rho, mu = self.rho, self.mu
         mask, val = self.mask_u, self.val_u
         free = 1.0 - mask
@@ -305,20 +331,17 @@ class PackedPatchStepper:
                 return torch.sqrt(self.dotv(r, r))
 
             Ui, nres, n_nonlin, lin_iters = x0, res_norm(x0), 0, 0
-            while bool(nres > tol) and n_nonlin < self.picard_maxiter:
+            while (host_read("picard", bool, nres > tol)
+                   and n_nonlin < self.picard_maxiter):
                 Ui, sinfo = residual_and_solve(Ui, self.linear_rtol, 0.05 * tol)
                 nres = res_norm(Ui)
                 n_nonlin += 1
                 lin_iters += sinfo.iters
             mconv = nres <= tol
-
-        P1, pinfo = self._pressure_solve(Ui, Pf, dt)
-        U1, cinfo = self._correction(Ui, P1, Pf, dt)
-        return U1, P1, StepStats(n_nonlin, nres, lin_iters, pinfo.iters,
-                                 cinfo.iters, pinfo.converged, cinfo.converged,
-                                 mconv)
+        return Ui, nres, n_nonlin, lin_iters, mconv
 
     # -- substep 2: pressure Poisson (increment form; rotational opt.) --------
+    @spanned("flow.pressure")
     def _pressure_solve(self, Ui, Pf, dt):
         pp = self.pp
         L2 = -(self.rho / dt) * pp.div_rhs(Ui)
@@ -346,12 +369,6 @@ class PackedPatchStepper:
             )
         return Pf + phi, sinfo
 
-    def _pressure_solve_mg(self, Ui, Pf, dt):
-        """The pressure substep -> (P1, iterations): the bench's Poisson
-        axis."""
-        P1, sinfo = self._pressure_solve(Ui, Pf, dt)
-        return P1, sinfo.iters
-
     def bench_residual(self, x, Uf, Pf, dt):
         """One full momentum residual evaluation (operator and right-hand
         side): the bench's assembly axis."""
@@ -362,6 +379,7 @@ class PackedPatchStepper:
         return free * (A_raw(x) - rhs) + self.mask_u * (x - self.val_u)
 
     # -- substep 3: velocity correction (increment form; rotational opt.) -----
+    @spanned("flow.correction")
     def _correction(self, Ui, P1, Pf, dt):
         pp = self.pp
         mask, free = self.mask_u, 1.0 - self.mask_u
@@ -411,27 +429,31 @@ class PackedPatchStepper:
         history = getattr(probe, "needs_history", False)
         rows = []
         for _ in range(n_steps):
-            if self.bdf2:
-                U1, P1, stats = self._step_impl_bdf2(Uf, Um1, Pf, dt, dtp)
-            else:
-                U1, P1, stats = self._step_impl(Uf, Pf, dt)
-            t = t + dt
-            forces = None
-            if probe is not None:
-                Ug, Pg = self.from_packed_state(U1, P1)
-                if history:
-                    # (u_hat, dt_eff) for BDF2: (U1 - u_hat) / dt_eff is the
-                    # variable-step BDF2 derivative
-                    U0, dt0_ = (self._bdf2_hat(Uf, Um1, dt, dtp)[:2]
-                                if self.bdf2 else (Uf, dt))
-                    forces = probe(Ug, Pg, self.from_packed_state(U0, Pf)[0], dt0_)
+            with span("flow.step"):
+                if self.bdf2:
+                    U1, P1, stats = self._step_impl_bdf2(Uf, Um1, Pf, dt, dtp)
                 else:
-                    forces = probe(Ug, Pg)
-            rows.append((t, dt, stats, forces))
-            dt_new = self._next_dt(U1, dt, dt_cap, cfl)
-            if self.bdf2:
-                Um1, dtp = Uf, dt
-            Uf, Pf, dt = U1, P1, dt_new
+                    U1, P1, stats = self._step_impl(Uf, Pf, dt)
+                forces = None
+                if probe is not None:
+                    with span("flow.forces"):
+                        Ug, Pg = self.from_packed_state(U1, P1)
+                        if history:
+                            # (u_hat, dt_eff) for BDF2: (U1 - u_hat) / dt_eff
+                            # is the variable-step BDF2 derivative
+                            U0, dt0_ = (self._bdf2_hat(Uf, Um1, dt, dtp)[:2]
+                                        if self.bdf2 else (Uf, dt))
+                            forces = probe(Ug, Pg,
+                                           self.from_packed_state(U0, Pf)[0], dt0_)
+                        else:
+                            forces = probe(Ug, Pg)
+                with span("flow.cfl"):
+                    t = t + dt
+                    rows.append((t, dt, stats, forces))
+                    dt_new = self._next_dt(U1, dt, dt_cap, cfl)
+                if self.bdf2:
+                    Um1, dtp = Uf, dt
+                Uf, Pf, dt = U1, P1, dt_new
         telemetry = {
             "t": torch.stack([r[0] for r in rows]),
             "dt": torch.stack([r[1] for r in rows]),

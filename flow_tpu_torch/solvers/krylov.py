@@ -6,7 +6,10 @@
 # the iteration stays on the device (GMRES keeps its small Givens
 # bookkeeping on the host, in the working precision). The order of
 # operations and the division guards are the JAX package's, so the
-# iteration counts match it.
+# iteration counts match it. Every blocking read goes through
+# message.host_read, a flow.sync.<solver> span in profiler traces: cg,
+# bicgstab and minres read once an iteration and once more for the test
+# that stops them (unless at maxiter).
 #
 # All solvers take the operator A as a callable x -> A x and return
 # (x, SolveInfo); the stopping rule is the unpreconditioned residual 2-norm,
@@ -17,6 +20,8 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..message import host_read
 
 __all__ = ["SolveInfo", "cg", "bicgstab", "minres", "gmres"]
 
@@ -89,7 +94,7 @@ def cg(
     rnorm = torch.sqrt(_dot_(r, r))
 
     k = 0
-    while k < maxiter and bool(rnorm > target):
+    while k < maxiter and host_read("cg", bool, rnorm > target):
         Ap = proj(A(p))
         pAp = _dot_(p, Ap)
         alpha = rz / torch.where(pAp == 0, 1.0, pAp)
@@ -137,7 +142,7 @@ def bicgstab(
     stall = torch.zeros((), dtype=torch.bool, device=r.device)
 
     k = 0
-    while k < maxiter and bool((rnorm > target) & ~stall):
+    while k < maxiter and host_read("bicgstab", bool, (rnorm > target) & ~stall):
         rho_new = _dot_(rhat, r)
         beta = (rho_new / _nz(rho)) * (alpha / _nz(omega))
         p = r + beta * (p - omega * v)
@@ -200,7 +205,7 @@ def minres(
     rnorm = torch.sqrt(_dot(r1, r1))
 
     k = 0
-    while k < maxiter and bool(rnorm > target):
+    while k < maxiter and host_read("minres", bool, rnorm > target):
         v = y / _nz(beta)
         yv = proj(A(v))
         if k >= 1:
@@ -275,7 +280,7 @@ def gmres(
     tiny10 = real(np.finfo(real).tiny) * real(10.0)
 
     def host(t):
-        return real(t.item())
+        return real(host_read("gmres", torch.Tensor.item, t))
 
     bnorm = torch.sqrt(_dot_(b, b))
     target = max(real(rtol) * host(bnorm), real(atol))
@@ -314,7 +319,8 @@ def gmres(
             w = w - basis(h2.to(bd)) @ Vj
             h = h + h2
             hj1 = torch.sqrt(_dot_(w.view(shape), w.view(shape)))
-            col = torch.cat([h, hj1.reshape(1)]).cpu().numpy().astype(real)
+            col = host_read("gmres", torch.Tensor.cpu,
+                            torch.cat([h, hj1.reshape(1)])).numpy().astype(real)
             brk = bool(col[j + 1] <= tiny10)
             V[j + 1] = torch.where(hj1 <= float(tiny10), torch.zeros_like(w),
                                    w / _nz(hj1)).to(bd)

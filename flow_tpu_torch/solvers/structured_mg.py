@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from ..fem import assembly, dense
 from ..fem.assembly import geometry
 from ..fem.spaces import FunctionSpace
+from ..message import spanned
 from ..ops.structured import StructuredLaplacian
 from ..mesh3d import _device
 from .chebyshev import power_iteration_lmax
@@ -198,6 +199,7 @@ class StructuredHierarchy:
     def _project(x):
         return x - torch.mean(x)
 
+    @spanned("flow.vcycle")
     def v_cycle(self, b):
         if self.neumann:
             b = self._project(b)

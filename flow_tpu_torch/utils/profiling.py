@@ -7,7 +7,9 @@
 #     (torch.utils.flop_counter) and, on the card, its peak allocation,
 #   * `device_memory_stats()`: the caching allocator's statistics a card,
 #   * `Timer`: a host wall-clock timer with dolfin.Timer's semantics,
-#     optionally synchronising the card before each clock read.
+#     optionally synchronising the card before each clock read,
+#   * `setup_phase(seconds, key)`: a set-up phase timed into seconds[key]
+#     by a synchronising Timer, inside a flow.setup.<key> span.
 from __future__ import annotations
 
 import os
@@ -17,7 +19,9 @@ from contextlib import contextmanager
 
 import torch
 
-__all__ = ["trace", "cost_report", "device_memory_stats", "Timer"]
+from ..message import span
+
+__all__ = ["trace", "cost_report", "device_memory_stats", "Timer", "setup_phase"]
 
 
 @contextmanager
@@ -132,3 +136,13 @@ class Timer:
     def __exit__(self, *exc):
         self.stop()
         return False
+
+
+@contextmanager
+def setup_phase(seconds, key):
+    """`with setup_phase(self.setup_seconds, "mesh"):` times the block with
+    Timer(sync=True) into seconds[key], inside a flow.setup.<key> span."""
+    timer = Timer(key, sync=True)
+    with span("flow.setup." + key), timer:
+        yield
+    seconds[key] = timer.elapsed

@@ -1,0 +1,7 @@
+"""Milliseconds a profiled step inside the velocity correction
+(flow.correction spans) in which no operation ran on the device."""
+from flowbench import spans
+
+
+def read(ctx):
+    return spans.idle_ms_per_step(ctx, "flow.correction")
