@@ -23,8 +23,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    mean-removed P within 1e-8;
 4. cavity main path: Cavity3DProblem(n=64), 6,714,692 DoF, float32, the
    benchmark's box-path settings: 1 warm-up step and 5 timed steps; K1's
-   launches by grid; fails if the iterations are not BOX_ITERS (K1 sums in
-   the order it always did);
+   launches by grid and the box momentum kernel's (csrc/boxmom.cu) launches;
+   fails if the iterations are not BOX_ITERS (K1 sums in the order it
+   always did); then the box momentum kernel against its plain version
+   (conv_tables + momentum_apply) at N = 64 and N = 96 in float32 and N =
+   64 in float64: relative error, two calls bitwise equal, wall ms of both
+   and the bound (device ms, L2 warm and cold, with the profiler's at the
+   end);
 5. Karman setup: KarmanProblem(lcar=0.02, n_refine=5), 1,905,056 DoF, the
    FastStepper window route with the benchmark's lagged FastStepper
    settings and a P1Hierarchy with window levels from 20,000 dofs;
@@ -768,7 +773,7 @@ def phase_build():
     th = threading.Thread(target=build_meshkit)
     th.start()
     names = ["stencil3d", "stencil2d", "winstiff", "winmom", "winmom3d", "winmass",
-             "winform", "ell"]
+             "winform", "ell", "boxmom"]
     _build.build_all(names)
     th.join()
     check("error" not in meshkit, f"meshkit build failed: {meshkit.get('error')}")
@@ -941,6 +946,7 @@ def phase_cavity_main():
     import torch
     from flow_tpu_torch.models.cavity3d import Cavity3DProblem
     from flow_tpu_torch.navier_stokes.boxfast import BoxPackedStepper
+    from flow_tpu_torch.ops.boxmom import BOX_MOMENTUM
     from flow_tpu_torch.ops.stencil import GRID_LAUNCHES, STENCIL_3D
 
     t0 = time.perf_counter()
@@ -956,6 +962,7 @@ def phase_cavity_main():
     torch.cuda.reset_peak_memory_stats()
     STENCIL_3D.launches = 0
     GRID_LAUNCHES.clear()
+    mom_before = BOX_MOMENTUM.launches
     Uf, Pf, dt, tel_w = st.run(Uf, Pf, DT0, n_steps=1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -963,6 +970,7 @@ def phase_cavity_main():
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = STENCIL_3D.launches
+    mom_launches = BOX_MOMENTUM.launches - mom_before
     by_grid = dict(GRID_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
@@ -971,7 +979,8 @@ def phase_cavity_main():
         f"after 1 warm-up step)")
     for k in ("dt", "linear_iters", "pressure_iters", "correction_iters"):
         log(f"[cavity] {k}: {tel_all[k]}")
-    log(f"[cavity] peak_mem_bytes={peak} stencil_launches={launches} by grid {by_grid}")
+    log(f"[cavity] peak_mem_bytes={peak} stencil_launches={launches} by grid {by_grid} "
+        f"boxmom_launches={mom_launches}")
     check(bool(torch.isfinite(Uf).all()) and bool(torch.isfinite(Pf).all()),
           "cavity: non-finite state")
     check(bool(torch.isfinite(dt)), "cavity: non-finite dt")
@@ -980,12 +989,95 @@ def phase_cavity_main():
     check(max(tel_all["correction_iters"]) < CORRECTION_MAXITER,
           "cavity: a correction solve did not converge")
     check(launches > 0, "cavity: the stencil kernel was never launched")
+    check(mom_launches > 0, "cavity: the momentum kernel was never launched")
     umax = float(Uf.abs().max())
     check(abs(umax - 1.0) < 1e-6, f"cavity: max |u| {umax} is not the lid speed")
     check(sum(by_grid.values()) == launches, "cavity: launches by grid do not add up")
     for key, want in BOX_ITERS.items():
         check(tel_all[key] == want, f"cavity: {key} {tel_all[key]} are not BOX_ITERS' {want}")
-    return launches, by_grid
+    return launches, by_grid, st.bp
+
+
+def _boxmom_bound_ms(bp, dtype):
+    """The momentum kernel's bound: 6,141 FMA a tet (csrc/boxmom.cu), 6
+    tets a cube; x, T read and y written once."""
+    import torch
+
+    ops = 2 * 6141 * 6 * int(np.prod(bp.Ns))
+    if dtype == torch.float64:
+        return 1e3 * max(3 * 3 * bp.n2 * 8 / HBM_BYTES_PER_S, ops / F64_OPS_PER_S), "operations"
+    return bound_ms(3 * 3 * bp.n2 * 4, ops)
+
+
+def phase_boxmom(bp64):
+    """The box momentum kernel (csrc/boxmom.cu) against its plain version
+    (conv_tables + momentum_apply) at N = 64 (the cavity's BoxPack) and N =
+    96 (the benchmark's cell) in float32, and at N = 64 in float64: the
+    error against the plain version, two calls bitwise equal, wall ms of
+    both by CUDA events, the bound. Returns the rows and the calls whose
+    device times, L2 warm and cold, are taken last."""
+    import torch
+    from flow_tpu_torch.fem.boxpack import BoxPack
+    from flow_tpu_torch.mesh3d import box_mesh
+    from flow_tpu_torch.ops import boxmom
+
+    def pack(n, dtype):
+        return BoxPack(box_mesh((0, 0, 0), (1, 1, 1), n, n, n, dtype=dtype, device="cuda"))
+
+    rows, jobs = {}, {}
+    rng = np.random.default_rng(22)
+    for n, dtype, tol in ((64, torch.float32, 2e-6), (96, torch.float32, 2e-6),
+                          (64, torch.float64, 1e-12)):
+        t0 = time.perf_counter()
+        bp = bp64 if (n, dtype) == (64, torch.float32) else pack(n, dtype)
+        setup_s = time.perf_counter() - t0
+        X, T = (torch.as_tensor(rng.standard_normal(3 * bp.n2), dtype=dtype, device="cuda")
+                for _ in range(2))
+        # the cell's scales: dt ~0.014, rho 1, mu 0.01
+        s_mu, s_rho = (torch.tensor(v, dtype=dtype, device="cuda") for v in (1.4e-4, 1.4e-2))
+        before = boxmom.BOX_MOMENTUM.launches
+        y = boxmom.box_momentum_apply(bp, T, X, s_mu, s_rho)
+        A = bp.conv_tables(T)
+        y_plain = bp.momentum_apply(A, X, s_mu, s_rho)
+        torch.cuda.synchronize()
+        rel = float((y - y_plain).abs().max() / y_plain.abs().max())
+        check(boxmom.BOX_MOMENTUM.launches == before + 1, "boxmom: the launch was not counted")
+        check(torch.equal(boxmom.box_momentum_apply(bp, T, X, s_mu, s_rho), y),
+              f"boxmom N={n} {dtype}: calls differ")
+        check(rel <= tol, f"boxmom N={n} {dtype}: rel err {rel} > {tol}")
+        ms = cuda_time_ms(lambda: boxmom.box_momentum_apply(bp, T, X, s_mu, s_rho), 10)
+        plain_ms = cuda_time_ms(lambda: bp.momentum_apply(A, X, s_mu, s_rho), 3)
+        tables_ms = cuda_time_ms(lambda: bp.conv_tables(T), 2)
+        b_ms, b_by = _boxmom_bound_ms(bp, dtype)
+        key = f"N={n} {str(dtype).split('.')[-1]}"
+        rows[key] = dict(rel_err=rel, ms=ms, plain_ms=plain_ms, tables_ms=tables_ms,
+                         bound_ms=b_ms)
+        log(f"[boxmom] {key}: rel_err={rel:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"(+ conv_tables {tables_ms:.4f} a step) bound_ms={b_ms:.4f} ({b_by}) "
+            f"setup {setup_s:.1f} s")
+        del A, y_plain
+        torch.cuda.empty_cache()
+        if dtype == torch.float32:
+            def call(bp=bp, T=T, X=X, s_mu=s_mu, s_rho=s_rho):
+                return boxmom.box_momentum_apply(bp, T, X, s_mu, s_rho)
+            jobs[key] = {"warm": call, "cold": lambda call=call: (_l2_flush().zero_(), call())}
+    return rows, jobs
+
+
+def _boxmom_device_times(rows, jobs):
+    """Device ms a call of the momentum kernel (its tile kernel and its
+    sum), L2 warm and cold, from the profiler."""
+    for key, pair in jobs.items():
+        for temp, job in pair.items():
+            parts = [device_ms(job, 10, kernel=k) for k in ("boxmom_tiles", "boxmom_sum")]
+            rows[key]["sum_ms" if temp == "warm" else "sum_cold_ms"] = parts[1]
+            rows[key]["device_ms" if temp == "warm" else "device_cold_ms"] = sum(parts)
+    log("[profile] boxmom device ms a call, L2 warm / cold, of it the tile sums (wall; plain; "
+        "bound): "
+        + ", ".join(f"{k}={r['device_ms']:.4f}/{r['device_cold_ms']:.4f}, "
+                    f"{r['sum_ms']:.4f}/{r['sum_cold_ms']:.4f} ({r['ms']:.4f}; "
+                    f"{r['plain_ms']:.4f}; {r['bound_ms']:.4f})"
+                    for k, r in rows.items() if "device_ms" in r))
 
 
 def _karman(dtype, device, lcar, n_refine, lmax=None, settings=KARMAN_SETTINGS):
@@ -4452,7 +4544,10 @@ def main():
         k1, k1_rows, k1_jobs = phase_stencil(3)
         k2, k2_rows, k2_jobs = phase_stencil(2)
         phase_cavity_parity()
-        k1["launches"], box_grids = phase_cavity_main()
+        k1["launches"], box_grids, bp64 = phase_cavity_main()
+        boxmom_rows, boxmom_jobs = phase_boxmom(bp64)
+        del bp64
+        torch.cuda.empty_cache()
         prob, st, hier, setup = phase_karman_setup()
         kwin, win_jobs = phase_window_kernels(st, hier)
         phase_karman_parity(KARMAN_SETTINGS, "karman-parity")
@@ -4575,6 +4670,7 @@ def main():
             f"{k3d['winstiff3d']['device_cold_ms']:.5f}; "
             + ", ".join(f"{k}={v:.5f}" for k, v in k4b3.items()))
         _stencil_device_times("K1", k1, k1_rows, k1_jobs)
+        _boxmom_device_times(boxmom_rows, boxmom_jobs)
         _stencil_device_times("K2", k2, k2_rows, k2_jobs)
         # K4a and K5 at NL = 6 (formwin2d) and NL = 10 (tets N=32), L2
         # warm and cold

@@ -24,6 +24,7 @@ import torch
 from . import assembly, elements, quadrature
 from .assembly import CONV_RULE
 from ..mesh3d import _device
+from ..ops import boxmom
 
 __all__ = ["BoxPack"]
 
@@ -60,6 +61,7 @@ class BoxPack:
         self._build_tabs()
         self._build_maps(mesh)
         self._build_constants()
+        self._momentum_launch = None
 
     # -- per-type constant geometry -------------------------------------------
     def _build_types(self, h):
@@ -380,3 +382,20 @@ class BoxPack:
             for a in range(3):
                 self.acc_stack2(accs[a], t, y[a])
         return out
+
+    def momentum_launch(self):
+        """The hand-written kernel of the momentum operator on this layout's
+        card (ops/boxmom.BoxMomentum), built at the first call."""
+        if self._momentum_launch is None:
+            self._momentum_launch = boxmom.BoxMomentum(self)
+        return self._momentum_launch
+
+    def momentum_operator(self, Tf, s_mu, s_rho):
+        """x -> momentum_apply(conv_tables(Tf), x, s_mu, s_rho) for the
+        lagged transport Tf: on the card the kernel of ops/boxmom.py, which
+        builds no table; on the CPU the plain version, its tables built once
+        here."""
+        if Tf.device.type == "cpu":
+            A = self.conv_tables(Tf)
+            return lambda x: self.momentum_apply(A, x, s_mu, s_rho)
+        return lambda x: boxmom.box_momentum_apply(self, Tf, x, s_mu, s_rho)

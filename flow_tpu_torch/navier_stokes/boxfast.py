@@ -165,14 +165,8 @@ class BoxPackedStepper:
 
     # -- momentum --------------------------------------------------------------
     def _mom_operator(self, Tf, dt):
-        bp = self.bp
         s = dt / self.rho
-        A_tabs = bp.conv_tables(Tf)
-
-        def A(xf):
-            return bp.momentum_apply(A_tabs, xf, s * self.mu, s * self.rho)
-
-        return A
+        return self.bp.momentum_operator(Tf, s * self.mu, s * self.rho)
 
     def _mom_rhs(self, Uf, Pf, dt, Ff=None):
         bp = self.bp
